@@ -1,0 +1,146 @@
+"""Build and load the port's Hopper kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+first use, into ``build/hopper`` at the checkout root (or
+``$SMM_TORCH_BUILD_DIR``), keyed by a hash of the sources and the flags and
+guarded by a file lock, so concurrent first users build it once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines with no ``nvcc`` and no GPU.
+"""
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every C entry point: pointers and the stream as c_void_p so
+# ctypes never truncates them to 32 bits.
+SIGNATURES = {
+    "smm_attention_block": [_I] + [_P] * 11 + [_F, _I, _I, _I, _I, _I] + [_P] * 5,
+    "smm_ffn_block": [_I] + [_P] * 7 + [_F, _I, _I, _I, _I, _I] + [_P] * 5,
+    "smm_deberta_attention": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                              _I, _I, _I, _I, _P, _P],
+}
+
+_lib = None
+build_info = {}  # seconds and compiler log of the build this process loaded
+
+
+def build_dir() -> Path:
+    env = os.environ.get("SMM_TORCH_BUILD_DIR")
+    return Path(env) if env else CSRC.parents[1] / "build" / "hopper"
+
+
+def find_nvcc() -> str:
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin and PATH): the Hopper kernels "
+                       "cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _check_device():
+    if not torch.cuda.is_available():
+        raise RuntimeError("the Hopper kernels need a CUDA device")
+    cap = torch.cuda.get_device_capability()
+    if cap != (9, 0):
+        raise RuntimeError(f"the Hopper kernels are built for sm_90a; this "
+                           f"device has compute capability {cap}")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    _check_device()
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / f"libsmm_hopper_{_key()}.so"
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            cu, _ = _sources()
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp,
+                   *map(str, cu)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            build_info["seconds"] = time.perf_counter() - t0
+            build_info["log"] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError("nvcc failed:\n" + build_info["log"])
+            os.replace(tmp, so)
+        else:
+            build_info.setdefault("seconds", 0.0)
+            build_info.setdefault("log", "cached")
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    lib.smm_error_string.argtypes = [_I]
+    lib.smm_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = lib.smm_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err}: {msg}")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"the Hopper kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int:
+    return None if t is None else t.data_ptr()

@@ -1,0 +1,134 @@
+"""DeBERTa disentangled attention:
+softmax((QKᵀ + c2p + p2c)/√(3D), masked keys = -1e30)·V with
+
+    c2p[q, k] = q_q · pos_k[clip(bucket(q − k) + span)]
+    p2c[q, k] = k_k · pos_q[clip(−bucket(k − q) + span)]
+
+(the second equals clip(bucket(q − k) + span), as the bucket map is
+antisymmetric).
+
+Replaces the TPU kernel simple_multimodal_tpu/ops/pallas/deberta_attention.py
+(``_kernel`` via ``_fused_call``). On a CUDA tensor the wrapper launches the
+hand-written kernel in ``csrc/deberta_attention.cu``: one block per (query
+tile, head, batch) that gathers the position-table rows each key tile needs
+through the host-built index maps below. On a CPU tensor it runs
+``deberta_attention_plain``, the port of that file's ``_xla_reference`` with
+a gather in place of the TPU's rel-shift skew.
+"""
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -1e30  # finite fill: an all-masked row attends uniformly
+
+
+def log_bucket(rel: np.ndarray, bucket_size: int, max_position: int) -> np.ndarray:
+    """DeBERTa's log-bucket map, elementwise over relative positions:
+    within ±bucket_size/2 exact, farther ones log-spaced into the remaining
+    buckets. Antisymmetric: b(−x) = −b(x)."""
+    mid = bucket_size // 2
+    sign = np.sign(rel)
+    abs_pos = np.where((rel < mid) & (rel > -mid), mid - 1, np.abs(rel))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        log_pos = (
+            np.ceil(np.log(abs_pos / mid) / np.log((max_position - 1) / mid) * (mid - 1))
+            + mid
+        )
+    bucket = np.where(abs_pos <= mid, rel.astype(np.float64), log_pos * sign)
+    return bucket.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def rel_index_maps(S: int, span: int, max_position: int):
+    """Position-table row for every relative offset r = q − k in
+    [−(S−1), S−1], stored at r + S − 1: (idx_c, idx_p), int32 [2S − 1].
+
+    Built as ``build_rel_tables`` builds its tables: c2p over rows = q with
+    rel = q − k, p2c over rows = k with rel = k − q and the bucket negated.
+    """
+    r = np.arange(-(S - 1), S)
+    idx_c = np.clip(log_bucket(r, span, max_position) + span, 0, 2 * span - 1)
+    idx_p = np.clip(-log_bucket(-r, span, max_position) + span, 0, 2 * span - 1)
+    return idx_c.astype(np.int32), idx_p.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _device_maps(S: int, span: int, max_position: int, device: torch.device):
+    return tuple(torch.from_numpy(m).to(device)
+                 for m in rel_index_maps(S, span, max_position))
+
+
+def deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span: int,
+                            max_position: int):
+    """Plain PyTorch version of the JAX ``_xla_reference``: materializes the
+    [B, H, S, S] scores and gathers the two bias terms from
+    [B, H, S, 2·span] table products. Same arguments as the wrapper."""
+    B, S, H, D = q.shape
+    f32 = torch.float32
+    pk = pos_k.to(q.dtype).reshape(2 * span, H, D).to(f32)
+    pq = pos_q.to(q.dtype).reshape(2 * span, H, D).to(f32)
+    qf, kf = q.to(f32), k.to(f32)
+    idx_c, idx_p = (torch.from_numpy(m).to(q.device).long()
+                    for m in rel_index_maps(S, span, max_position))
+    pos = torch.arange(S, device=q.device)
+    rel = pos[:, None] - pos[None, :] + (S - 1)                    # [q, k]
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    qp = torch.einsum("bqhd,phd->bhqp", qf, pk)                    # [B,H,q,P]
+    s = s + torch.gather(qp, 3, idx_c[rel].expand(B, H, S, S))
+    kp = torch.einsum("bkhd,phd->bhkp", kf, pq)                    # [B,H,k,P]
+    s = s + torch.gather(kp, 3, idx_p[rel.t()].expand(B, H, S, S)).transpose(2, 3)
+    s = s * (1.0 / math.sqrt(3.0 * D))
+    if attention_mask is not None:
+        s = torch.where(attention_mask[:, None, None, :] > 0, s,
+                        torch.full_like(s, NEG_INF))
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(f32), v.to(f32))
+    return out.to(q.dtype)
+
+
+def deberta_attention(q, k, v, pos_k, pos_q,
+                      attention_mask: Optional[torch.Tensor], span: int,
+                      max_position: int):
+    """Fused disentangled attention; same arguments and layouts as the JAX
+    ``deberta_attention``: q/k/v [B, S, H, D], pos_k/pos_q [2·span, H·D] or
+    [2·span, H, D], attention_mask [B, S] (1 = attend) or None. Applies
+    the 1/√(3D) scaling. Returns [B, S, H, D].
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.
+    """
+    if q.device.type == "cpu":
+        return deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask,
+                                       span, max_position)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"deberta_attention: no kernel for device {q.device}")
+    B, S, H, D = q.shape
+    if D not in (16, 32, 64):
+        raise ValueError(f"deberta_attention: head width {D} not in (16, 32, 64)")
+    dt = q.dtype
+    code = _build.dtype_code(q)
+    lib = _build.library()
+    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
+    pk = pos_k.to(dt).reshape(2 * span, H * D).contiguous()
+    pq = pos_q.to(dt).reshape(2 * span, H * D).contiguous()
+    if attention_mask is None:
+        mask = torch.ones((B, S), dtype=torch.int32, device=q.device)
+    else:
+        mask = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    idx_c, idx_p = _device_maps(S, span, max_position, q.device)
+    out = torch.empty_like(q)
+    p = _build.ptr
+    err = lib.smm_deberta_attention(
+        code, p(q), p(k), p(v), H * D, p(pk), p(pq), H * D, p(idx_c),
+        p(idx_p), p(mask), B, S, H, D, p(out), _build.stream_ptr(q))
+    _build.check(lib, err, "deberta_attention")
+    deberta_attention.launches += 1
+    return out
+
+
+deberta_attention.launches = 0
