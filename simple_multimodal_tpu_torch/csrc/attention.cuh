@@ -18,6 +18,17 @@
 // per-token row stride (3E for the packed projection buffer), so no
 // transposed copies are made.
 //
+// Dropout (attention_block, deberta_attention in training): probabilities
+// are normalised by the row sum of ALL exponentials, pre-dropout, and each
+// kept one is scaled by 1/(1-rate) before its bf16 rounding and .V, as the
+// TPU kernel's `_kernel` does; the keep mask is the stateless hash of
+// (seed, b*H + h, q, k) (common.cuh).
+//
+// The backward (attention_bwd.cuh) re-runs this kernel with `m_out`,
+// `l_out` and `delta` set: it then also stores each row's max and sum of
+// exponentials, and delta = rowsum(dout * out) per head, the softmax
+// backward's row term (sum_k dp p, which equals dout . ctx with dropout).
+//
 // Two bodies: for bf16, `attention_wmma_kernel` runs every product (QK^T,
 // P.V and, with REL, the two query/key x table-row products) on the tensor
 // cores through WMMA with f32 accumulators, the probabilities rounded to
@@ -55,7 +66,43 @@ struct AttnArgs {
   const int* idx_c;  // [2S - 1], indexed by (q - k) + S - 1
   const int* idx_p;
   const int* mask;  // [B, S], 0 = masked key; null = none
+  Drop drop;
+  // backward re-run only: row stats [B*H*S] and delta from dout [.., lddo]
+  float* m_out;
+  float* l_out;
+  float* delta;
+  const void* dout;
+  int lddo;
 };
+
+// The probability that goes into P.V: dropped or scaled by the hash.
+__device__ __forceinline__ float drop_prob(const AttnArgs& a, float p, int bh, int q, int k) {
+  if (!a.drop.seed) return p;
+  return hash_keep((uint32_t)*a.drop.seed, bh, q, k, a.drop.thresh) ? p * a.drop.scale : 0.0f;
+}
+
+// End of a query row: the row stats and delta for the backward. `o` holds
+// this lane's output columns lane + 32 j, already divided by l.
+template <typename T, int DPL, int D>
+__device__ __forceinline__ void store_row_stats(const AttnArgs& a, size_t tok, int h, size_t bhs,
+                                                float m, float l, const float (&o)[DPL]) {
+  const int lane = threadIdx.x & 31;
+  if (a.m_out && lane == 0) {
+    a.m_out[bhs] = m;
+    a.l_out[bhs] = l;
+  }
+  if (a.delta) {
+    const T* dO = (const T*)a.dout + tok * a.lddo + h * D;
+    float d = 0.0f;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int c = lane + 32 * j;
+      if (c < D) d += o[j] * to_f32(dO[c]);
+    }
+    d = warp_sum(d);
+    if (lane == 0) a.delta[bhs] = d;
+  }
+}
 
 template <int D, bool REL>
 constexpr size_t attention_smem_bytes() {
@@ -63,7 +110,9 @@ constexpr size_t attention_smem_bytes() {
                           (REL ? 2 * (size_t)kRelRows * (D + 1) : 0));
 }
 
-template <typename T, int D, bool REL>
+// TRAIN: the dropout and the backward's row statistics are compiled in
+// (serving instantiates the kernels without them).
+template <typename T, int D, bool REL, bool TRAIN>
 __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs a) {
   constexpr int LD = D + 1;  // odd pitch: lanes reading different rows hit different banks
   constexpr int DPL = (D + 31) / 32;
@@ -166,11 +215,16 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs a) {
         s2[j] = past_end[j] ? -INFINITY : masked[j] ? kMaskFill : sc[r][j] * a.scale;
       const float mnew = fmaxf(m[r], warp_max(fmaxf(s2[0], s2[1])));
       const float alpha = __expf(m[r] - mnew);
-      const float p0 = __expf(s2[0] - mnew), p1 = __expf(s2[1] - mnew);
+      float p0 = __expf(s2[0] - mnew), p1 = __expf(s2[1] - mnew);
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = mnew;
 #pragma unroll
       for (int j = 0; j < DPL; ++j) o[r][j] *= alpha;
+      if (TRAIN) {
+        const int bh = b * a.H + h, qg = q0 + warp * 16 + r;
+        p0 = drop_prob(a, p0, bh, qg, k0 + lane);
+        p1 = drop_prob(a, p1, bh, qg, k0 + lane + 32);
+      }
       P[r * kTK + lane] = p0;
       P[r * kTK + lane + 32] = p1;
     }
@@ -200,11 +254,15 @@ __global__ void __launch_bounds__(kAttnThreads) attention_kernel(AttnArgs a) {
     const int s = q0 + warp * 16 + r;
     if (s >= S) continue;
     const float inv = 1.0f / l[r];
+    float on[DPL];
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int c = lane + 32 * j;
-      if (c < D) O[(tok0 + s) * a.ldo + h * D + c] = from_f32<T>(o[r][j] * inv);
+      on[j] = o[r][j] * inv;
+      if (c < D) O[(tok0 + s) * a.ldo + h * D + c] = from_f32<T>(on[j]);
     }
+    if (TRAIN)
+      store_row_stats<T, DPL, D>(a, tok0 + s, h, ((size_t)b * a.H + h) * S + s, m[r], l[r], on);
   }
 }
 
@@ -244,7 +302,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, int rows, RowFn src_row) {
   }
 }
 
-template <int D, bool REL>
+template <int D, bool REL, bool TRAIN>
 __global__ void __launch_bounds__(kAttnThreads) attention_wmma_kernel(AttnArgs a) {
   using namespace nvcuda;
   using P = WmmaPlan<D, REL>;
@@ -375,11 +433,16 @@ __global__ void __launch_bounds__(kAttnThreads) attention_wmma_kernel(AttnArgs a
       }
       const float mnew = fmaxf(m[r], warp_max(fmaxf(s2[0], s2[1])));
       const float alpha = __expf(m[r] - mnew);
-      const float p0 = __expf(s2[0] - mnew), p1 = __expf(s2[1] - mnew);
+      float p0 = __expf(s2[0] - mnew), p1 = __expf(s2[1] - mnew);
       l[r] = l[r] * alpha + warp_sum(p0 + p1);
       m[r] = mnew;
 #pragma unroll
       for (int j = 0; j < DPL; ++j) o[r][j] *= alpha;
+      if (TRAIN) {
+        const int bh = b * a.H + h, qg = q0 + warp * 16 + r;
+        p0 = drop_prob(a, p0, bh, qg, k0 + lane);
+        p1 = drop_prob(a, p1, bh, qg, k0 + lane + 32);
+      }
       Pw[r * LDP + lane] = __float2bfloat16(p0);
       Pw[r * LDP + lane + 32] = __float2bfloat16(p1);
     }
@@ -415,32 +478,45 @@ __global__ void __launch_bounds__(kAttnThreads) attention_wmma_kernel(AttnArgs a
     const int s = q0 + warp * 16 + r;
     if (s >= S) continue;
     const float inv = 1.0f / l[r];
+    float on[DPL];
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int c = lane + 32 * j;
-      if (c < D) O[(tok0 + s) * a.ldo + h * D + c] = __float2bfloat16(o[r][j] * inv);
+      on[j] = o[r][j] * inv;
+      if (c < D) O[(tok0 + s) * a.ldo + h * D + c] = __float2bfloat16(on[j]);
     }
+    if (TRAIN)
+      store_row_stats<bf16, DPL, D>(a, tok0 + s, h, ((size_t)b * a.H + h) * S + s, m[r], l[r],
+                                    on);
   }
+}
+
+template <typename T, int D, bool REL, bool TRAIN>
+static inline int launch_attention_t(const AttnArgs& a, int B, cudaStream_t st) {
+  dim3 grid((a.S + kTQ - 1) / kTQ, a.H, B);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = WmmaPlan<D, REL>::bytes;
+    const cudaError_t e = cudaFuncSetAttribute(attention_wmma_kernel<D, REL, TRAIN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attention_wmma_kernel<D, REL, TRAIN><<<grid, kAttnThreads, smem, st>>>(a);
+  } else {
+    constexpr size_t smem = attention_smem_bytes<D, REL>();
+    const cudaError_t e = cudaFuncSetAttribute(attention_kernel<T, D, REL, TRAIN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attention_kernel<T, D, REL, TRAIN><<<grid, kAttnThreads, smem, st>>>(a);
+  }
+  SMM_CHECK_LAUNCH();
+  return 0;
 }
 
 template <typename T, int D, bool REL>
 static inline int launch_attention_d(const AttnArgs& a, int B, cudaStream_t st) {
-  dim3 grid((a.S + kTQ - 1) / kTQ, a.H, B);
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t smem = WmmaPlan<D, REL>::bytes;
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_wmma_kernel<D, REL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attention_wmma_kernel<D, REL><<<grid, kAttnThreads, smem, st>>>(a);
-  } else {
-    constexpr size_t smem = attention_smem_bytes<D, REL>();
-    const cudaError_t e = cudaFuncSetAttribute(
-        attention_kernel<T, D, REL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attention_kernel<T, D, REL><<<grid, kAttnThreads, smem, st>>>(a);
-  }
-  SMM_CHECK_LAUNCH();
-  return 0;
+  if (a.drop.seed || a.m_out) return launch_attention_t<T, D, REL, true>(a, B, st);
+  return launch_attention_t<T, D, REL, false>(a, B, st);
 }
 
 // Head widths the kernel is instantiated for; the wrappers check D first.

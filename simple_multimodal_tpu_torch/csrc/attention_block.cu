@@ -1,5 +1,6 @@
 // Fused self-attention block for Hopper: [pre-LN ->] q, k, v = x W + b ->
-// per head softmax(q k^T / sqrt(D)) v -> out-projection + bias [+ x].
+// per head softmax(q k^T / sqrt(D)) [hash dropout] v -> out-projection +
+// bias [+ x].
 //
 // Replaces simple_multimodal_tpu/ops/pallas/attention_block.py, `_kernel`
 // via `_fused_call` (forward). The TPU kernel keeps one batch item's
@@ -29,8 +30,8 @@ using namespace smm;
 template <typename T>
 int run(const void* x, const void* wq, const void* bq, const void* wk, const void* bk,
         const void* wv, const void* bv, const void* wo, const void* bo, const void* ln_g,
-        const void* ln_b, float ln_eps, int residual, int B, int S, int E, int H, void* xn,
-        void* qkv, void* ctx, void* out, cudaStream_t st) {
+        const void* ln_b, float ln_eps, int residual, int B, int S, int E, int H, Drop drop,
+        void* xn, void* qkv, void* ctx, void* out, cudaStream_t st) {
   const int M = B * S, D = E / H;
   const T* a = (const T*)x;
   if (ln_g) {
@@ -55,6 +56,7 @@ int run(const void* x, const void* wq, const void* bq, const void* wk, const voi
   at.S = S;
   at.H = H;
   at.scale = 1.0f / sqrtf((float)D);
+  at.drop = drop;
   if (int e = launch_attention<T, false>(at, B, D, st)) return e;
   Epilogue ep{bo, residual ? x : nullptr, E, out, E, ACT_NONE, 0};
   return launch_gemm((const T*)ctx, E, (const T*)wo, E, M, E, E, ep, st);
@@ -63,20 +65,24 @@ int run(const void* x, const void* wq, const void* bq, const void* wk, const voi
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16. Weights in torch Linear layout [E_out, E_in].
-// xn [B*S, E] (used when ln_g is set), qkv [B*S, 3E] and ctx [B*S, E] are
-// scratch the caller allocates. Returns the first CUDA error, or 0.
+// seed: device int32 [1], or null for no dropout; thresh = rate * 2^32,
+// scale = 1 / (1 - rate). xn [B*S, E] (used when ln_g is set), qkv
+// [B*S, 3E] and ctx [B*S, E] are scratch the caller allocates. Returns the
+// first CUDA error, or 0.
 extern "C" int smm_attention_block(int dtype, const void* x, const void* wq, const void* bq,
                                    const void* wk, const void* bk, const void* wv,
                                    const void* bv, const void* wo, const void* bo,
                                    const void* ln_g, const void* ln_b, float ln_eps,
-                                   int residual, int B, int S, int E, int H, void* xn, void* qkv,
-                                   void* ctx, void* out, void* stream) {
+                                   int residual, int B, int S, int E, int H, const int* seed,
+                                   unsigned thresh, float scale, void* xn, void* qkv, void* ctx,
+                                   void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Drop drop{seed, thresh, scale};
   if (dtype == 1)
     return run<bf16>(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_g, ln_b, ln_eps, residual, B, S, E,
-                     H, xn, qkv, ctx, out, st);
+                     H, drop, xn, qkv, ctx, out, st);
   return run<float>(x, wq, bq, wk, bk, wv, bv, wo, bo, ln_g, ln_b, ln_eps, residual, B, S, E, H,
-                    xn, qkv, ctx, out, st);
+                    drop, xn, qkv, ctx, out, st);
 }
 
 extern "C" const char* smm_error_string(int err) {

@@ -1,5 +1,5 @@
 // DeBERTa disentangled attention for Hopper:
-//   softmax((q k^T + c2p + p2c) / sqrt(3D), masked keys = -1e30) v
+//   softmax((q k^T + c2p + p2c) / sqrt(3D), masked keys = -1e30) [drop] v
 //   c2p[q, k] = q_q . pos_k[idx_c(q - k)],  p2c[q, k] = k_k . pos_q[idx_p(q - k)]
 //
 // Replaces simple_multimodal_tpu/ops/pallas/deberta_attention.py, `_kernel`
@@ -25,7 +25,7 @@ using namespace smm;
 template <typename T>
 int run(const void* q, const void* k, const void* v, int ld, const void* pos_k,
         const void* pos_q, int ldp, const int* idx_c, const int* idx_p, const int* mask, int B,
-        int S, int H, int D, void* out, cudaStream_t st) {
+        int S, int H, int D, Drop drop, void* out, cudaStream_t st) {
   AttnArgs at{};
   at.q = q;
   at.k = k;
@@ -42,6 +42,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k,
   at.idx_c = idx_c;
   at.idx_p = idx_p;
   at.mask = mask;
+  at.drop = drop;
   return launch_attention<T, true>(at, B, D, st);
 }
 
@@ -49,13 +50,18 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k,
 
 // dtype: 0 = f32, 1 = bf16. q/k/v/out [B, S, H, D] with `ld` elements per
 // token; pos_k/pos_q [2*span, ldp]; idx_c/idx_p int32 [2S - 1];
-// mask int32 [B, S]. Returns the first CUDA error, or 0.
+// mask int32 [B, S]; seed device int32 [1] or null (no dropout). Returns
+// the first CUDA error, or 0.
 extern "C" int smm_deberta_attention(int dtype, const void* q, const void* k, const void* v,
                                      int ld, const void* pos_k, const void* pos_q, int ldp,
                                      const int* idx_c, const int* idx_p, const int* mask, int B,
-                                     int S, int H, int D, void* out, void* stream) {
+                                     int S, int H, int D, const int* seed, unsigned thresh,
+                                     float scale, void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Drop drop{seed, thresh, scale};
   if (dtype == 1)
-    return run<bf16>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, out, st);
-  return run<float>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, out, st);
+    return run<bf16>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, drop, out,
+                     st);
+  return run<float>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, drop, out,
+                    st);
 }

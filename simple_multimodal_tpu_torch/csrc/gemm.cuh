@@ -1,14 +1,15 @@
 // Tiled GEMM with a fused epilogue, and a LayerNorm row kernel: the two
 // building blocks that attention_block.cu and ffn_block.cu chain.
 //
-//   out[M, N] = act(A[M, K] . W[N, K]^T + bias) (+ res)
+//   out[M, N] = drop(act(A[M, K] . W[N, K]^T + bias)) (+ res)
 //
 // W is in torch Linear layout ([out, in], K contiguous), so both operands
 // are K-major. bf16 inputs run on the tensor cores through WMMA (16x16x16,
 // f32 accumulators) from a two-stage cp.async pipeline in shared memory;
 // f32 inputs run a plain shared-memory tiled FMA loop, so an f32 call sums
 // in full f32 (no TF32). The epilogue adds the bias, applies the GELU,
-// adds the residual and stores in the input type or in f32.
+// applies the FFN hash dropout, adds the residual and stores in the input
+// type or in f32.
 #pragma once
 
 #include <mma.h>
@@ -19,19 +20,34 @@ namespace smm {
 
 struct Epilogue {
   const void* bias;  // [N] in the input type, or null
-  const void* res;   // [M, ldr] in the input type, or null
+  const void* res;   // [M, ldr] in the input type (f32 with res_f32), or null
   int ldr;
   void* out;  // [M, ldc]
   int ldc;
   int act;      // Act
   int out_f32;  // 1: store f32, 0: store the input type
+  int res_f32;
+  // FFN dropout over (b, s, c) = (r / drop_S, r % drop_S, c), with the
+  // seed + salt of the site; off when drop.seed is null
+  Drop drop;
+  int salt;
+  int drop_S;
+  const float* aux;  // [M, N] pre-activation for ACT_DGELU_*
 };
 
 template <typename T>
 __device__ __forceinline__ void epilogue_store(const Epilogue& ep, int r, int c, float v) {
   if (ep.bias) v += to_f32(((const T*)ep.bias)[c]);
-  v = apply_act(v, ep.act);
-  if (ep.res) v += to_f32(((const T*)ep.res)[(size_t)r * ep.ldr + c]);
+  if (ep.act == ACT_GELU_ERF || ep.act == ACT_GELU_TANH) v = apply_act(v, ep.act);
+  if (ep.drop.seed) {
+    const uint32_t seed = (uint32_t)*ep.drop.seed + (uint32_t)ep.salt;
+    v = hash_keep(seed, r / ep.drop_S, r % ep.drop_S, c, ep.drop.thresh) ? v * ep.drop.scale : 0.0f;
+  }
+  if (ep.act == ACT_DGELU_ERF || ep.act == ACT_DGELU_TANH)
+    v *= gelu_grad(ep.aux[(size_t)r * ep.ldc + c], ep.act - 2);
+  if (ep.res)
+    v += ep.res_f32 ? ((const float*)ep.res)[(size_t)r * ep.ldr + c]
+                    : to_f32(((const T*)ep.res)[(size_t)r * ep.ldr + c]);
   if (ep.out_f32)
     ((float*)ep.out)[(size_t)r * ep.ldc + c] = v;
   else
@@ -237,6 +253,143 @@ static inline int launch_layernorm(const TIn* x, const T* g, const T* b, T* y, i
   layernorm_kernel<TIn, T><<<(M + 7) / 8, 256, 0, st>>>(x, g, b, y, M, E, eps);
   SMM_CHECK_LAUNCH();
   return 0;
+}
+
+// ------------------------------------------------------ LayerNorm backward
+
+// dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) [+ add], with
+// dxhat = dy g and the statistics recomputed (two passes, f32), one warp
+// per row. The scale and bias gradients (sums over rows of dy xhat and dy)
+// are kept per block as [2, E] partials and summed over blocks in a fixed
+// order by ln_grad_reduce_kernel, so the result does not vary from run to
+// run as f32 atomics would. dx may alias dy (each lane reads its columns
+// before it writes them).
+constexpr int kLnBwdRows = 64;  // 4 warps x 16 rows; _build.LN_BWD_ROWS
+constexpr int kLnMaxE = 1024;
+
+template <typename T, typename TDy, typename TX, typename TAdd, typename TOut>
+__global__ void __launch_bounds__(128)
+    ln_bwd_kernel(const TDy* dy, const TX* x, const T* __restrict__ g, float eps, int M, int E,
+                  const TAdd* add, TOut* dx, float* __restrict__ part) {
+  __shared__ float red[4][2 * kLnMaxE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float ag[kLnMaxE / 32], ab[kLnMaxE / 32];
+#pragma unroll
+  for (int i = 0; i < kLnMaxE / 32; ++i) ag[i] = ab[i] = 0.0f;
+  for (int rr = 0; rr < kLnBwdRows / 4; ++rr) {
+    const int row = blockIdx.x * kLnBwdRows + warp * (kLnBwdRows / 4) + rr;
+    if (row >= M) break;
+    const TX* xr = x + (size_t)row * E;
+    const TDy* dr = dy + (size_t)row * E;
+    float s = 0.0f;
+    for (int c = lane; c < E; c += 32) s += to_f32(xr[c]);
+    const float mu = warp_sum(s) / E;
+    float v = 0.0f;
+    for (int c = lane; c < E; c += 32) {
+      const float d = to_f32(xr[c]) - mu;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / E + eps);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLnMaxE / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < E) {
+        const float xh = (to_f32(xr[c]) - mu) * rstd, d = to_f32(dr[c]);
+        const float dh = d * to_f32(g[c]);
+        s1 += dh;
+        s2 += dh * xh;
+        ag[i] += d * xh;
+        ab[i] += d;
+      }
+    }
+    s1 = warp_sum(s1) / E;
+    s2 = warp_sum(s2) / E;
+#pragma unroll
+    for (int i = 0; i < kLnMaxE / 32; ++i) {
+      const int c = lane + 32 * i;
+      if (c < E) {
+        const float xh = (to_f32(xr[c]) - mu) * rstd;
+        float o = rstd * (to_f32(dr[c]) * to_f32(g[c]) - s1 - xh * s2);
+        if (add) o += to_f32(add[(size_t)row * E + c]);
+        dx[(size_t)row * E + c] = from_f32<TOut>(o);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kLnMaxE / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < E) {
+      red[warp][c] = ag[i];
+      red[warp][E + c] = ab[i];
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * E; j += blockDim.x)
+    part[(size_t)blockIdx.x * 2 * E + j] = red[0][j] + red[1][j] + red[2][j] + red[3][j];
+}
+
+// dln[2, E] (scale grad, bias grad) = sum over blocks of the partials.
+static __global__ void ln_grad_reduce_kernel(const float* __restrict__ part, int nblk, int E,
+                                             float* __restrict__ dln) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= 2 * E) return;
+  float s = 0.0f;
+  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * 2 * E + j];
+  dln[j] = s;
+}
+
+template <typename T, typename TDy, typename TX, typename TAdd, typename TOut>
+static inline int launch_ln_bwd(const TDy* dy, const TX* x, const T* g, float eps, int M, int E,
+                                const TAdd* add, TOut* dx, float* part, float* dln,
+                                cudaStream_t st) {
+  if (E > kLnMaxE) return (int)cudaErrorInvalidValue;
+  const int nblk = (M + kLnBwdRows - 1) / kLnBwdRows;
+  ln_bwd_kernel<T, TDy, TX, TAdd, TOut><<<nblk, 128, 0, st>>>(dy, x, g, eps, M, E, add, dx, part);
+  SMM_CHECK_LAUNCH();
+  ln_grad_reduce_kernel<<<(2 * E + 255) / 256, 256, 0, st>>>(part, nblk, E, dln);
+  SMM_CHECK_LAUNCH();
+  return 0;
+}
+
+// ------------------------------------------------- FFN elementwise passes
+
+// h = drop(gelu(hpre)) in the compute type: the forward's GEMM1 epilogue,
+// replayed from the f32 pre-activation the backward keeps.
+template <typename T>
+__global__ void gelu_drop_kernel(const float* __restrict__ hpre, T* __restrict__ h, int M, int N,
+                                 int act, Drop drop, int salt, int S) {
+  const size_t n = (size_t)M * N;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / N), c = (int)(i % N);
+    float v = apply_act(hpre[i], act);
+    if (drop.seed)
+      v = hash_keep((uint32_t)*drop.seed + (uint32_t)salt, r / S, r % S, c, drop.thresh)
+              ? v * drop.scale : 0.0f;
+    h[i] = from_f32<T>(v);
+  }
+}
+
+// dst = drop(src) in the compute type (the output dropout's backward).
+template <typename TIn, typename T>
+__global__ void drop_cast_kernel(const TIn* __restrict__ src, T* __restrict__ dst, int M, int N,
+                                 Drop drop, int salt, int S) {
+  const size_t n = (size_t)M * N;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(i / N), c = (int)(i % N);
+    float v = to_f32(src[i]);
+    if (drop.seed)
+      v = hash_keep((uint32_t)*drop.seed + (uint32_t)salt, r / S, r % S, c, drop.thresh)
+              ? v * drop.scale : 0.0f;
+    dst[i] = from_f32<T>(v);
+  }
+}
+
+static inline int elementwise_grid(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return (int)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
 }  // namespace smm

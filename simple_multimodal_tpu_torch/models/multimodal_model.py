@@ -1,14 +1,18 @@
 """Model assembly (port of simple_multimodal_tpu/models/multimodal_model.py):
-three encoders → fusion → classifier and auxiliary heads, eval path.
+three encoders → [modality dropout] → fusion → classifier and auxiliary
+heads.
 
 Every module keeps f32 parameters and computes in the ``dtype`` it is given
 (weights cast at use, no autocast), so each kernel wrapper sees bf16
 exactly where the JAX kernel did. The video wire format is decoded before
 any modality zeroing: a zeroed packed yuv420 plane would decode to green.
 
-Only the ``standard`` family with the five fusion types the hierarchical
-model runs is ported; ``late`` fusion, the KD/few-shot/robust families and
-the training path (modality dropout) are not ported yet.
+Train mode is ``nn.Module.train()`` (no ``deterministic`` argument): the
+forward then takes a ``torch.Generator`` on the model's device, from which
+every dropout mask, kernel dropout seed, SpecAugment span and the modality
+dropout are drawn. Only the ``standard`` family with the five fusion types
+the hierarchical model runs is ported; ``late`` fusion and the
+KD/few-shot/robust families are not ported yet.
 """
 import math
 from typing import Dict, Optional, Sequence
@@ -17,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..data.video_wire import decode_video_wire
-from ..ops.attention import linear, resolve_dtype
+from ..ops.attention import dropout, linear, resolve_dtype
 from .encoders import AudioEncoder, TextEncoder, VideoEncoder
 from .fusion import (AdaptiveFusion, ContrastiveFusion, EarlyFusion, GraphFusion,
                      HierarchicalFusion, MultimodalTransformer)
@@ -40,15 +44,30 @@ class EmotionClassifier(nn.Module):
     def __init__(self, config):
         super().__init__()
         Fh = config.fusion_hidden_size
-        self.classifier = nn.Sequential(nn.Linear(Fh, Fh // 2), nn.ReLU(), nn.Dropout(),
+        self.classifier = nn.Sequential(nn.Linear(Fh, Fh // 2), nn.ReLU(),
+                                        nn.Dropout(config.fusion_dropout),
                                         nn.Linear(Fh // 2, config.num_emotions))
         self.sentiment_classifier = nn.Linear(Fh, 3)
         self.positive_classifier = nn.Linear(Fh, 2)
         self.negative_classifier = nn.Linear(Fh, 4)
 
-    def forward(self, features, dtype):
+    def forward(self, features, dtype, gen=None):
         h = torch.relu(linear(features, self.classifier[0], dtype))
+        h = dropout(h, self.classifier[2].p, gen, self.training)
         return linear(h, self.classifier[3], dtype)
+
+
+def modality_dropout(text, audio, video, rate: float, gen: torch.Generator):
+    """Per-sample Bernoulli drop of each modality's features, at least one
+    surviving: rows where all three dropped revive one uniformly at random
+    (the JAX ``ops/adapters.modality_dropout``)."""
+    B, dev = text.shape[0], text.device
+    keep = torch.rand((B, 3), generator=gen, device=dev) > rate
+    revive = torch.nn.functional.one_hot(
+        torch.randint(0, 3, (B,), generator=gen, device=dev), 3).bool()
+    keep = torch.where(keep.any(dim=1, keepdim=True), keep, revive)
+    mask = keep.to(text.dtype)
+    return text * mask[:, 0:1], audio * mask[:, 1:2], video * mask[:, 2:3]
 
 
 class MultimodalEmotionModel(nn.Module):
@@ -75,9 +94,11 @@ class MultimodalEmotionModel(nn.Module):
     def forward(self, text_input: Dict[str, torch.Tensor], audio_input: torch.Tensor,
                 video_input: torch.Tensor, use_adapter: bool = False,
                 use_prompt: bool = False, compute_contrastive_loss: bool = False,
-                missing_modalities: Optional[Sequence[str]] = None) -> Dict:
+                missing_modalities: Optional[Sequence[str]] = None,
+                gen: Optional[torch.Generator] = None) -> Dict:
         """text_input {input_ids, attention_mask} [B, S]; audio [B, T] float
-        or int16; video [B, T, H, W, 3] uint8/float or packed yuv420."""
+        or int16; video [B, T, H, W, 3] uint8/float or packed yuv420.
+        ``gen``: the generator of every random draw in train mode."""
         dt = self.dtype
         input_ids = text_input["input_ids"]
         attention_mask = text_input["attention_mask"]
@@ -92,17 +113,20 @@ class MultimodalEmotionModel(nn.Module):
                 video_input = torch.zeros_like(video_input)
 
         text = self.text_encoder(input_ids, attention_mask, dt, use_adapter,
-                                 use_prompt)["features"]
-        audio = self.audio_encoder(audio_input, dt, use_adapter)["features"]
-        video = self.video_encoder(video_input, dt, use_adapter)["features"]
+                                 use_prompt, gen)["features"]
+        audio = self.audio_encoder(audio_input, dt, use_adapter, gen)["features"]
+        video = self.video_encoder(video_input, dt, use_adapter, gen)["features"]
+        if self.training:
+            text, audio, video = modality_dropout(text, audio, video, 0.1, gen)
 
         if self.fusion_type == "hierarchical" or self.fusion_type == "contrastive":
-            fusion_output = self.fusion_layer(text, audio, video, dt, compute_contrastive_loss)
+            fusion_output = self.fusion_layer(text, audio, video, dt, compute_contrastive_loss,
+                                              gen)
         else:
-            fusion_output = self.fusion_layer(text, audio, video, dt)
+            fusion_output = self.fusion_layer(text, audio, video, dt, gen)
         fused = (fusion_output["fused_features"] if isinstance(fusion_output, dict)
                  else fusion_output)
-        logits = self.classifier(fused, dt)
+        logits = self.classifier(fused, dt, gen)
         output = {
             "emotion_logits": logits,
             "emotion_probs": torch.softmax(logits.float(), dim=-1).to(dt),

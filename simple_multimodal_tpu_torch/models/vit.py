@@ -9,6 +9,10 @@ pre-LN and residual fused, and ``ffn_block`` with the pre-LN. With
 ``cls_only`` the last layer computes only the CLS query row (k/v still span
 every token) on the plain path, as the JAX model does, and the final LN
 sees only that row.
+
+ViT-base trains with no dropout (hidden and attention rates 0, as in the
+JAX config), so train mode draws nothing here; the rates are passed to the
+kernels all the same.
 """
 import dataclasses
 
@@ -16,7 +20,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import compact_scores, fused_weights, gelu, layer_norm, linear
+from ..ops.attention import (compact_scores, dropout, fused_weights, gelu, kernel_seed,
+                             layer_norm, linear)
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
 from ._util import Group
@@ -31,6 +36,8 @@ class ViTConfig:
     num_heads: int = 12
     intermediate_size: int = 3072
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.0
+    attention_dropout: float = 0.0
 
     @staticmethod
     def base() -> "ViTConfig":
@@ -64,17 +71,21 @@ class ViTLayer(nn.Module):
         a = self.attention
         return (a.attention.query, a.attention.key, a.attention.value, a.output.dense)
 
-    def forward(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, dtype, gen=None) -> torch.Tensor:
         """Whole layer through the two fused kernels."""
         cfg = self.cfg
         ln1 = (self.layernorm_before.weight.to(dtype),
                self.layernorm_before.bias.to(dtype), cfg.layer_norm_eps)
+        rate, seed = kernel_seed(gen, cfg.attention_dropout, self.training, hidden.device)
         h = attention_block(hidden, *fused_weights(self._attn_layers(), dtype),
-                            num_heads=cfg.num_heads, ln=ln1, residual=True)
+                            num_heads=cfg.num_heads, ln=ln1, residual=True,
+                            dropout_rate=rate, dropout_seed=seed)
         ln2 = (self.layernorm_after.weight.to(dtype),
                self.layernorm_after.bias.to(dtype), cfg.layer_norm_eps)
         w1, b1, w2, b2 = fused_weights((self.intermediate.dense, self.output.dense), dtype)
-        return ffn_block(h, w1, b1, w2, b2, ln=ln2, ln_post=False, residual=True)
+        rate, seed = kernel_seed(gen, cfg.hidden_dropout, self.training, hidden.device)
+        return ffn_block(h, w1, b1, w2, b2, ln=ln2, ln_post=False, residual=True,
+                         dropout_rate_out=rate, dropout_seed=seed)
 
     def forward_cls(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
         """CLS-only layer: the first query row against every key, on the
@@ -114,7 +125,7 @@ class ViTModel(nn.Module):
         self.layernorm = nn.LayerNorm(E, eps=cfg.layer_norm_eps)
 
     def forward(self, pixel_values: torch.Tensor, dtype=torch.float32,
-                cls_only: bool = False) -> torch.Tensor:
+                cls_only: bool = False, gen=None) -> torch.Tensor:
         cfg = self.cfg
         N, E = pixel_values.shape[0], cfg.hidden_size
         emb = self.embeddings
@@ -124,10 +135,11 @@ class ViTModel(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # [N, P, E], patches row-major
         cls = emb.cls_token.to(dtype).expand(N, 1, E)
         x = (torch.cat([cls, x], dim=1) + emb.position_embeddings.to(dtype)).contiguous()
+        x = dropout(x, cfg.hidden_dropout, gen, self.training)
         layers = self.encoder.layer
         split = len(layers) - 1 if cls_only and len(layers) > 1 else len(layers)
         for layer in layers[:split]:
-            x = layer(x, dtype)
+            x = layer(x, dtype, gen)
         if split < len(layers):
             x = layers[split].forward_cls(x, dtype)
         x = layer_norm(x, self.layernorm, dtype)

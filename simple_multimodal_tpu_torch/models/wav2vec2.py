@@ -8,8 +8,11 @@ the ``attention_block`` (no LN, no residual) and ``ffn_block`` (post-LN)
 kernels. 160 000 samples → 499 frames. Waveforms are [B, T]; the feature
 encoder returns NWC [B, T', C] frames, the JAX layout.
 
-``masked_spec_embed`` is kept as a parameter; SpecAugment itself is
-training-only and is not ported yet.
+In training mode the JAX model's dropouts run (feature projection,
+encoder, attention output, and inside the kernels the attention
+probabilities and the FFN's intermediate and output, all at 0.1), and
+SpecAugment time masking replaces masked frames by ``masked_spec_embed``.
+Every mask is drawn from the generator the caller passes.
 """
 import dataclasses
 from typing import Tuple
@@ -18,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import fused_weights, gelu, layer_norm, linear
+from ..ops.attention import dropout, fused_weights, gelu, kernel_seed, layer_norm, linear
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
 from ._util import Group
@@ -36,6 +39,11 @@ class Wav2Vec2Config:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    feat_proj_dropout: float = 0.1
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
 
     @staticmethod
     def base() -> "Wav2Vec2Config":
@@ -121,17 +129,34 @@ class Wav2Vec2EncoderLayer(nn.Module):
                                   output_dense=nn.Linear(Fd, E))
         self.final_layer_norm = nn.LayerNorm(E, eps=eps)
 
-    def forward(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
-        a = self.attention
+    def forward(self, hidden: torch.Tensor, dtype, gen=None) -> torch.Tensor:
+        cfg, a = self.cfg, self.attention
+        train, dev = self.training, hidden.device
+        rate, seed = kernel_seed(gen, cfg.attention_dropout, train, dev)
         attn = attention_block(hidden, *fused_weights(
-            (a.q_proj, a.k_proj, a.v_proj, a.out_proj), dtype), num_heads=self.cfg.num_heads)
+            (a.q_proj, a.k_proj, a.v_proj, a.out_proj), dtype), num_heads=cfg.num_heads,
+            dropout_rate=rate, dropout_seed=seed)
+        attn = dropout(attn, cfg.hidden_dropout, gen, train)
         hidden = layer_norm(hidden + attn, self.layer_norm, dtype)
         ff = self.feed_forward
         w1, b1, w2, b2 = fused_weights((ff.intermediate_dense, ff.output_dense), dtype)
         ln = self.final_layer_norm
+        rate, seed = kernel_seed(gen, cfg.hidden_dropout, train, dev)
         return ffn_block(hidden, w1, b1, w2, b2,
                          ln=(ln.weight.to(dtype), ln.bias.to(dtype), ln.eps),
-                         ln_post=True, residual=True)
+                         ln_post=True, residual=True, dropout_rate_mid=rate,
+                         dropout_rate_out=rate, dropout_seed=seed)
+
+
+def spec_augment_mask(B: int, S: int, prob: float, length: int,
+                      gen: torch.Generator, device) -> torch.Tensor:
+    """SpecAugment time mask [B, S] (bool): every frame starts a span of
+    ``length`` frames with probability ``prob``, spans cut at S (the JAX
+    model's convolution of the starts with a ones window, 'full', first S)."""
+    starts = (torch.rand((B, S), generator=gen, device=device) < prob).to(torch.int32)
+    run = starts.cumsum(dim=1)
+    before = torch.nn.functional.pad(run, (length, 0))[:, :S]  # starts up to t - length
+    return run - before > 0
 
 
 class Wav2Vec2Model(nn.Module):
@@ -150,11 +175,21 @@ class Wav2Vec2Model(nn.Module):
             layers=nn.ModuleList(Wav2Vec2EncoderLayer(cfg) for _ in range(cfg.num_layers)))
         self.masked_spec_embed = nn.Parameter(torch.empty(E))
 
-    def forward(self, waveform: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    def forward(self, waveform: torch.Tensor, dtype=torch.float32, gen=None) -> torch.Tensor:
+        cfg, train = self.cfg, self.training
         feats = self.feature_extractor(waveform, dtype)
         fp = self.feature_projection
         x = linear(layer_norm(feats, fp.layer_norm, dtype), fp.projection, dtype)
+        x = dropout(x, cfg.feat_proj_dropout, gen, train)
+        if train and cfg.mask_time_prob > 0:
+            if gen is None:
+                raise ValueError("SpecAugment in training mode needs a torch.Generator")
+            B, S, _ = x.shape
+            masked = spec_augment_mask(B, S, cfg.mask_time_prob, cfg.mask_time_length, gen,
+                                       x.device)
+            x = torch.where(masked[..., None], self.masked_spec_embed.to(x.dtype), x)
         x = layer_norm(x + self.encoder.pos_conv_embed(x, dtype), self.encoder.layer_norm, dtype)
+        x = dropout(x, cfg.hidden_dropout, gen, train)
         for layer in self.encoder.layers:
-            x = layer(x, dtype)
+            x = layer(x, dtype, gen)
         return x

@@ -48,6 +48,34 @@ def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
                         layer.bias.float(), layer.eps).to(dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 − rate and
+    scale it by 1/(1 − rate), the mask drawn from ``gen`` (on x's device);
+    the identity in eval mode or at rate 0. No global RNG is used."""
+    if not training or not rate:
+        return x
+    if gen is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def kernel_seed(gen: Optional[torch.Generator], rate: float, training: bool,
+                device) -> Tuple[float, Optional[torch.Tensor]]:
+    """(rate, seed) for a fused kernel's hash dropout: an int32 [1] seed in
+    [0, 2³¹ − 1) drawn from ``gen`` on the device (no host sync), as the
+    JAX ``kernel_dropout_seed`` draws it; (0.0, None) in eval mode or at
+    rate 0, without a draw."""
+    if not training or not rate:
+        return 0.0, None
+    if gen is None:
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device,
+                         dtype=torch.int32)
+    return float(rate), seed
+
+
 def fused_weights(layers, dtype):
     """(w, b) per Linear in flax layout ([in, out] as a transposed view, so
     the kernel wrappers take it without a copy), cast to ``dtype``."""
@@ -59,18 +87,21 @@ def fused_weights(layers, dtype):
 
 class MultiHeadAttention(nn.Module):
     """torch MHA parameters (``in_proj_weight`` [3E, E], ``in_proj_bias``,
-    ``out_proj``) with the JAX module's computation."""
+    ``out_proj``) with the JAX module's computation; in training mode the
+    probabilities take dropout at ``dropout`` (drawn from ``gen``)."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value, dtype=torch.float32,
-                need_weights: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def forward(self, query, key, value, dtype=torch.float32, need_weights: bool = True,
+                gen: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """query [B, Q, E], key/value [B, K, E] → (output [B, Q, E],
         attention weights averaged over heads [B, Q, K] or None)."""
         E, H = self.embed_dim, self.num_heads
@@ -84,7 +115,8 @@ class MultiHeadAttention(nn.Module):
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (Dh ** -0.5)
         logits = compact_scores(logits, dtype)
         probs = torch.softmax(logits, dim=-1).to(dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
+        dropped = dropout(probs, self.dropout, gen, self.training)
+        out = torch.einsum("bhqk,bkhd->bqhd", dropped.float(), v.float()).to(dtype)
         out = linear(out.reshape(B, Q, E), self.out_proj, dtype)
         if need_weights:
             return out, probs.mean(dim=1)

@@ -1,9 +1,10 @@
 """Build and load the port's Hopper kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-first use, into ``build/hopper`` at the checkout root (or
-``$SMM_TORCH_BUILD_DIR``), keyed by a hash of the sources and the flags and
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with
+a plain C interface, loaded with ``ctypes``. The build runs at first use,
+into ``build/hopper`` at the checkout root (or ``$SMM_TORCH_BUILD_DIR``),
+keyed by a hash of the sources and the flags and
 guarded by a file lock, so concurrent first users build it once.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -23,18 +24,26 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LN_BWD_ROWS = 64  # rows per block of the LayerNorm backward (csrc/gemm.cuh)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint32
+_DROP = [_P, _U, _F]              # seed (device int32 [1] or null), threshold, 1/(1-rate)
+_DROP2 = [_P, _U, _F, _I, _U, _F, _I]  # seed, then (threshold, scale, on) for mid and out
 # argtypes of every C entry point: pointers and the stream as c_void_p so
 # ctypes never truncates them to 32 bits.
 SIGNATURES = {
-    "smm_attention_block": [_I] + [_P] * 11 + [_F, _I, _I, _I, _I, _I] + [_P] * 5,
-    "smm_ffn_block": [_I] + [_P] * 7 + [_F, _I, _I, _I, _I, _I] + [_P] * 5,
+    "smm_attention_block": [_I] + [_P] * 11 + [_F] + [_I] * 5 + _DROP + [_P] * 5,
+    "smm_attention_block_bwd": [_I] + [_P] * 12 + [_F] + [_I] * 5 + _DROP + [_P] * 11,
+    "smm_ffn_block": [_I] + [_P] * 7 + [_F] + [_I] * 6 + _DROP2 + [_P] * 5,
+    "smm_ffn_block_bwd": [_I] + [_P] * 10 + [_F] + [_I] * 6 + _DROP2 + [_P] * 11,
     "smm_deberta_attention": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                              _I, _I, _I, _I, _P, _P],
+                              _I, _I, _I, _I] + _DROP + [_P, _P],
+    "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                                  _I, _I, _I, _I] + _DROP + [_P] * 11 + [_I] + [_P] * 3,
 }
 
 _lib = None
@@ -84,6 +93,32 @@ def _check_device():
                            f"device has compute capability {cap}")
 
 
+def _compile(out_dir: Path, so: Path) -> None:
+    """One nvcc per source, all running at once, then one link."""
+    nvcc = find_nvcc()
+    cu, _ = _sources()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (c.stem + ".o") for c in cu]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(o), str(c)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c, o in zip(cu, objs)]
+        logs = [f"== {c.name}\n" + p.communicate()[0] for c, p in zip(cu, procs)]
+        failed = [c.name for c, p in zip(cu, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                                   "-o", str(Path(tmp) / so.name), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append("== link\n" + link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+        build_info["seconds"] = time.perf_counter() - t0
+        build_info["log"] = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n" + build_info["log"])
+        os.replace(Path(tmp) / so.name, so)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
@@ -96,19 +131,7 @@ def library() -> ctypes.CDLL:
     with open(out_dir / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
-            cu, _ = _sources()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", tmp,
-                   *map(str, cu)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_info["seconds"] = time.perf_counter() - t0
-            build_info["log"] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError("nvcc failed:\n" + build_info["log"])
-            os.replace(tmp, so)
+            _compile(out_dir, so)
         else:
             build_info.setdefault("seconds", 0.0)
             build_info.setdefault("log", "cached")
@@ -144,3 +167,9 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 def ptr(t) -> int:
     return None if t is None else t.data_ptr()
+
+
+def ln_bwd_blocks(rows: int) -> int:
+    """Blocks of the LayerNorm backward: each writes one [2, E] partial of
+    the scale/bias gradients, summed in block order afterwards."""
+    return -(-rows // LN_BWD_ROWS)

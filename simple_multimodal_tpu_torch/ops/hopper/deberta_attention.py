@@ -7,13 +7,16 @@ softmax((QKᵀ + c2p + p2c)/√(3D), masked keys = -1e30)·V with
 (the second equals clip(bucket(q − k) + span), as the bucket map is
 antisymmetric).
 
-Replaces the TPU kernel simple_multimodal_tpu/ops/pallas/deberta_attention.py
-(``_kernel`` via ``_fused_call``). On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/deberta_attention.cu``: one block per (query
-tile, head, batch) that gathers the position-table rows each key tile needs
-through the host-built index maps below. On a CPU tensor it runs
+Replaces the TPU kernels of simple_multimodal_tpu/ops/pallas/deberta_attention.py:
+the forward (``_kernel`` via ``_fused_call``) and the backward
+(``_bwd_kernel`` via ``_bwd_call``). On a CUDA tensor the wrapper runs
+``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``
+(one block per (query tile, head, batch) that gathers the position-table
+rows each key tile needs through the host-built index maps below), its
+backward ``csrc/deberta_attention_bwd.cu``. On a CPU tensor it runs
 ``deberta_attention_plain``, the port of that file's ``_xla_reference`` with
-a gather in place of the TPU's rel-shift skew.
+a gather in place of the TPU's rel-shift skew, and autograd differentiates
+it.
 """
 import functools
 import math
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from . import _build
+from .attention_block import _drop_scale, _seed_tensor
+from .dropout import apply_keep, attention_keep, threshold
 
 NEG_INF = -1e30  # finite fill: an all-masked row attends uniformly
 
@@ -57,17 +62,31 @@ def rel_index_maps(S: int, span: int, max_position: int):
     return idx_c.astype(np.int32), idx_p.astype(np.int32)
 
 
+def fold_order(idx: np.ndarray, rows: int):
+    """CSR of the many-to-one map offset → table row: ``order`` lists the
+    offsets r (as r + S − 1) grouped by table row, in increasing r, and
+    ``offsets[t]:offsets[t+1]`` is row t's slice. The backward folds the
+    per-offset table gradients through it in a fixed order."""
+    order = np.argsort(idx, kind="stable").astype(np.int32)
+    offsets = np.searchsorted(idx[order], np.arange(rows + 1)).astype(np.int32)
+    return order, offsets
+
+
 @functools.lru_cache(maxsize=32)
 def _device_maps(S: int, span: int, max_position: int, device: torch.device):
-    return tuple(torch.from_numpy(m).to(device)
-                 for m in rel_index_maps(S, span, max_position))
+    """idx_c, idx_p and their fold CSRs, as int32 tensors on ``device``."""
+    idx_c, idx_p = rel_index_maps(S, span, max_position)
+    arrays = (idx_c, idx_p, *fold_order(idx_c, 2 * span), *fold_order(idx_p, 2 * span))
+    return tuple(torch.from_numpy(m).to(device) for m in arrays)
 
 
 def deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span: int,
-                            max_position: int):
+                            max_position: int, dropout_rate: float = 0.0,
+                            dropout_seed=None):
     """Plain PyTorch version of the JAX ``_xla_reference``: materializes the
     [B, H, S, S] scores and gathers the two bias terms from
-    [B, H, S, 2·span] table products. Same arguments as the wrapper."""
+    [B, H, S, 2·span] table products; the probabilities take the hash
+    dropout before ·V. Same arguments as the wrapper."""
     B, S, H, D = q.shape
     f32 = torch.float32
     pk = pos_k.to(q.dtype).reshape(2 * span, H, D).to(f32)
@@ -86,33 +105,91 @@ def deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span: int,
     if attention_mask is not None:
         s = torch.where(attention_mask[:, None, None, :] > 0, s,
                         torch.full_like(s, NEG_INF))
-    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    probs = torch.softmax(s, dim=-1)
+    if dropout_rate:
+        probs = apply_keep(probs, attention_keep(dropout_seed, B, H, S, S, dropout_rate,
+                                                 device=q.device), dropout_rate)
+    probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(f32), v.to(f32))
     return out.to(q.dtype)
 
 
+class DebertaAttentionFn(torch.autograd.Function):
+    """The CUDA forward and backward of the disentangled attention. Saves
+    only the inputs; the backward recomputes the probabilities."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pk, pq, mask, seed, span, max_position, rate):
+        B, S, H, D = q.shape
+        lib = _build.library()
+        idx_c, idx_p = _device_maps(S, span, max_position, q.device)[:2]
+        out = torch.empty_like(q)
+        p = _build.ptr
+        err = lib.smm_deberta_attention(
+            _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
+            p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
+            threshold(rate), _drop_scale(rate), p(out), _build.stream_ptr(q))
+        _build.check(lib, err, "deberta_attention")
+        deberta_attention.launches += 1
+        ctx.save_for_backward(q, k, v, pk, pq, mask, seed)
+        ctx.cfg = (span, max_position, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, gy):
+        q, k, v, pk, pq, mask, seed = ctx.saved_tensors
+        span, max_position, rate = ctx.cfg
+        B, S, H, D = q.shape
+        dev, f32 = q.device, torch.float32
+        gy = gy.to(q.dtype).contiguous()
+        lib = _build.library()
+        idx_c, idx_p, ord_c, off_c, ord_p, off_p = _device_maps(S, span, max_position, dev)
+        ctx_buf = torch.empty_like(q)
+        stats = torch.empty((3, B * H * S), dtype=f32, device=dev)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        g_rel = torch.empty((2, B, H, 2 * S - 1, D), dtype=f32, device=dev)
+        dpk = torch.empty((2 * span, H * D), dtype=f32, device=dev)
+        dpq = torch.empty((2 * span, H * D), dtype=f32, device=dev)
+        p = _build.ptr
+        err = lib.smm_deberta_attention_bwd(
+            _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
+            p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
+            threshold(rate), _drop_scale(rate), p(gy), p(ctx_buf), p(stats), p(dq),
+            p(dk), p(dv), p(g_rel), p(ord_c), p(off_c), p(ord_p), p(off_p), 2 * span,
+            p(dpk), p(dpq), _build.stream_ptr(q))
+        _build.check(lib, err, "deberta_attention_bwd")
+        deberta_attention_bwd.launches += 1
+        return (dq, dk, dv, dpk.to(pk.dtype), dpq.to(pq.dtype), None, None, None,
+                None, None)
+
+
 def deberta_attention(q, k, v, pos_k, pos_q,
                       attention_mask: Optional[torch.Tensor], span: int,
-                      max_position: int):
+                      max_position: int, dropout_rate: float = 0.0,
+                      dropout_seed=None):
     """Fused disentangled attention; same arguments and layouts as the JAX
     ``deberta_attention``: q/k/v [B, S, H, D], pos_k/pos_q [2·span, H·D] or
     [2·span, H, D], attention_mask [B, S] (1 = attend) or None. Applies
-    the 1/√(3D) scaling. Returns [B, S, H, D].
+    the 1/√(3D) scaling; ``dropout_rate`` > 0 drops probabilities by the
+    stateless hash of ``dropout_seed``. Returns [B, S, H, D].
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.
+    CPU tensors run the plain version; CUDA tensors launch the kernels
+    (forward, and backward under autograd) or raise.
     """
+    rate = float(dropout_rate)
+    if rate and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
     if q.device.type == "cpu":
-        return deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask,
-                                       span, max_position)
+        return deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span,
+                                       max_position, dropout_rate=rate,
+                                       dropout_seed=dropout_seed)
     if q.device.type != "cuda":
         raise RuntimeError(f"deberta_attention: no kernel for device {q.device}")
     B, S, H, D = q.shape
     if D not in (16, 32, 64):
         raise ValueError(f"deberta_attention: head width {D} not in (16, 32, 64)")
     dt = q.dtype
-    code = _build.dtype_code(q)
-    lib = _build.library()
+    _build.dtype_code(q)
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
     pk = pos_k.to(dt).reshape(2 * span, H * D).contiguous()
     pq = pos_q.to(dt).reshape(2 * span, H * D).contiguous()
@@ -120,15 +197,13 @@ def deberta_attention(q, k, v, pos_k, pos_q,
         mask = torch.ones((B, S), dtype=torch.int32, device=q.device)
     else:
         mask = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    idx_c, idx_p = _device_maps(S, span, max_position, q.device)
-    out = torch.empty_like(q)
-    p = _build.ptr
-    err = lib.smm_deberta_attention(
-        code, p(q), p(k), p(v), H * D, p(pk), p(pq), H * D, p(idx_c),
-        p(idx_p), p(mask), B, S, H, D, p(out), _build.stream_ptr(q))
-    _build.check(lib, err, "deberta_attention")
-    deberta_attention.launches += 1
-    return out
+    seed = _seed_tensor(dropout_seed, q.device) if rate else None
+    return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate)
+
+
+def deberta_attention_bwd():
+    """Launch counter of the backward chain (``DebertaAttentionFn.backward``)."""
 
 
 deberta_attention.launches = 0
+deberta_attention_bwd.launches = 0

@@ -1,6 +1,9 @@
 """The port's three Hopper kernels: their plain PyTorch versions against the
 JAX package's kernels (interpret mode on CPU) and ``_xla_reference``s, in
-f32 at atol=rtol=1e-5 (the same math; only the summation order differs).
+f32 at atol=rtol=1e-5 (the same math; only the summation order differs);
+the stateless dropout hash bit-equal to ``_hash_keep`` in its three index
+schemes; and, with hash dropout at rate 0.1, each plain version's output
+(1e-5) and input gradients (1e-4) against ``jax.vjp`` of the reference.
 
 The CUDA kernels themselves run only on a GPU: tests/test_torch_gpu.py
 compares them with the plain versions there.
@@ -9,6 +12,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -200,3 +204,153 @@ def test_wrappers_refuse_devices_without_a_kernel():
         da.deberta_attention(q, q, q, torch.zeros(32, 16, device="meta"),
                              torch.zeros(32, 16, device="meta"), None, span=16,
                              max_position=64)
+
+
+# ------------------------------------------------- hash dropout and backward
+
+from simple_multimodal_tpu_torch.ops.hopper import dropout as hd  # noqa: E402
+
+SEED, RATE = 123456789, 0.1
+GTOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _jax_attention_keep(seed, B, H, S, rate):
+    u32 = jnp.uint32
+    shape = (B, H, S, S)
+    it = [jax.lax.broadcasted_iota(u32, shape, d) for d in range(4)]
+    return np.asarray(jda._hash_keep(u32(seed), it[0] * np.uint32(H) + it[1], it[2], it[3],
+                                     rate))
+
+
+@pytest.mark.parametrize("seed", [0, SEED, 2 ** 31 - 2])
+@pytest.mark.parametrize("rate", [0.1, 0.5, 0.97])
+def test_hash_attention_scheme_is_bit_equal_to_jax(seed, rate):
+    B, H, S = 2, 3, 37
+    got = hd.attention_keep(seed, B, H, S, S, rate).numpy()
+    np.testing.assert_array_equal(got, _jax_attention_keep(seed, B, H, S, rate))
+
+
+def test_hash_deberta_scheme_is_bit_equal_to_jax():
+    """DeBERTa's ``_drop_ids`` (head = b·H + group offset + g) over a
+    whole-head block is the attention scheme."""
+    B, H, S = 3, 4, 29
+    got = hd.attention_keep(SEED, B, H, S, S, RATE).numpy()
+    for b in range(B):
+        want = np.asarray(jda._hash_keep(*jda._drop_ids(np.array([SEED], np.int32), b, 0,
+                                                        (H, S, S), H), RATE))
+        np.testing.assert_array_equal(got[b], want)
+
+
+@pytest.mark.parametrize("salt", [hd.SALT_MID, hd.SALT_OUT])
+def test_hash_ffn_scheme_is_bit_equal_to_jax(salt):
+    """(seed + salt, b, s, c), also through the kernels' flattened rows:
+    row r of B·S is (b, s) = (r // S, r % S)."""
+    B, S, C = 3, 13, 40
+    ones = jnp.ones((B, S, C), jnp.float32)
+    want = np.asarray(jfb._ref_drop(ones, jnp.array([SEED], jnp.int32), RATE, salt)) != 0
+    np.testing.assert_array_equal(hd.ffn_keep(SEED, salt, B, S, C, RATE).numpy(), want)
+    row = torch.arange(B * S)[:, None]
+    flat = hd.hash_u32((SEED + salt) & hd.MASK32, row // S, row % S,
+                       torch.arange(C)[None]) >= hd.threshold(RATE)
+    np.testing.assert_array_equal(flat.numpy().reshape(B, S, C), want)
+    for b in range(B):  # the Pallas kernel's own tile form
+        tile = np.asarray(jfb._drop_keep(np.array([SEED], np.int32), b, 0, (S, C), RATE, salt))
+        np.testing.assert_array_equal(tile, want[b])
+
+
+def _vjp_check(jax_fn, jax_args, torch_fn, torch_args, ct):
+    """Output at 1e-5 and every input gradient at 1e-4 (f32), port autograd
+    against jax.vjp on the same cotangent."""
+    want, vjp = jax.vjp(jax_fn, *[jnp.asarray(a) for a in jax_args])
+    want_grads = vjp(jnp.asarray(ct))
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in torch_args]
+    got = torch_fn(*ts)
+    got.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for i, (t, w) in enumerate(zip(ts, want_grads)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **GTOL, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("with_ln,residual", [(False, False), (True, True)])
+def test_attention_block_plain_with_dropout_matches_jax(with_ln, residual):
+    B, S, E, H = 2, 13, 32, 2
+    x, wb, g, b = _block_args(B, S, E, seed=5)
+    ct = np.random.default_rng(6).standard_normal((B, S, E)).astype(np.float32)
+    seed = jnp.array([SEED], jnp.int32)
+    n = 11 if with_ln else 9
+
+    def jfn(*a):
+        ln = (a[9], a[10], 1e-12) if with_ln else None
+        return jab._xla_reference(*a[:9], num_heads=H, ln=ln, residual=residual,
+                                  seed=seed, rate=RATE)
+
+    def tfn(*a):
+        ln = (a[9], a[10], 1e-12) if with_ln else None
+        return ab.attention_block(*a[:9], num_heads=H, ln=ln, residual=residual,
+                                  dropout_rate=RATE, dropout_seed=SEED)
+
+    args = ([x] + wb + [g, b])[:n]
+    _vjp_check(jfn, args, tfn, args, ct)
+
+
+@pytest.mark.parametrize("ln_mode", ["none", "pre", "post"])
+def test_ffn_block_plain_with_dropout_matches_jax(ln_mode):
+    B, S, E, F = 2, 13, 32, 64
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, S, E)).astype(np.float32)
+    w1 = (rng.standard_normal((E, F)) / np.sqrt(E)).astype(np.float32)
+    b1 = (0.1 * rng.standard_normal((F,))).astype(np.float32)
+    w2 = (rng.standard_normal((F, E)) / np.sqrt(F)).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal((E,))).astype(np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal((E,))).astype(np.float32)
+    b = (0.1 * rng.standard_normal((E,))).astype(np.float32)
+    ct = rng.standard_normal((B, S, E)).astype(np.float32)
+    post, seed = ln_mode == "post", jnp.array([SEED], jnp.int32)
+    args = [x, w1, b1, w2, b2] + ([] if ln_mode == "none" else [g, b])
+
+    def jfn(*a):
+        ln = (a[5], a[6], 1e-7) if len(a) > 5 else None
+        return jfb._xla_reference(*a[:5], ln=ln, ln_post=post, residual=True, seed=seed,
+                                  rate_mid=RATE, rate_out=RATE)
+
+    def tfn(*a):
+        ln = (a[5], a[6], 1e-7) if len(a) > 5 else None
+        return fb.ffn_block(*a[:5], ln=ln, ln_post=post, residual=True, dropout_rate_mid=RATE,
+                            dropout_rate_out=RATE, dropout_seed=SEED)
+
+    _vjp_check(jfn, args, tfn, args, ct)
+
+
+def test_deberta_attention_plain_with_dropout_matches_jax():
+    S, span, max_pos = 20, 16, 64
+    q, k, v, pos_k, pos_q, mask = _deberta_args(S, span, seed=8)
+    mask[2, :5] = 1  # no all-masked row: its gradient is where the two paths pad differently
+    B, _, H, D = q.shape
+    ct = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    seed = jnp.array([SEED], jnp.int32)
+
+    def jfn(q_, k_, v_, pk, pq):
+        tc, tp = jda.build_rel_tables(pk.reshape(2 * span, H, D), pq.reshape(2 * span, H, D),
+                                      S, S, span, max_pos)
+        sw = lambda a: jnp.swapaxes(a, 1, 2)  # noqa: E731
+        out = jda._xla_reference(sw(q_), sw(k_), sw(v_), tc, tp, jnp.asarray(mask),
+                                 float(1.0 / np.sqrt(3.0 * D)), seed, RATE)
+        return sw(out)
+
+    tmask = torch.from_numpy(mask)
+
+    def tfn(q_, k_, v_, pk, pq):
+        return da.deberta_attention(q_, k_, v_, pk, pq, tmask, span=span, max_position=max_pos,
+                                    dropout_rate=RATE, dropout_seed=SEED)
+
+    _vjp_check(jfn, [q, k, v, pos_k, pos_q], tfn, [q, k, v, pos_k, pos_q], ct)
+
+
+def test_fold_order_groups_offsets_by_table_row():
+    S, span, max_pos = 512, 256, 512
+    idx_c, _ = da.rel_index_maps(S, span, max_pos)
+    order, offsets = da.fold_order(idx_c, 2 * span)
+    assert offsets[0] == 0 and offsets[-1] == 2 * S - 1
+    for t in range(2 * span):
+        rows = order[offsets[t]:offsets[t + 1]]
+        assert (idx_c[rows] == t).all() and (np.diff(rows) > 0).all()

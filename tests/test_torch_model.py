@@ -157,6 +157,11 @@ def test_importing_the_port_loads_no_jax():
             "import simple_multimodal_tpu_torch.serving.demo\n"
             "import simple_multimodal_tpu_torch.models.from_jax\n"
             "import simple_multimodal_tpu_torch.ops.hopper\n"
+            "import simple_multimodal_tpu_torch.data.augment\n"
+            "import simple_multimodal_tpu_torch.train.losses\n"
+            "import simple_multimodal_tpu_torch.train.optim\n"
+            "import simple_multimodal_tpu_torch.train.state\n"
+            "import simple_multimodal_tpu_torch.train.steps\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'transformers', 'cv2', 'simple_multimodal_tpu')]\n"
             "print(bad)\n")
