@@ -39,12 +39,45 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
    dropout and augmentation off (eval mode), TF32 off, card (kernels)
    against CPU (plain versions): loss within 1e-4 relative, each gradient
    within 1e-3 of its largest magnitude above a noise floor of 1e-6 of the
-   step's largest gradient.
+   step's largest gradient;
+8. long-clip serve: the same model with ``audio_max_length=320000`` (20 s,
+   999 wav2vec2 frames) and the fused wav2vec2 front end on
+   (``SMM_WAV_FRONTEND=1``): one request through ``predict`` and one B=8
+   forward, which must launch attention_block 23, ffn_block 35,
+   deberta_attention 12, flash_attention 1 (the temporal attention),
+   wav_frontend 1 and no backward;
+9. long clip in f32: one such request on the card (kernels, TF32 off)
+   against the CPU (plain versions), atol=rtol=1e-3, as phase 5;
+10. long-clip train: ``make_train_step`` on that model at B=8, 3 steps, with
+    ``fusion_dropout=0.0``: the setting at which the temporal attention
+    drops no probabilities, so that the train step reaches the
+    flash_attention backward (with probability dropout in effect the
+    attention module takes its plain path, as in the JAX package). Each step
+    must launch flash_attention_bwd once beside the three other backwards
+    23/35/12; finite losses, every parameter that feeds the loss moves.
 
-Prints a JSON line with every kernel's launches, error and times, the
-``nvidia-smi`` name/power-limit line, and, last, the ok line. Any failure
-prints a traceback and exits non-zero without the ok line.
+Phases 2 and 3 also hold flash_attention (forward, and forward+backward
+with dbias, at [8,999,8,96], at Sq != Sk and at [8,1024,12,64] with a
+[B,1,1,Sk] key mask and with a full [B,H,Sq,Sk] bias) and wav_frontend
+(forward at [8,160000] and [8,320000], C=512; its gradients, which are the
+plain version's, once) against their plain versions at the same tolerances,
+and time ``F.scaled_dot_product_attention`` beside flash_attention as a
+yardstick the port never calls.
+
+``python3 chip_smoke.py --profile`` runs none of the checks: after the build
+it prints, for the 10 s and the 20 s model, ``torch.profiler``'s device time
+by kernel over two B=8 forwards and two B=8 train steps, with the device's
+busy share of the wall time.
+
+Prints a JSON line with every kernel's launches, error, times and bound
+(the larger of its operations over 989 TFLOP/s and its bytes over
+3.35 TB/s, each input read once and each output written once, computed from
+the timed case's tensors), the ``nvidia-smi`` name/power-limit line, and,
+last, the ok line. Any failure prints a traceback and exits non-zero
+without the ok line.
 """
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,6 +92,8 @@ ATOL_F32 = 1e-3
 GRAD_TOL_BF16 = 5e-2
 DROP_RATE, DROP_SEED = 0.1, 20260516
 TRAIN_STEPS = 3
+LONG_SAMPLES = 320000  # 20 s at 16 kHz: 999 wav2vec2 frames
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: dense bf16 tensor cores, HBM3
 REPLACES = {
     "attention_block": "simple_multimodal_tpu/ops/pallas/attention_block.py:165",
     "ffn_block": "simple_multimodal_tpu/ops/pallas/ffn_block.py:136",
@@ -66,14 +101,19 @@ REPLACES = {
     "attention_block_bwd": "simple_multimodal_tpu/ops/pallas/attention_block.py:385",
     "ffn_block_bwd": "simple_multimodal_tpu/ops/pallas/ffn_block.py:391",
     "deberta_attention_bwd": "simple_multimodal_tpu/ops/pallas/deberta_attention.py:446",
+    "flash_attention": "simple_multimodal_tpu/ops/pallas/flash_attention.py:161",
+    "flash_attention_bwd": "simple_multimodal_tpu/ops/pallas/flash_attention.py:290",
+    "wav_frontend": "simple_multimodal_tpu/ops/pallas/wav_frontend.py:147 and :166",
 }
 SOURCES = {name: f"simple_multimodal_tpu_torch/csrc/{name}.cu" for name in REPLACES}
-# one B=8 forward (serve) and one B=8 train step
+NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
+# one B=8 forward (serve) and one B=8 train step, at 10 s and at 20 s of audio
 FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12}
-EXPECTED_LAUNCHES = dict(FORWARD_LAUNCHES, attention_block_bwd=0, ffn_block_bwd=0,
-                         deberta_attention_bwd=0)
-TRAIN_LAUNCHES = dict(FORWARD_LAUNCHES, attention_block_bwd=23, ffn_block_bwd=35,
-                      deberta_attention_bwd=12)
+BACKWARD_LAUNCHES = {"attention_block_bwd": 23, "ffn_block_bwd": 35, "deberta_attention_bwd": 12}
+EXPECTED_LAUNCHES = {**NO_LAUNCHES, **FORWARD_LAUNCHES}
+TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, **BACKWARD_LAUNCHES}
+LONG_FORWARD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=1, wav_frontend=1)
+LONG_TRAIN_LAUNCHES = dict(LONG_FORWARD_LAUNCHES, **BACKWARD_LAUNCHES, flash_attention_bwd=1)
 
 
 def log(*a):
@@ -124,6 +164,59 @@ def median(xs):
     return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
 
 
+def work(name, inputs):
+    """(forward FLOP, forward+backward FLOP) of one call of kernel ``name``
+    on these inputs: the products the function needs, each counted once (a
+    backward costs two products per forward product, the softmax core five
+    for the forward's two)."""
+    x = inputs[0]
+    if name == "attention_block":
+        rows, S, E = x.shape
+        proj, core = 8 * rows * S * E * E, 4 * rows * S * S * E
+        return proj + core, 3 * proj + 3.5 * core
+    if name == "ffn_block":
+        rows, S, E = x.shape
+        f = 4 * rows * S * E * inputs[1].shape[1]
+        return f, 3 * f
+    if name == "deberta_attention":  # q·kᵀ, p·v, and q, k against the 2·span table rows
+        n, S, H, D = x.shape
+        core, rel = 4 * n * H * S * S * D, 4 * n * H * S * inputs[3].shape[0] * D
+        return core + rel, 3.5 * core + 3 * rel
+    if name == "flash_attention":
+        n, Sq, H, D = x.shape
+        core = 4 * n * H * Sq * inputs[1].shape[1] * D
+        return core, 3.5 * core
+    if name == "wav_frontend":  # the K-tap conv once; the norm and GELU are O(outputs)
+        K, _, C = inputs[1].shape
+        f = 2 * K * x.shape[0] * ((x.shape[1] - K) // 5 + 1) * C
+        return f, 3 * f
+    raise KeyError(name)
+
+
+def bound(name, inputs, out, backward=False) -> dict:
+    """The least time the card could take for one call (forward, or forward
+    and backward): the larger of operations / 989 TFLOP/s and bytes /
+    3.35 TB/s, every input read once and every output written once (the
+    backward reads a cotangent like the output and writes a gradient like
+    each input)."""
+    flops = work(name, inputs)[1 if backward else 0]
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + [out])
+    nbytes *= 2 if backward else 1
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def sdpa(q, k, v, bias=None):
+    """One library call for flash_attention's function, on [B, S, H, D]
+    tensors: the yardstick beside the kernel, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                         v.transpose(1, 2), attn_mask=bias)
+    return out.transpose(1, 2)
+
+
 # ------------------------------------------------------------ phase 2 cases
 
 def _kernel_cases(dev, gen):
@@ -132,7 +225,8 @@ def _kernel_cases(dev, gen):
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import (
-        attention_block as ab, deberta_attention as da, ffn_block as fb)
+        attention_block as ab, deberta_attention as da, ffn_block as fb, flash_attention as fa,
+        wav_frontend as wf)
 
     def rn(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * std
@@ -179,18 +273,48 @@ def _kernel_cases(dev, gen):
                   "DeBERTa [8,512,12,64] span 256, padded + all-masked rows",
                   lambda t, g, b: dict(attention_mask=mask, span=span,
                                        max_position=512), d_in, []))
+
+    def no_kw(t, g, b):
+        return {}
+
+    def qkv(Sq, Sk, heads, D):
+        return [rn(B, Sq, heads, D), rn(B, Sk, heads, D), rn(B, Sk, heads, D)]
+
+    cases.append(("flash_attention", "temporal MHA [8,999,8,96]", no_kw, qkv(999, 999, 8, 96), []))
+    cases.append(("flash_attention", "cross q [8,700,12,64], k/v [8,999,12,64]", no_kw,
+                  qkv(700, 999, H, 64), []))
+    key_mask = torch.zeros(B, 1, 1, 1024, device=dev)
+    key_mask[1, ..., 700:] = -1e30  # a padded row
+    key_mask[2, ..., :100] = -1e30
+    long_qkv = qkv(1024, 1024, H, 64)
+    cases.append(("flash_attention", "[8,1024,12,64] + key mask [8,1,1,1024]", no_kw,
+                  long_qkv + [key_mask], []))
+    cases.append(("flash_attention", "[8,1024,12,64] + bias [8,12,1024,1024]", no_kw,
+                  long_qkv + [rn(B, H, 1024, 1024, std=0.5) + key_mask], []))
+    for samples in (160000, LONG_SAMPLES):
+        cases.append(("wav_frontend", f"conv_0+GN+GELU [8,{samples}] C=512",
+                      lambda t, g, b: dict(stride=5),
+                      [rn(B, samples, std=0.3), rn(10, 1, 512, std=0.1),
+                       1.0 + rn(512, std=0.2), rn(512, std=0.1)], []))
     fns = {
         "attention_block": (lambda *a, **k: ab.attention_block(*a, num_heads=H, **k),
                             lambda *a, **k: ab.attention_block_plain(*a, num_heads=H, **k)),
         "ffn_block": (fb.ffn_block, fb.ffn_block_plain),
         "deberta_attention": (da.deberta_attention, da.deberta_attention_plain),
+        "flash_attention": (fa.flash_attention, fa.flash_attention_plain),
+        "wav_frontend": (wf.wav_frontend, wf.wav_frontend_plain),
     }
     return cases, fns
 
 
+# one PyTorch call that computes the same function, where there is one
+LIBRARY = {"flash_attention": sdpa}
+
+
 def phase_kernels(dev) -> dict:
     """Phase 2: every kernel against its plain version. Returns per-kernel
-    {max_abs_err, ms, plain_ms} (times from each kernel's first case, bf16)."""
+    {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} (times and
+    bound from each kernel's first case, bf16)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -229,7 +353,11 @@ def phase_kernels(dev) -> dict:
             r = results.setdefault(name, {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], max_err)
             if "ms" not in r:  # the first case of each kernel, bf16
-                r["ms"], r["plain_ms"] = ms, plain_ms
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=None, **bound(name, args, got))
+                if name in LIBRARY:
+                    r["library_ms"] = median(time_ms(lambda: LIBRARY[name](*args, **kw), 10))
+                log(f"       {name}: bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                    f"library_ms={r['library_ms']}")
             del got, want, args, args32
             torch.cuda.empty_cache()
     log(f"kernel times above: CUDA-event medians on {smi_line()}")
@@ -246,12 +374,36 @@ def _base_config(tmp):
     return cfg
 
 
-def _requests(rng):
-    """Three requests with text, int16 audio and yuv420 / RGB video."""
+def _long_config(tmp):
+    """The long-clip model: 20 s of audio; ``fusion_dropout=0.0`` so that the
+    temporal attention drops no probabilities in training either."""
+    cfg = _base_config(tmp)
+    cfg.audio_max_length = LONG_SAMPLES
+    cfg.fusion_dropout = 0.0
+    return cfg
+
+
+@contextlib.contextmanager
+def fused_frontend():
+    """Models built inside take wav2vec2's fused front end
+    (``SMM_WAV_FRONTEND=1``, the package's switch; read at construction)."""
+    before = os.environ.get("SMM_WAV_FRONTEND")
+    os.environ["SMM_WAV_FRONTEND"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["SMM_WAV_FRONTEND"]
+        else:
+            os.environ["SMM_WAV_FRONTEND"] = before
+
+
+def _requests(rng, samples=160000):
+    """Four requests with text, int16 audio and yuv420 / RGB video."""
     from simple_multimodal_tpu_torch.data.video_wire import pack_yuv420
 
     def wav():
-        return (rng.standard_normal(160000) * 3000).astype("int16")
+        return (rng.standard_normal(samples) * 3000).astype("int16")
 
     def clip():
         return rng.integers(0, 256, (30, 224, 224, 3), dtype="uint8")
@@ -275,10 +427,11 @@ def _check_probs(probs, where):
         raise AssertionError(f"{where}: probabilities sum to 1 ± {err:.3e}")
 
 
-def phase_serve_and_count(dev, tmp: str):
-    """Phases 3 and 4: serve requests through the demo, then one B=8
-    forward with the launch counters reset just before it. ``tmp`` holds the
-    config's directories and the checkpoint."""
+def phase_serve_and_count(dev, tmp: str, long: bool = False):
+    """Phase 4 (and, with ``long``, phase 8 on the 20 s model with the fused
+    front end): serve requests through the demo, then one B=8 forward with
+    the launch counters reset just before it. ``tmp`` holds the config's
+    directories and the checkpoint."""
     import numpy as np
     import torch
 
@@ -288,20 +441,26 @@ def phase_serve_and_count(dev, tmp: str):
     from simple_multimodal_tpu_torch.ops import hopper
     from simple_multimodal_tpu_torch.serving.demo import MultimodalEmotionDemo, save_checkpoint
 
-    cfg = _base_config(tmp)
+    cfg = _long_config(tmp) if long else _base_config(tmp)
+    tag = "long-clip serve" if long else "serve"
+    expected = LONG_FORWARD_LAUNCHES if long else EXPECTED_LAUNCHES
+    samples = cfg.audio_max_length
     t0 = time.perf_counter()
     model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     if dev.type == "cuda" and model.dtype != torch.bfloat16:
         raise AssertionError(f"base model on cuda should compute in bf16, got {model.dtype}")
-    ckpt = os.path.join(tmp, "model.pt")
+    ckpt = os.path.join(tmp, "model_long.pt" if long else "model.pt")
     save_checkpoint(ckpt, model, cfg)
     del model
     demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device=dev)
     sync()
-    log(f"serve: base hierarchical bf16 model built, saved and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    if demo.model.audio_encoder.model.cfg.fused_frontend != long:
+        raise AssertionError(f"{tag}: the fused front end should be {'on' if long else 'off'}")
+    log(f"{tag}: base hierarchical bf16 model ({samples} audio samples) built, saved and "
+        f"loaded in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    for i, (text, audio, video) in enumerate(_requests(rng)):
+    requests = _requests(rng, samples)
+    for i, (text, audio, video) in enumerate(requests[2:3] if long else requests):
         t0 = time.perf_counter()
         analysis = demo.predict(text, audio, video)
         sync()
@@ -310,7 +469,7 @@ def phase_serve_and_count(dev, tmp: str):
         _check_probs(torch.tensor(list(dist.values()))[None], f"request {i}")
         given = "+".join(m for m, x in (("text", text), ("audio", audio), ("video", video))
                          if x is not None)
-        log(f"serve: request {i} ({given}) -> {analysis['predicted_emotion']} "
+        log(f"{tag}: request {i} ({given}) -> {analysis['predicted_emotion']} "
             f"conf={analysis['confidence']:.3f} "
             f"valence={analysis['valence']:.3f} latency_ms={ms:.1f}")
 
@@ -319,7 +478,7 @@ def phase_serve_and_count(dev, tmp: str):
     enc = HashTokenizer(model_max_length=cfg.text_max_length)(texts)
     batch = (
         {k: torch.from_numpy(v).to(dev) for k, v in enc.items()},
-        torch.from_numpy((rng.standard_normal((B, 160000)) * 3000).astype("int16")).to(dev),
+        torch.from_numpy((rng.standard_normal((B, samples)) * 3000).astype("int16")).to(dev),
         torch.from_numpy(pack_yuv420(rng.integers(0, 256, (B, 30, 224, 224, 3),
                                                   dtype="uint8"))).to(dev),
     )
@@ -337,18 +496,47 @@ def phase_serve_and_count(dev, tmp: str):
             demo.model(*batch)
             sync()
             times.append(time.perf_counter() - t0)
-    log(f"counts: one B={B} forward launched {counts} (expected {EXPECTED_LAUNCHES})")
-    if counts != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {counts} != {EXPECTED_LAUNCHES}")
-    log(f"serve: B={B} forward median {median(times) * 1e3:.1f} ms = "
+    log(f"{tag} counts: one B={B} forward launched {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"{tag}: launch counts {counts} != {expected}")
+    log(f"{tag}: B={B} forward median {median(times) * 1e3:.1f} ms = "
         f"{B / median(times):.2f} clips/s (host clock, inputs on the device; "
         f"{smi_line()})")
+    if not long:
+        _frontend_ab(demo, batch)
     return counts, demo
 
 
-def phase_full_width_f32(demo):
-    """Phase 5: one base-width request in f32 on the card (kernels, TF32
-    off) against the CPU (plain versions), same weights."""
+def _frontend_ab(demo, batch):
+    """Information: the B=8 forward at 10 s with wav2vec2's fused front end
+    off (the default) and on, interleaved off, on, on, off, five forwards
+    each, on the same model and inputs."""
+    import torch
+
+    fe = demo.model.audio_encoder.model.feature_extractor
+    off = fe.cfg
+    times = {False: [], True: []}
+    with torch.inference_mode():
+        for fused in (False, True, True, False):
+            fe.cfg = dataclasses.replace(off, fused_frontend=fused)
+            demo.model(*batch)  # warm-up
+            sync()
+            for _ in range(5):
+                t0 = time.perf_counter()
+                demo.model(*batch)
+                sync()
+                times[fused].append((time.perf_counter() - t0) * 1e3)
+    fe.cfg = off
+    log(f"serve: B={B} forward at 10 s, fused front end off {median(times[False]):.2f} ms "
+        f"(min {min(times[False]):.2f}, max {max(times[False]):.2f}), on "
+        f"{median(times[True]):.2f} ms (min {min(times[True]):.2f}, max "
+        f"{max(times[True]):.2f}); 10 forwards each, interleaved; {smi_line()}")
+
+
+def phase_full_width_f32(demo, tag="f32 full width"):
+    """Phase 5 (and phase 9 on the long-clip demo): one base-width request
+    in f32 on the card (kernels, TF32 off) against the CPU (plain versions),
+    same weights."""
     import numpy as np
     import torch
 
@@ -356,7 +544,7 @@ def phase_full_width_f32(demo):
 
     cfg, rng = demo.config, np.random.default_rng(1)
     set_tf32(False)
-    text, audio, video = _requests(rng)[3]
+    text, audio, video = _requests(rng, cfg.audio_max_length)[3]
     text = "Full width check, all three modalities."
     state = demo.model.state_dict()
     outs = {}
@@ -372,16 +560,16 @@ def phase_full_width_f32(demo):
             outs[where] = {k: v.float().cpu() for k, v in m(*inputs).items()
                            if isinstance(v, torch.Tensor)}
         sync()
-        log(f"f32 full width: {where} forward {time.perf_counter() - t0:.2f} s")
+        log(f"{tag}: {where} forward {time.perf_counter() - t0:.2f} s")
         del m
     keys = ("emotion_logits", "valence", "arousal", "text_features",
             "audio_features", "video_features")
     for k in keys:
         a, b = outs["card"][k], outs["cpu"][k]
         err = float((a - b).abs().max())
-        log(f"f32 full width: {k:16s} max_abs_err={err:.3e} (atol=rtol={ATOL_F32:g})")
+        log(f"{tag}: {k:16s} max_abs_err={err:.3e} (atol=rtol={ATOL_F32:g})")
         if not torch.allclose(a, b, atol=ATOL_F32, rtol=ATOL_F32):
-            raise AssertionError(f"f32 full width: {k} GPU kernels vs CPU plain "
+            raise AssertionError(f"{tag}: {k} GPU kernels vs CPU plain "
                                  f"differ by {err:.3e}")
     with torch.inference_mode():
         bf = demo.forward(text, audio, video)["emotion_probs"].float().cpu()
@@ -423,6 +611,8 @@ def _arg_names(name, n):
         base = ["x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ln_g", "ln_b"]
     elif name == "ffn_block":
         base = ["x", "w1", "b1", "w2", "b2", "ln_g", "ln_b"]
+    elif name == "flash_attention":
+        base = ["q", "k", "v", "bias"]
     else:
         base = ["q", "k", "v", "pos_k", "pos_q"]
     return ["out"] + base[:n]
@@ -440,11 +630,18 @@ def phase_backward(dev) -> dict:
     drop = {"attention_block": dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED),
             "ffn_block": dict(dropout_rate_mid=DROP_RATE, dropout_rate_out=DROP_RATE,
                               dropout_seed=DROP_SEED),
-            "deberta_attention": dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)}
+            "deberta_attention": dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED),
+            "flash_attention": {}}  # the function has no dropout
     results = {}
+    wav_checked = False
     for name, label, kw_fn, inputs, lnp in cases:
         kern, plain = fns[name]
         n_in = len(inputs)
+        if name == "wav_frontend":  # no backward kernel: the plain version's gradients, once
+            if not wav_checked:
+                _check_wav_gradients(kern, plain, inputs, gen, label)
+                wav_checked = True
+            continue
 
         def call(fn, args, n_in=n_in, kw_fn=kw_fn, name=name):
             lnargs = list(args[n_in:]) + [None] * (2 - len(args[n_in:]))
@@ -476,7 +673,8 @@ def phase_backward(dev) -> dict:
             t_p2 = time_ms(lambda: fwd_bwd(lambda xs: call(plain, xs)), 3)
             ms, plain_ms = median(t_k1 + t_k2), median(t_p1 + t_p2)
             sync()
-            log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={DROP_RATE} "
+            rate = DROP_RATE if drop[name] else 0.0
+            log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={rate} "
                 f"max_abs_err={max_err:.3e} worst_rel={worst:.3e} ok={ok} "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
             if not ok:
@@ -486,11 +684,41 @@ def phase_backward(dev) -> dict:
             r = results.setdefault(name + "_bwd", {"max_abs_err": 0.0})
             r["max_abs_err"] = max(r["max_abs_err"], max_err)
             if "ms" not in r:
-                r["ms"], r["plain_ms"] = ms, plain_ms
+                with torch.no_grad():
+                    out_like = call(kern, args)
+                r.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                         **bound(name, args, out_like, backward=True))
+                if name in LIBRARY:
+                    r["library_ms"] = median(time_ms(
+                        lambda: fwd_bwd(lambda xs: LIBRARY[name](*xs)), 6))
+                log(f"        {name}_bwd: fwd+bwd bound {r['bound_ms']:.4f} ms by "
+                    f"{r['bound_by']}, library_ms={r['library_ms']}")
+                del out_like
             del args, args32
             torch.cuda.empty_cache()
     log(f"fwd+bwd times above: CUDA-event medians on {smi_line()}")
     return results
+
+
+def _check_wav_gradients(kern, plain, inputs, gen, label):
+    """wav_frontend's backward is autograd of its plain version on the saved
+    inputs: all four gradients against that, f32, atol=rtol=1e-3."""
+    import torch
+
+    args = [t.clone().requires_grad_() for t in inputs]
+    args2 = [t.clone().requires_grad_() for t in inputs]
+    out = kern(*args, stride=5)
+    gy = torch.randn(out.shape, generator=gen, device=out.device)
+    got = torch.autograd.grad(out, args, gy)
+    want = torch.autograd.grad(plain(*args2, stride=5), args2, gy)
+    sync()
+    for n, a, b in zip(("wav", "kernel", "gn_scale", "gn_bias"), got, want):
+        err = float((a - b).abs().max())
+        log(f"fwd+bwd wav_frontend       {label:56s} float32  d{n}: max_abs_err={err:.3e}")
+        if not torch.allclose(a, b, atol=ATOL_F32, rtol=ATOL_F32):
+            raise AssertionError(f"wav_frontend {label}: gradient of {n} off by {err:.3e}")
+    del out, got, want, args, args2
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phases 6, 7
@@ -524,9 +752,14 @@ UNUSED = ("classifier.sentiment_classifier.", "classifier.positive_classifier.",
           "uncertainty_head.")
 
 
-def phase_train(dev, tmp: str) -> dict:
+def phase_train(dev, tmp: str, long: bool = False) -> dict:
     """Phase 6: TRAIN_STEPS base-preset B=8 bf16 train steps with dropout
-    and augmentation on. Returns the backward launch counts of one step."""
+    and augmentation on. With ``long``, phase 10: the same on the 20 s model
+    with the fused front end and ``fusion_dropout=0.0``, the setting at
+    which the temporal attention (8 heads of width 96 over 999 frames) drops
+    no probabilities and so goes through flash_attention and its backward
+    kernels in training, as the JAX package's train step does. Returns the
+    launch counts of one step."""
     import numpy as np
     import torch
 
@@ -536,7 +769,9 @@ def phase_train(dev, tmp: str) -> dict:
     from simple_multimodal_tpu_torch.train.state import TrainState
     from simple_multimodal_tpu_torch.train.steps import make_train_step
 
-    cfg = _base_config(tmp)
+    cfg = _long_config(tmp) if long else _base_config(tmp)
+    tag = "long-clip train" if long else "train"
+    expected = LONG_TRAIN_LAUNCHES if long else TRAIN_LAUNCHES
     model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     if model.dtype != torch.bfloat16:
         raise AssertionError(f"base model on cuda should compute in bf16, got {model.dtype}")
@@ -557,20 +792,21 @@ def phase_train(dev, tmp: str) -> dict:
         times.append(time.perf_counter() - t0)
         c = hopper.launch_counts()
         vals = {k: float(v) for k, v in metrics.items()}
-        log(f"train: step {i} {times[-1] * 1e3:.1f} ms loss={vals['total_loss']:.4f} "
+        log(f"{tag}: step {i} {times[-1] * 1e3:.1f} ms loss={vals['total_loss']:.4f} "
             f"emotion={vals['emotion_loss']:.4f} contrastive={vals['contrastive_loss']:.4f} "
             f"grad_norm={vals['grad_norm']:.4f} launches={c}")
         if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"train step {i}: non-finite metrics {vals}")
-        if c != TRAIN_LAUNCHES:
-            raise AssertionError(f"train step {i}: launch counts {c} != {TRAIN_LAUNCHES}")
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {vals}")
+        if c != expected:
+            raise AssertionError(f"{tag} step {i}: launch counts {c} != {expected}")
         counts = c
     peak = torch.cuda.max_memory_allocated()
     still = [n for n, p in model.named_parameters()
              if not n.startswith(UNUSED) and torch.equal(p.detach(), before[n])]
     if still:
-        raise AssertionError(f"train: {len(still)} parameters did not move, e.g. {still[:5]}")
-    log(f"train: B={B} base hierarchical bf16, dropout and augmentation on: median "
+        raise AssertionError(f"{tag}: {len(still)} parameters did not move, e.g. {still[:5]}")
+    log(f"{tag}: B={B} base hierarchical bf16 ({cfg.audio_max_length} audio samples, "
+        f"fusion_dropout={cfg.fusion_dropout}), dropout and augmentation on: median "
         f"{median(times) * 1e3:.1f} ms/step over {TRAIN_STEPS} steps (host clock, "
         f"batches on the device), peak device memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); {smi_line()}")
@@ -636,6 +872,72 @@ def phase_full_width_train_f32(demo):
         raise AssertionError(f"f32 train step: gradient {worst_name} off by {worst:.3e} "
                              "of its max magnitude")
 
+def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 14):
+    """Device time by kernel (self time of the device-side rows), per
+    repetition, and the device's busy share of the wall time."""
+    import torch
+
+    def self_ms(e):
+        us = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if us is None else us) / 1e3
+
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and self_ms(e) > 0]
+    rows.sort(key=self_ms, reverse=True)
+    busy = sum(self_ms(e) for e in rows) / reps
+    log(f"profile {tag}: wall {wall_ms / reps:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / (wall_ms / reps):.1f}% of wall; idle "
+        f"{100 - 100 * busy / (wall_ms / reps):.1f}%), per repetition over {reps}; {smi_line()}")
+    for e in rows[:top]:
+        log(f"profile {tag}: {self_ms(e) / reps:9.3f} ms {e.count / reps:7.1f} calls  {e.key[:100]}")
+
+
+def phase_profile(dev, tmp: str):
+    """``--profile``: where the device time goes in the B=8 forward and the
+    B=8 train step, at 10 s of audio and at 20 s with the fused front end."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    reps = 2
+    for long in (False, True):
+        tag = "20 s" if long else "10 s"
+        with fused_frontend() if long else contextlib.nullcontext():
+            cfg = _long_config(tmp) if long else _base_config(tmp)
+            model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        batch = _train_batch(np.random.default_rng(4), cfg, dev)
+        inputs = (batch["text"], batch["audio"], batch["video"])
+        with torch.inference_mode():
+            model(*inputs)  # warm-up
+            sync()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    model(*inputs)
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+        _report_profile(prof, f"{tag} B={B} forward", wall, reps)
+        step = make_train_step(model, make_optimizer(cfg, model, total_steps=100), cfg,
+                               augment=True, compute_contrastive_loss=True)
+        state, _ = step(TrainState.create(0), batch)  # warm-up
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                state, _ = step(state, batch)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        _report_profile(prof, f"{tag} B={B} train step", wall, reps)
+        del model, step, state, prof
+        torch.cuda.empty_cache()
+
+
 def phase_device_and_build():
     import torch
 
@@ -677,13 +979,28 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         t_start = time.perf_counter()
         phase_device_and_build()
+        if "--profile" in sys.argv[1:]:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_profile(dev, tmp)
+            return 0
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            counts, demo = phase_serve_and_count(dev, tmp)
+            _, demo = phase_serve_and_count(dev, tmp)
             phase_full_width_f32(demo)
-            counts.update({k: v for k, v in phase_train(dev, tmp).items() if k.endswith("_bwd")})
+            phase_train(dev, tmp)
             phase_full_width_train_f32(demo)
+            del demo
+            torch.cuda.empty_cache()
+            with fused_frontend():
+                # the launches reported: the long clip's forward runs all five
+                # forward kernels, its train step all four backward ones
+                counts, long_demo = phase_serve_and_count(dev, tmp, long=True)
+                phase_full_width_f32(long_demo, tag="f32 long clip")
+                del long_demo
+                torch.cuda.empty_cache()
+                counts.update({k: v for k, v in phase_train(dev, tmp, long=True).items()
+                               if k.endswith("_bwd")})
         log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -692,7 +1009,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": counts[name],
         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
-        "plain_ms": kern[name]["plain_ms"],
+        "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
+        "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
     } for name in REPLACES]
     log(json.dumps({"kernels": kernels}))
     log(smi_line())

@@ -13,6 +13,7 @@ the temporal and facial attention probabilities and the output of the
 biLSTM's first layer; the masks come from the caller's generator.
 """
 import dataclasses
+import os
 from typing import Dict
 
 import torch
@@ -30,7 +31,9 @@ _NOT_PORTED = ("adapters and prompt tuning are not ported yet "
 
 
 def resolve_backbone_configs(config):
-    """Backbone dimension presets from a ModelConfig: 'tiny' or 'base'."""
+    """Backbone dimension presets from a ModelConfig: 'tiny' or 'base'.
+    ``SMM_WAV_FRONTEND=1`` in the environment turns on wav2vec2's fused
+    front end (off by default), the JAX package's own switch."""
     preset = getattr(config, "encoder_preset", "base")
     if preset == "tiny":
         text = dataclasses.replace(DebertaConfig.tiny(), vocab_size=128100)
@@ -43,6 +46,8 @@ def resolve_backbone_configs(config):
     else:
         raise NotImplementedError(f"encoder preset {preset!r} is not ported yet "
                                   "(the port has 'tiny' and 'base')")
+    audio = dataclasses.replace(
+        audio, fused_frontend=os.environ.get("SMM_WAV_FRONTEND", "0") == "1")
     return text, audio, vit
 
 

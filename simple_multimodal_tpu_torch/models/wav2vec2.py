@@ -6,7 +6,9 @@ layer only), feature projection, a grouped positional conv with weight
 norm, and post-LN transformer layers whose attention and FFN run through
 the ``attention_block`` (no LN, no residual) and ``ffn_block`` (post-LN)
 kernels. 160 000 samples → 499 frames. Waveforms are [B, T]; the feature
-encoder returns NWC [B, T', C] frames, the JAX layout.
+encoder returns NWC [B, T', C] frames, the JAX layout. With
+``fused_frontend`` its first stage (conv_0 → GroupNorm → GELU) runs through
+the ``wav_frontend`` kernel on the same parameters.
 
 In training mode the JAX model's dropouts run (feature projection,
 encoder, attention output, and inside the kernels the attention
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from ..ops.attention import dropout, fused_weights, gelu, kernel_seed, layer_norm, linear
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
+from ..ops.hopper.wav_frontend import wav_frontend
 from ._util import Group
 
 
@@ -44,6 +47,7 @@ class Wav2Vec2Config:
     feat_proj_dropout: float = 0.1
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
+    fused_frontend: bool = False  # conv_0 → GroupNorm → GELU through wav_frontend
 
     @staticmethod
     def base() -> "Wav2Vec2Config":
@@ -82,6 +86,12 @@ class FeatureEncoder(nn.Module):
     def forward(self, waveform: torch.Tensor, dtype) -> torch.Tensor:
         x = waveform.to(dtype)[:, None, :]  # NCW inside, NWC at the boundary
         for i, layer in enumerate(self.conv_layers):
+            if i == 0 and self.cfg.fused_frontend:
+                gn = layer.layer_norm  # the kernel takes the JAX layouts: [K, 1, C], NWC out
+                x = wav_frontend(waveform, layer.conv.weight.to(dtype).permute(2, 1, 0),
+                                 gn.weight, gn.bias, layer.conv.stride[0], gn.eps)
+                x = x.transpose(1, 2)
+                continue
             x = F.conv1d(x, layer.conv.weight.to(dtype), stride=layer.conv.stride)
             if i == 0:
                 gn = layer.layer_norm

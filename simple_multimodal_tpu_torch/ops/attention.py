@@ -13,6 +13,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .hopper.flash_attention import flash_attention
+
+FLASH_MIN_LENGTH = 512  # queries and keys beyond this go through flash_attention
+
 
 def resolve_dtype(config, device) -> torch.dtype:
     """Compute dtype: bf16 (``compute_dtype``) on CUDA under
@@ -88,7 +92,12 @@ def fused_weights(layers, dtype):
 class MultiHeadAttention(nn.Module):
     """torch MHA parameters (``in_proj_weight`` [3E, E], ``in_proj_bias``,
     ``out_proj``) with the JAX module's computation; in training mode the
-    probabilities take dropout at ``dropout`` (drawn from ``gen``)."""
+    probabilities take dropout at ``dropout`` (drawn from ``gen``).
+
+    A call that needs no weights, drops no probabilities (eval mode, or
+    ``dropout`` 0) and has more than ``FLASH_MIN_LENGTH`` queries and keys
+    goes through ``flash_attention``, the JAX module's gate: no [B, H, Q, K]
+    tensor is formed there."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -112,6 +121,10 @@ class MultiHeadAttention(nn.Module):
         q = F.linear(query.to(dtype), w[:E], b[:E]).reshape(B, Q, H, Dh)
         k = F.linear(key.to(dtype), w[E:2 * E], b[E:2 * E]).reshape(B, K, H, Dh)
         v = F.linear(value.to(dtype), w[2 * E:], b[2 * E:]).reshape(B, K, H, Dh)
+        no_drop = not self.training or not self.dropout
+        if not need_weights and no_drop and Q > FLASH_MIN_LENGTH and K > FLASH_MIN_LENGTH:
+            out = flash_attention(q, k, v)
+            return linear(out.reshape(B, Q, E), self.out_proj, dtype), None
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (Dh ** -0.5)
         logits = compact_scores(logits, dtype)
         probs = torch.softmax(logits, dim=-1).to(dtype)

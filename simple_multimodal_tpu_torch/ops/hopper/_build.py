@@ -44,6 +44,14 @@ SIGNATURES = {
                               _I, _I, _I, _I] + _DROP + [_P, _P],
     "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                                   _I, _I, _I, _I] + _DROP + [_P] * 11 + [_I] + [_P] * 3,
+    # q, k, v, out, lse, bias, host strides; B, Sq, Sk, H, D; stream
+    "smm_flash_attention": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, out, dout, lse, bias, delta, dq, dk, dv, ds, host strides
+    "smm_flash_attention_bwd": [_I] + [_P] * 13 + [_I] * 5 + [_P],
+    # wav, w, part; B, T, T1, C, K, stride; stream
+    "smm_wav_frontend_stats": [_I] + [_P] * 3 + [_I] * 6 + [_P],
+    # wav, w, mean, rstd, gamma, beta, out
+    "smm_wav_frontend_apply": [_I] + [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -14,10 +14,17 @@ from simple_multimodal_tpu_torch.ops import hopper
 from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
+from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
+from simple_multimodal_tpu_torch.ops.hopper import wav_frontend as wf
 from simple_multimodal_tpu_torch.train.losses import total_loss
 from simple_multimodal_tpu_torch.train.optim import is_backbone_name, make_optimizer
 
 pytestmark = pytest.mark.gpu
+
+
+def _counts(**launched):
+    """Every kernel's launch count: 0 unless named."""
+    return {**{k.__name__: 0 for k in hopper.KERNELS}, **launched}
 
 
 @pytest.fixture
@@ -151,9 +158,9 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
             err = float((a.float() - b).abs().max())
             scale = want[3] if name.startswith("attention_block") and i == 5 else b
             assert err <= tol * float(scale.abs().max()), (name, i, err)
-    assert hopper.launch_counts() == {"attention_block": 2, "ffn_block": 3,
-                                      "deberta_attention": 1, "attention_block_bwd": 2,
-                                      "ffn_block_bwd": 3, "deberta_attention_bwd": 1}
+    assert hopper.launch_counts() == _counts(attention_block=2, ffn_block=3,
+                                             deberta_attention=1, attention_block_bwd=2,
+                                             ffn_block_bwd=3, deberta_attention_bwd=1)
 
 
 def test_tiny_slice_on_cuda_matches_cpu(cuda, tmp_path):
@@ -179,10 +186,8 @@ def test_tiny_slice_on_cuda_matches_cpu(cuda, tmp_path):
         got = gpu({k: v.to(cuda) for k, v in text.items()}, audio.to(cuda), video.to(cuda))
         want = cpu(text, audio, video)
     L = 2  # tiny preset: two layers per backbone, the ViT's last one CLS-only
-    assert hopper.launch_counts() == {"attention_block": (L - 1) + L,
-                                      "ffn_block": (L - 1) + L + L,
-                                      "deberta_attention": L, "attention_block_bwd": 0,
-                                      "ffn_block_bwd": 0, "deberta_attention_bwd": 0}
+    assert hopper.launch_counts() == _counts(attention_block=(L - 1) + L,
+                                             ffn_block=(L - 1) + L + L, deberta_attention=L)
     for key in ("text_features", "audio_features", "video_features",
                 "emotion_logits", "valence", "arousal"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-3, rtol=1e-3)
@@ -263,3 +268,145 @@ def test_backbone_parameters_get_gradients_through_the_kernels(cuda, tmp_path):
     for name in kernel_path:
         p = dict(model.named_parameters())[name]
         assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+
+
+def _flash_cases(dev, g):
+    """(label, q, k, v, biases) at ragged lengths: D = 96 self attention,
+    Sq != Sk at D = 64, the small (4 and 8: FMA bodies in bf16 too) and
+    large head widths, a [B, 1, 1, Sk]
+    key mask (one batch row fully masked), a full bias over that mask, and
+    biases that broadcast over batch and heads."""
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * std
+
+    def qkv(B, Sq, Sk, H, D):
+        return rn(B, Sq, H, D), rn(B, Sk, H, D), rn(B, Sk, H, D)
+
+    cases = [("self D=96", *qkv(2, 199, 199, 3, 96), [None]),
+             ("cross D=64", *qkv(2, 130, 301, 2, 64), [None]),
+             ("D=4", *qkv(2, 70, 90, 8, 4), [None]),
+             ("D=8", *qkv(2, 33, 65, 4, 8), [None]),
+             ("D=16", *qkv(1, 70, 130, 2, 16), [None]),
+             ("D=128", *qkv(1, 130, 257, 2, 128), [None])]
+    B, Sq, Sk, H = 2, 100, 141, 3
+    mask = torch.zeros(B, 1, 1, Sk, device=dev)
+    mask[0, ..., 90:] = -1e30
+    full_mask = mask.clone()
+    full_mask[1] = -1e30
+    cases.append(("biased D=32", *qkv(B, Sq, Sk, H, 32),
+                  [mask, full_mask, rn(B, H, Sq, Sk, std=0.5) + mask,
+                   rn(1, 1, Sq, Sk, std=0.5), rn(Sq, Sk, std=0.5)]))
+    return cases
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 5e-2)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
+    """The flash_attention kernels, forward and backward, against autograd
+    of the plain version in f32 on the same (rounded) inputs: the output,
+    dq, dk, dv and dbias (reduced over the bias's broadcast axes) within
+    tol * max|want| (bf16: the kernels round p and ds before the products)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    hopper.reset_launch_counts()
+    n = 0
+    for label, q, k, v, biases in _flash_cases(cuda, g):
+        gy = torch.randn(q.shape, generator=g, device=cuda).to(dtype)
+        for bias in biases:
+            ins = [t.to(dtype) for t in (q, k, v)] + ([] if bias is None else [bias])
+            got = _with_grads(fa.flash_attention, ins, gy)
+            want = _with_grads(fa.flash_attention_plain, [t.float() for t in ins], gy.float())
+            torch.cuda.synchronize()
+            n += 1
+            assert len(got) == len(want) == len(ins) + 1
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert a.shape == b.shape and torch.isfinite(a).all(), (label, i)
+                err = float((a.float() - b).abs().max())
+                assert err <= tol * float(b.abs().max()), (label, i, err)
+    assert hopper.launch_counts() == _counts(flash_attention=n, flash_attention_bwd=n)
+
+
+def test_cuda_flash_attention_reads_strided_rows(cuda):
+    """q, k and v as column blocks of one packed [B, S, 3, H, D] projection:
+    read in place through their token strides."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    packed = torch.randn(2, 150, 3, 2, 64, generator=g, device=cuda)
+    q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+    assert not q.is_contiguous() and fa._rows(q) is q
+    torch.testing.assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])
+def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
+    """Both passes against the plain version (f32 on the rounded inputs) at
+    lengths whose last block is ragged, at C = 512 and the tiny preset's
+    C = 16; bf16: one rounding of y, of the output, and the tanh GELU. The
+    gradients are autograd of the plain version, so they agree up to the
+    summation order of cuDNN's weight gradient, which varies from run to run:
+    each within 1e-3 of its largest magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    hopper.reset_launch_counts()
+    for B, T, C in ((2, 4003, 512), (3, 645, 512), (2, 16000, 16)):
+        wav = torch.randn(B, T, generator=g, device=cuda) * 0.3
+        kern = (torch.randn(10, 1, C, generator=g, device=cuda) * 0.1).to(dtype)
+        gs = torch.randn(C, generator=g, device=cuda) * 0.2 + 1
+        gb = torch.randn(C, generator=g, device=cuda) * 0.1
+        got = wf.wav_frontend(wav, kern, gs, gb, 5)
+        want = wf.wav_frontend_plain(wav.to(dtype).float(), kern.float(), gs, gb, 5)
+        assert got.dtype == dtype and got.shape == (B, (T - 10) // 5 + 1, C)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    ins = [wav, kern.float(), gs, gb]
+    gy = torch.randn(2, 3199, 16, generator=g, device=cuda)
+    got = _with_grads(lambda *a: wf.wav_frontend(*a, 5), ins, gy)
+    want = _with_grads(lambda *a: wf.wav_frontend_plain(*a, 5), ins, gy)
+    for a, b in zip(got[1:], want[1:]):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+    assert hopper.launch_counts() == _counts(wav_frontend=4)
+    with pytest.raises(ValueError, match="stride"):
+        wf.wav_frontend(wav, kern, gs, gb, 3)
+    with pytest.raises(ValueError, match="C = 24"):
+        wf.wav_frontend(wav, kern[..., :8].repeat(1, 1, 3), gs[:24], gb[:24], 5)
+
+
+def test_tiny_long_clip_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
+    """The tiny model on a clip of 519 wav2vec2 frames with the fused front
+    end on, f32, eval mode with gradients: card (flash_attention forward and
+    backward, wav_frontend) against CPU (plain versions): outputs at 1e-3,
+    the loss at 1e-4 relative, every gradient within 1e-3 of its largest
+    magnitude (plus 1e-6 for the leaves that are zero in exact arithmetic)."""
+    monkeypatch.setenv("SMM_WAV_FRONTEND", "1")
+    cfg = ModelConfig(encoder_preset="tiny", text_max_length=16, audio_max_length=166400,
+                      video_max_frames=4, video_frame_size=(32, 32), fusion_hidden_size=32,
+                      fusion_num_heads=4, graph_hidden_size=16, fusion_dropout=0.0,
+                      data_path=str(tmp_path / "d"), save_path=str(tmp_path / "c"),
+                      log_path=str(tmp_path / "l"))
+    gen = torch.Generator().manual_seed(1)
+    text = {"input_ids": torch.randint(1, 1000, (2, 16), generator=gen),
+            "attention_mask": torch.ones(2, 16, dtype=torch.int32)}
+    audio = torch.randn(2, 166400, generator=gen) * 0.3
+    video = torch.randint(0, 256, (2, 4, 32, 32, 3), generator=gen, dtype=torch.uint8)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = create_model(cfg, device=dev, dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(0))
+        hopper.reset_launch_counts()
+        out = model({k: v.to(dev) for k, v in text.items()}, audio.to(dev), video.to(dev),
+                    compute_contrastive_loss=True)
+        loss, _ = total_loss(out, torch.tensor([2, 6], device=dev))
+        loss.backward()
+        runs[dev.type] = (out, float(loss.detach()),
+                          {n: p.grad.cpu() for n, p in model.named_parameters()
+                           if p.grad is not None}, hopper.launch_counts())
+    L = 2
+    assert runs["cuda"][3] == _counts(
+        attention_block=(L - 1) + L, ffn_block=(L - 1) + L + L, deberta_attention=L,
+        flash_attention=1, wav_frontend=1, attention_block_bwd=(L - 1) + L,
+        ffn_block_bwd=(L - 1) + L + L, deberta_attention_bwd=L, flash_attention_bwd=1)
+    assert runs["cpu"][3] == _counts()
+    for key in ("text_features", "audio_features", "video_features", "emotion_logits"):
+        torch.testing.assert_close(runs["cuda"][0][key].detach().cpu(),
+                                   runs["cpu"][0][key].detach(), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], rtol=1e-4)
+    assert set(runs["cuda"][2]) == set(runs["cpu"][2])
+    for name, want in runs["cpu"][2].items():
+        err = float((runs["cuda"][2][name] - want).abs().max())
+        assert err <= 1e-3 * float(want.abs().max()) + 1e-6, (name, err)

@@ -1,9 +1,12 @@
-"""The port's three Hopper kernels: their plain PyTorch versions against the
-JAX package's kernels (interpret mode on CPU) and ``_xla_reference``s, in
+"""The port's Hopper kernels: their plain PyTorch versions against the JAX
+package's kernels (interpret mode on CPU) and ``_xla_reference``s, in
 f32 at atol=rtol=1e-5 (the same math; only the summation order differs);
 the stateless dropout hash bit-equal to ``_hash_keep`` in its three index
-schemes; and, with hash dropout at rate 0.1, each plain version's output
-(1e-5) and input gradients (1e-4) against ``jax.vjp`` of the reference.
+schemes; with hash dropout at rate 0.1, each plain version's output
+(1e-5) and input gradients (1e-4) against ``jax.vjp`` of the reference;
+``flash_attention`` and ``wav_frontend`` the same way (outputs 1e-5 in f32
+and 2e-2 in bf16, gradients 1e-4 against ``jax.grad`` through the Pallas
+custom VJPs).
 
 The CUDA kernels themselves run only on a GPU: tests/test_torch_gpu.py
 compares them with the plain versions there.
@@ -22,9 +25,13 @@ from simple_multimodal_tpu.models.deberta import log_bucket as jax_log_bucket
 from simple_multimodal_tpu.ops.pallas import attention_block as jab
 from simple_multimodal_tpu.ops.pallas import deberta_attention as jda
 from simple_multimodal_tpu.ops.pallas import ffn_block as jfb
+from simple_multimodal_tpu.ops.pallas import flash_attention as jfa
+from simple_multimodal_tpu.ops.pallas import wav_frontend as jwf
 from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
+from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
+from simple_multimodal_tpu_torch.ops.hopper import wav_frontend as wf
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,12 +186,17 @@ def test_hopper_modules_import_without_nvcc_or_gpu():
                CUDA_HOME="/nonexistent", PYTHONPATH=REPO)
     code = ("import torch\n"
             "from simple_multimodal_tpu_torch.ops.hopper import _build, "
-            "attention_block, ffn_block, deberta_attention\n"
+            "attention_block, ffn_block, deberta_attention, flash_attention, wav_frontend\n"
             "x = torch.zeros(1, 3, 16)\n"
             "w, b = torch.eye(16), torch.zeros(16)\n"
             "attention_block.attention_block(x, w, b, w, b, w, b, w, b, num_heads=1)\n"
+            "q = torch.zeros(1, 3, 1, 16)\n"
+            "flash_attention.flash_attention(q, q, q)\n"
+            "wav_frontend.wav_frontend(torch.ones(1, 40), torch.ones(10, 1, 8), b[:8], b[:8], 5)\n"
             "assert _build._lib is None\n"
             "assert attention_block.attention_block.launches == 0\n"
+            "assert flash_attention.flash_attention.launches == 0\n"
+            "assert wav_frontend.wav_frontend.launches == 0\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
@@ -204,6 +216,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
         da.deberta_attention(q, q, q, torch.zeros(32, 16, device="meta"),
                              torch.zeros(32, 16, device="meta"), None, span=16,
                              max_position=64)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        wf.wav_frontend(torch.zeros(1, 40, device="meta"), torch.zeros(10, 1, 8, device="meta"),
+                        torch.zeros(8, device="meta"), torch.zeros(8, device="meta"), 5)
 
 
 # ------------------------------------------------- hash dropout and backward
@@ -354,3 +371,158 @@ def test_fold_order_groups_offsets_by_table_row():
     for t in range(2 * span):
         rows = order[offsets[t]:offsets[t + 1]]
         assert (idx_c[rows] == t).all() and (np.diff(rows) > 0).all()
+
+
+# ----------------------------------------------------------- flash_attention
+
+def _flash_args(B, Sq, Sk, H, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Sk, H, D)).astype(np.float32) for _ in range(2))
+    return rng, q, k, v
+
+
+def _flash_bias(kind, rng, B, Sq, Sk, H):
+    """None; a [B, 1, 1, Sk] key mask (-1e30 on the tail of row 1); that mask
+    plus a full [B, H, Sq, Sk] bias; or a [1, 1, Sq, Sk] bias."""
+    if kind == "none":
+        return None
+    mask = np.zeros((B, 1, 1, Sk), np.float32)
+    mask[1, ..., Sk // 2:] = -1e30
+    if kind == "keymask":
+        return mask
+    if kind == "full":
+        return (0.5 * rng.standard_normal((B, H, Sq, Sk))).astype(np.float32) + mask
+    return (0.5 * rng.standard_normal((1, 1, Sq, Sk))).astype(np.float32)
+
+
+# (B, Sq, Sk, H, D), Pallas blocks, bias: D = 96 with a length that is no
+# multiple of the block; Sq != Sk; the two masking biases; a broadcast bias
+FLASH_CASES = [((2, 70, 70, 2, 96), 32, "none"), ((2, 40, 72, 2, 32), 32, "none"),
+               ((2, 64, 64, 2, 16), 32, "keymask"), ((2, 45, 70, 2, 32), 16, "full"),
+               ((2, 48, 48, 2, 16), 16, "qk")]
+
+
+@pytest.mark.parametrize("shape,block,bias_kind", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(shape, block, bias_kind):
+    B, Sq, Sk, H, D = shape
+    rng, q, k, v = _flash_args(*shape, seed=11)
+    bias = _flash_bias(bias_kind, rng, B, Sq, Sk, H)
+    want = np.asarray(jfa.flash_attention(q, k, v, bias=bias, block_q=block, block_k=block,
+                                          interpret=True))
+    got = fa.flash_attention(*_t(q, k, v), None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_flash_attention_plain_matches_jax_in_bf16():
+    """bf16 in both: 2e-2 covers the rounding of the probabilities and of
+    the output (the TPU kernel rounds them before normalising, the plain
+    version after)."""
+    shape = (1, 64, 64, 2, 32)
+    _, q, k, v = _flash_args(*shape, seed=12)
+    want = jfa.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                               block_q=32, block_k=32, interpret=True)
+    got = fa.flash_attention(*(t.to(torch.bfloat16) for t in _t(q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape,block,bias_kind", FLASH_CASES)
+def test_flash_attention_plain_gradients_match_jax(shape, block, bias_kind):
+    """dq, dk, dv and dbias (reduced over the bias's broadcast axes) of a
+    weighted-sum loss against jax.grad through the Pallas backward, 1e-4."""
+    B, Sq, Sk, H, D = shape
+    rng, q, k, v = _flash_args(*shape, seed=13)
+    bias = _flash_bias(bias_kind, rng, B, Sq, Sk, H)
+    w = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    args = [q, k, v] + ([] if bias is None else [bias])
+
+    def loss(*a):
+        out = jfa.flash_attention(*a[:3], bias=a[3] if len(a) > 3 else None, block_q=block,
+                                  block_k=block, interpret=True)
+        return jnp.sum(out * w)
+
+    want = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    ts = [t.requires_grad_() for t in _t(*args)]
+    (fa.flash_attention(*ts) * torch.from_numpy(w)).sum().backward()
+    for i, (t, g) in enumerate(zip(ts, want)):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), **GTOL, err_msg=f"grad {i}")
+
+
+def test_flash_attention_fully_masked_row_attends_uniformly():
+    """A row whose every key carries a -1e30 bias: the output is the mean of
+    its Sk values, as in the TPU kernel, and the gradients are those of that
+    uniform softmax (dv = mean over keys of the summed cotangent). The TPU
+    kernel's backward differs there: its saved logsumexp -1e30 + log(Sk)
+    rounds to -1e30, so it recomputes the probabilities as 1, Sk times too
+    large."""
+    B, Sq, Sk, H, D = 2, 32, 32, 2, 16
+    rng, q, k, v = _flash_args(B, Sq, Sk, H, D, seed=14)
+    bias = np.zeros((B, 1, 1, Sk), np.float32)
+    bias[1] = -1e30
+    want = np.asarray(jfa.flash_attention(q, k, v, bias=bias, block_q=16, block_k=16,
+                                          interpret=True))
+    ts = [t.requires_grad_() for t in _t(q, k, v)]
+    got = fa.flash_attention(*ts, torch.from_numpy(bias))
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(got.detach().numpy()[1],
+                               np.broadcast_to(v[1].mean(0), (Sq, H, D)), **TOL)
+    w = rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(ts[2].grad.numpy()[1],
+                               np.broadcast_to(w[1].sum(0) / Sk, (Sk, H, D)), **GTOL)
+    assert all(bool(torch.isfinite(t.grad).all()) for t in ts)
+
+
+# -------------------------------------------------------------- wav_frontend
+
+def _wav_args(T, C=512, B=2, seed=15):
+    rng = np.random.default_rng(seed)
+    wav = (0.3 * rng.standard_normal((B, T))).astype(np.float32)
+    kern = (0.1 * rng.standard_normal((10, 1, C))).astype(np.float32)
+    g = (1 + 0.2 * rng.standard_normal(C)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    return rng, wav, kern, g, b
+
+
+@pytest.mark.parametrize("T", [4003, 645])
+def test_wav_frontend_plain_matches_xla_reference(T):
+    _, wav, kern, g, b = _wav_args(T, C=64)
+    want = np.asarray(jwf._xla_reference(wav, kern, g, b, 5, 1e-5, False, jnp.float32))
+    got = wf.wav_frontend(*_t(wav, kern, g, b), 5)
+    assert got.shape == want.shape == (2, (T - 10) // 5 + 1, 64)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("T", [4003, 2560, 645])
+def test_wav_frontend_plain_matches_jax_kernel_in_bf16(T):
+    """Against the Pallas kernel (interpret mode) at C = 512 in bf16: 2e-2,
+    bf16 rounding only, the JAX test's own tolerance."""
+    _, wav, kern, g, b = _wav_args(T)
+    want = jax.jit(lambda *a: jwf.wav_frontend(*a, stride=5, interpret=True))(
+        jnp.asarray(wav), jnp.asarray(kern, jnp.bfloat16), jnp.asarray(g), jnp.asarray(b))
+    tw, tk, tg, tb = _t(wav, kern, g, b)
+    got = wf.wav_frontend(tw, tk.to(torch.bfloat16), tg, tb, 5)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, (T - 10) // 5 + 1, 512)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=0)
+
+
+def test_wav_frontend_plain_gradients_match_jax():
+    """All four gradients of a weighted-sum loss against jax.grad through
+    wav_frontend's custom VJP (autodiff of its _xla_reference), f32, 1e-4."""
+    T, C = 1285, 128
+    rng, wav, kern, g, b = _wav_args(T, C=C)
+    T1 = (T - 10) // 5 + 1
+    w = rng.standard_normal((2, T1, C)).astype(np.float32)
+
+    def loss(*a):
+        return jnp.sum(jwf.wav_frontend(*a, stride=5, interpret=True) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(wav, kern, g, b)
+    ts = [t.requires_grad_() for t in _t(wav, kern, g, b)]
+    (wf.wav_frontend(*ts, 5) * torch.from_numpy(w)).sum().backward()
+    for i, (t, gj) in enumerate(zip(ts, want)):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), **GTOL, err_msg=f"grad {i}")

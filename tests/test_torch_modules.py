@@ -13,6 +13,7 @@ import dataclasses
 from types import SimpleNamespace
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,6 +29,8 @@ from simple_multimodal_tpu.models.encoders import (
 from simple_multimodal_tpu.models import fusion as jfusion
 from simple_multimodal_tpu.models.fusion import HierarchicalFusion
 from simple_multimodal_tpu.models.vit import ViTModel
+from simple_multimodal_tpu.models.wav2vec2 import FeatureEncoder as JaxFeatureEncoder
+from simple_multimodal_tpu.models.wav2vec2 import Wav2Vec2Config as JaxWav2Vec2Config
 from simple_multimodal_tpu.models.wav2vec2 import Wav2Vec2Model
 from simple_multimodal_tpu.ops.attention import MultiHeadAttention as JaxMHA
 from simple_multimodal_tpu_torch import config as pconfig
@@ -38,6 +41,9 @@ from simple_multimodal_tpu_torch.models import from_jax
 from simple_multimodal_tpu_torch.models.multimodal_model import (
     MultimodalEmotionModel as PortModel,
 )
+from simple_multimodal_tpu_torch.models import encoders as pencoders
+from simple_multimodal_tpu_torch.models.wav2vec2 import FeatureEncoder, Wav2Vec2Config
+from simple_multimodal_tpu_torch.ops import attention as pattention
 from simple_multimodal_tpu_torch.ops.attention import MultiHeadAttention
 
 TOL = dict(atol=2e-4, rtol=2e-4)
@@ -200,6 +206,131 @@ def test_multihead_attention_matches_jax(need_weights, kv_len):
         np.testing.assert_allclose(_np(w), np.asarray(want_w), **TOL)
     else:
         assert w is None and want_w is None
+
+
+def _long_mha(E=32, H=4, Q=520, K=530, seed=7):
+    """A JAX MHA with use_flash on, the port MHA on its weights, and inputs
+    longer than the 512 gate (cross attention, so the JAX module cannot take
+    its fused self-attention block instead)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, Q, E)).astype(np.float32)
+    kv = rng.standard_normal((2, K, E)).astype(np.float32)
+    mha = JaxMHA(E, H, use_flash=True)
+    params = jax.tree_util.tree_map(np.asarray, mha.init(jax.random.PRNGKey(3), q, kv, kv))
+    sd = {}
+    from_jax._mha(sd, "m", params["params"])
+    port = MultiHeadAttention(E, H)
+    port.load_state_dict({k[2:]: torch.from_numpy(np.array(v)) for k, v in sd.items()})
+    return rng, mha, params, port, q, kv
+
+
+def test_multihead_attention_long_matches_jax_flash():
+    """Q, K > 512 without weights: the JAX module runs flash_attention (the
+    Pallas kernel in interpret mode), the port its flash_attention (plain on
+    CPU). Output and, through a weighted-sum loss, every gradient at 1e-4."""
+    rng, mha, params, port, q, kv = _long_mha()
+    w = rng.standard_normal(q.shape).astype(np.float32)
+
+    def loss(p, q_, kv_):
+        out, weights = mha.apply(p, q_, kv_, kv_, need_weights=False)
+        assert weights is None
+        return jnp.sum(out * w), out
+
+    (_, want), (gp, gq, gkv) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        params, q, kv)
+    tq, tkv = torch.from_numpy(q).requires_grad_(), torch.from_numpy(kv).requires_grad_()
+    got, weights = port.eval()(tq, tkv, tkv, F32, need_weights=False)
+    assert weights is None
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(gq), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(tkv.grad.numpy(), np.asarray(gkv), atol=1e-4, rtol=1e-4)
+    want_grads = {}
+    from_jax._mha(want_grads, "m", jax.tree_util.tree_map(np.asarray, gp)["params"])
+    for name, param in port.named_parameters():
+        np.testing.assert_allclose(param.grad.numpy(), want_grads["m." + name], atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("Q,K,need_weights,train,rate,flash", [
+    (520, 530, False, False, 0.1, True),    # eval: the dropout is off
+    (520, 530, False, True, 0.0, True),     # training without probability dropout
+    (499, 499, False, False, 0.0, False),   # the default clip's 499 frames
+    (520, 512, False, False, 0.0, False),   # K not beyond the gate
+    (520, 530, True, False, 0.0, False),    # the weights must be formed anyway
+    (520, 530, False, True, 0.1, False),    # probability dropout in effect
+])
+def test_multihead_attention_routes_long_calls_to_flash(monkeypatch, Q, K, need_weights, train,
+                                                        rate, flash):
+    calls = []
+
+    def spy(q, k, v, bias=None):
+        calls.append(q.shape)
+        return real(q, k, v, bias)
+
+    real = pattention.flash_attention
+    monkeypatch.setattr(pattention, "flash_attention", spy)
+    E, H = 16, 2
+    gen = torch.Generator().manual_seed(0)
+    mha = MultiHeadAttention(E, H, rate).train(train)
+    torch.nn.init.normal_(mha.in_proj_weight, std=0.1, generator=gen)
+    q, kv = torch.randn(1, Q, E, generator=gen), torch.randn(1, K, E, generator=gen)
+    out, weights = mha(q, kv, kv, F32, need_weights=need_weights, gen=gen)
+    assert out.shape == (1, Q, E) and (weights is not None) == need_weights
+    assert calls == ([(1, Q, H, E // H)] if flash else [])
+
+
+def _fused_feature_encoders():
+    """The JAX base-width FeatureEncoder with its fused route on, and the
+    port's FeatureEncoder with ``fused_frontend`` on its parameters."""
+    rng = np.random.default_rng(0)
+    wav = (0.3 * rng.standard_normal((2, 16000))).astype(np.float32)
+    jfe = JaxFeatureEncoder(dataclasses.replace(JaxWav2Vec2Config.base(), use_flash=True),
+                            dtype=jnp.bfloat16)
+    params = jax.jit(jfe.init)(jax.random.PRNGKey(0), wav)
+    fe = jax.tree_util.tree_map(np.asarray, params)["params"]
+    port = FeatureEncoder(Wav2Vec2Config(fused_frontend=True))
+    sd = {f"conv_layers.{i}.conv.weight": torch.from_numpy(
+        np.ascontiguousarray(fe[f"conv_{i}"]["kernel"].transpose(2, 1, 0))) for i in range(7)}
+    sd["conv_layers.0.layer_norm.weight"] = torch.from_numpy(np.array(fe["group_norm"]["scale"]))
+    sd["conv_layers.0.layer_norm.bias"] = torch.from_numpy(np.array(fe["group_norm"]["bias"]))
+    port.load_state_dict(sd)
+    return jfe, params, port, wav
+
+
+def test_feature_encoder_fused_frontend_matches_jax(monkeypatch):
+    """fused_frontend=True against the JAX FeatureEncoder with its fused
+    front end forced on (SMM_WAV_FRONTEND=1, the Pallas passes in interpret
+    mode), C = 512, T = 16000, bf16: 2e-3, the JAX integration test's
+    tolerance; and turning the front end on changes no state-dict name."""
+    monkeypatch.setenv("SMM_WAV_FRONTEND", "1")
+    jfe, params, port, wav = _fused_feature_encoders()
+    want = np.asarray(jax.jit(jfe.apply)(params, wav), np.float32)
+    with torch.no_grad():
+        got = port(torch.from_numpy(wav), torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert float(np.abs(_np(got) - want).max()) < 2e-3
+    off = FeatureEncoder(Wav2Vec2Config(fused_frontend=False))
+    assert list(off.state_dict()) == list(port.state_dict())
+
+
+def test_fused_frontend_follows_the_environment_switch(bundle, monkeypatch):
+    """SMM_WAV_FRONTEND=1 turns the fused front end on, as in the JAX
+    package; the default is off; the model's output does not change (on the
+    CPU both run the same plain composition)."""
+    pcfg = _port_config(bundle.cfg)
+    monkeypatch.delenv("SMM_WAV_FRONTEND", raising=False)
+    assert not pencoders.resolve_backbone_configs(pcfg)[1].fused_frontend
+    monkeypatch.setenv("SMM_WAV_FRONTEND", "1")
+    assert pencoders.resolve_backbone_configs(pcfg)[1].fused_frontend
+    fused = pencoders.AudioEncoder(pcfg).eval()
+    assert fused.model.cfg.fused_frontend
+    plain = bundle.port.audio_encoder
+    fused.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        wav = torch.from_numpy(bundle.audio)
+        np.testing.assert_allclose(_np(fused(wav, F32)["features"]),
+                                   _np(plain(wav, F32)["features"]), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("wire", ["rgb8", "yuv420", "float"])
