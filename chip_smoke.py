@@ -244,9 +244,10 @@ def _kernel_cases(dev, gen):
     cases.append(("attention_block", "ViT [240,197,768] LN+residual",
                   lambda t, g, b: dict(ln=(g, b, 1e-12), residual=True),
                   x, lnp))
-    x, lnp = attn_inputs(B, 499)
-    cases.append(("attention_block", "wav2vec2 [8,499,768]",
-                  lambda t, g, b: dict(ln=None, residual=False), x, lnp))
+    for frames in (499, 999):  # 10 s and 20 s of audio
+        x, lnp = attn_inputs(B, frames)
+        cases.append(("attention_block", f"wav2vec2 [8,{frames},768]",
+                      lambda t, g, b: dict(ln=None, residual=False), x, lnp))
 
     def ffn_inputs(rows, S):
         return ([rn(rows, S, E), rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1),
@@ -259,9 +260,10 @@ def _kernel_cases(dev, gen):
     x, lnp = ffn_inputs(B, 512)
     cases.append(("ffn_block", "DeBERTa [8,512,768] post-LN",
                   lambda t, g, b: dict(ln=(g, b, 1e-7), ln_post=True), x, lnp))
-    x, lnp = ffn_inputs(B, 499)
-    cases.append(("ffn_block", "wav2vec2 [8,499,768] post-LN",
-                  lambda t, g, b: dict(ln=(g, b, 1e-5), ln_post=True), x, lnp))
+    for frames in (499, 999):
+        x, lnp = ffn_inputs(B, frames)
+        cases.append(("ffn_block", f"wav2vec2 [8,{frames},768] post-LN",
+                      lambda t, g, b: dict(ln=(g, b, 1e-5), ln_post=True), x, lnp))
 
     S, span = 512, 256
     mask = torch.ones(B, S, dtype=torch.int32, device=dev)
