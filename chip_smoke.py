@@ -56,9 +56,21 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     must launch flash_attention_bwd once beside the three other backwards
     23/35/12; finite losses, every parameter that feeds the loss moves.
 
+Phase 1 also runs the exact self-test of the shared Hopper building blocks
+(``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
+and prints ptxas' registers and spill bytes and the dynamic shared memory of
+every wgmma flash-attention kernel; a spill or a serialized-wgmma warning
+there fails the run.
+
 Phases 2 and 3 also hold flash_attention (forward, and forward+backward
 with dbias, at [8,999,8,96], at Sq != Sk and at [8,1024,12,64] with a
-[B,1,1,Sk] key mask and with a full [B,H,Sq,Sk] bias) and wav_frontend
+[B,1,1,Sk] key mask and with a full [B,H,Sq,Sk] bias, and at ragged lengths
+that straddle the wgmma kernels' 64- and 128-row tiles: 127, 129, 255 and
+257 at head widths 96 and 64, one with a key mask; each line also gives the
+achieved TFLOP/s, the first case's forward+backward also the device time
+by kernel of the port's kernels and of the library call
+(``torch.profiler``), and two backward runs on the same inputs must be
+bit-equal in dq, dk, dv and dbias) and wav_frontend
 (forward at [8,160000] and [8,320000], C=512; its gradients, which are the
 plain version's, once) against their plain versions at the same tolerances,
 and time ``F.scaled_dot_product_attention`` beside flash_attention as a
@@ -106,6 +118,11 @@ REPLACES = {
     "wav_frontend": "simple_multimodal_tpu/ops/pallas/wav_frontend.py:147 and :166",
 }
 SOURCES = {name: f"simple_multimodal_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+# the main path's flash_attention is bf16 at head width 96: the wgmma kernels
+SOURCES["flash_attention"] = "simple_multimodal_tpu_torch/csrc/flash_attention_wgmma.cu"
+SOURCES["flash_attention_bwd"] = (
+    "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dq_wgmma.cu and "
+    "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dkv_wgmma.cu")
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 # one B=8 forward (serve) and one B=8 train step, at 10 s and at 20 s of audio
 FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12}
@@ -293,6 +310,17 @@ def _kernel_cases(dev, gen):
                   long_qkv + [key_mask], []))
     cases.append(("flash_attention", "[8,1024,12,64] + bias [8,12,1024,1024]", no_kw,
                   long_qkv + [rn(B, H, 1024, 1024, std=0.5) + key_mask], []))
+    # ragged lengths on both sides of the wgmma kernels' 64- and 128-row tiles
+    for Sq, Sk, heads, D, masked in ((127, 129, 8, 96, False), (257, 255, 8, 96, False),
+                                     (129, 257, H, 64, True), (255, 127, H, 64, False)):
+        ragged = qkv(Sq, Sk, heads, D)
+        label = f"ragged q [8,{Sq},{heads},{D}], k/v {Sk}"
+        if masked:
+            pad = torch.zeros(B, 1, 1, Sk, device=dev)
+            pad[1, ..., 200:] = -1e30
+            pad[2, ..., :130] = -1e30  # across the first 128-key tile's edge
+            ragged, label = ragged + [pad], label + " + key mask"
+        cases.append(("flash_attention", label, no_kw, ragged, []))
     for samples in (160000, LONG_SAMPLES):
         cases.append(("wav_frontend", f"conv_0+GN+GELU [8,{samples}] C=512",
                       lambda t, g, b: dict(stride=5),
@@ -311,6 +339,31 @@ def _kernel_cases(dev, gen):
 
 # one PyTorch call that computes the same function, where there is one
 LIBRARY = {"flash_attention": sdpa}
+
+
+def _rate(name, args, ms, fn, backward=False) -> str:
+    """For a flash_attention case: the achieved TFLOP/s at ``ms`` per call
+    (the products the function needs, ``work``) and, for the forward, the
+    device time of one call inside a run of 20 back-to-back calls, which
+    leaves out the host's time between two launches."""
+    if name != "flash_attention":
+        return ""
+    import torch
+
+    flop = work(name, args)[1 if backward else 0]
+    text = f" tflops={flop / ms / 1e9:.1f}"
+    if not backward:
+        with torch.no_grad():
+            fn()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(20):
+                fn()
+            b.record()
+            b.synchronize()
+        run_ms = a.elapsed_time(b) / 20
+        text += f" back_to_back_ms={run_ms:.4f} ({flop / run_ms / 1e9:.1f} TFLOP/s)"
+    return text
 
 
 def phase_kernels(dev) -> dict:
@@ -347,7 +400,8 @@ def phase_kernels(dev) -> dict:
             sync()
             log(f"kernel {name:18s} {label:56s} {str(dtype)[6:]:8s} "
                 f"max_abs_err={max_err:.3e} tol={tol:g} ok={ok} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                + _rate(name, args, ms, lambda: kern(*args, **kw)))
             if not (ok and finite):
                 raise AssertionError(f"{name} {label} {dtype}: kernel disagrees "
                                      f"with its plain version (max abs err "
@@ -678,7 +732,8 @@ def phase_backward(dev) -> dict:
             rate = DROP_RATE if drop[name] else 0.0
             log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={rate} "
                 f"max_abs_err={max_err:.3e} worst_rel={worst:.3e} ok={ok} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                + _rate(name, args, ms, None, backward=True))
             if not ok:
                 raise AssertionError(f"{name} {label} {dtype}: the backward disagrees with "
                                      f"autograd of the plain version (max abs err "
@@ -695,11 +750,68 @@ def phase_backward(dev) -> dict:
                         lambda: fwd_bwd(lambda xs: LIBRARY[name](*xs)), 6))
                 log(f"        {name}_bwd: fwd+bwd bound {r['bound_ms']:.4f} ms by "
                     f"{r['bound_by']}, library_ms={r['library_ms']}")
+                if name in LIBRARY:
+                    for who, fn in (("kernel", lambda xs: call(kern, xs)),
+                                    ("library", lambda xs: LIBRARY[name](*xs))):
+                        _log_device_times(f"{name} {label} fwd+bwd, {who}",
+                                          lambda fn=fn: fwd_bwd(fn))
                 del out_like
             del args, args32
             torch.cuda.empty_cache()
+    _check_flash_backward_is_deterministic(dev, gen)
     log(f"fwd+bwd times above: CUDA-event medians on {smi_line()}")
     return results
+
+
+def _log_device_times(tag: str, fn, reps: int = 5, top: int = 5):
+    """Device time by kernel (``torch.profiler``, self time per call over
+    ``reps`` calls after a warm-up): what each launch of a wrapper costs on
+    the card, without the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+
+    def self_us(e):
+        us = getattr(e, "self_device_time_total", None)
+        return e.self_cuda_time_total if us is None else us
+
+    rows = sorted((e for e in prof.key_averages() if self_us(e) > 0), key=self_us, reverse=True)
+    total = sum(self_us(e) for e in rows) / reps / 1e3
+    log(f"device time {tag}: {total:.4f} ms per call in all")
+    for e in rows[:top]:
+        log(f"device time {tag}: {self_us(e) / reps / 1e3:9.4f} ms {e.count / reps:5.1f} calls  "
+            f"{e.key[:110]}")
+
+
+def _check_flash_backward_is_deterministic(dev, gen):
+    """Every output tile of the flash_attention backward is summed by one
+    block in a fixed order: two runs on the same inputs give the same bits
+    in dq, dk, dv and dbias, in bf16 (wgmma kernels, ragged lengths, D = 96)
+    and in f32 (FMA kernels)."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper.flash_attention import flash_attention
+
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(B, n, 8, 96, generator=gen, device=dev).to(dtype).requires_grad_()
+                   for n in (257, 383, 383))
+        bias = torch.randn(B, 8, 257, 383, generator=gen, device=dev).requires_grad_()
+        gy = torch.randn(B, 257, 8, 96, generator=gen, device=dev).to(dtype)
+        runs = [torch.autograd.grad(flash_attention(q, k, v, bias), [q, k, v, bias], gy)
+                for _ in range(2)]
+        sync()
+        same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+        log(f"fwd+bwd flash_attention two backward runs bit-equal (dq, dk, dv, dbias) "
+            f"{str(dtype)[6:]}: {same}")
+        if not all(same):
+            raise AssertionError(f"flash_attention backward is not deterministic in {dtype}: "
+                                 f"dq, dk, dv, dbias equal = {same}")
 
 
 def _check_wav_gradients(kern, plain, inputs, gen, label):
@@ -957,7 +1069,48 @@ def phase_device_and_build():
     for line in _build.build_info.get("log", "").splitlines():
         if "registers" in line or "error" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    _report_wgmma_kernels(_build)
+    from simple_multimodal_tpu_torch.ops.hopper.selftest import hopper_selftest
+
+    log(f"hopper.cuh self-test (exact): {sorted(hopper_selftest(torch.device('cuda', 0)))} ok")
     sync()
+
+
+def _report_wgmma_kernels(_build):
+    """ptxas' registers and spill bytes and the dynamic shared memory of every
+    wgmma flash-attention kernel, from the build's log. A spill, or ptxas
+    serializing the wgmma pipeline, fails the run."""
+    import re
+
+    log_text = _build.build_info.get("log", "")
+    if log_text == "cached":
+        log("wgmma kernels: library loaded from the build cache, no compiler log")
+        return
+    lib = _build.library()
+    which = {"flash_fwd_wgmma_kernel": 0, "flash_bwd_dq_wgmma_kernel": 1,
+             "flash_bwd_dkv_wgmma_kernel": 2}
+    lines = log_text.splitlines()
+    found = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*?(" + "|".join(which)
+                      + r")ILi(\d+)ELb(\d)", line)
+        if not m:
+            continue
+        kernel, D, bias = m.group(1), int(m.group(2)), m.group(3) == "1"
+        block = " ".join(x.strip() for x in lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
+        smem = lib.smm_flash_wgmma_smem(which[kernel], D)
+        log(f"wgmma kernel {kernel} D={D} bias={bias}: {regs.group(1) if regs else '?'} "
+            f"registers at launch, spill bytes {spill}, dynamic shared memory {smem} bytes")
+        found += 1
+        if not regs or len(spill) != 2 or any(spill):
+            raise AssertionError(f"{kernel} D={D} bias={bias}: ptxas reports spills: {block}")
+    if found != 18:
+        raise AssertionError(f"expected 18 wgmma flash kernels in the compiler log, found {found}")
+    serialized = [x for x in lines if "serializ" in x.lower()]
+    if serialized:
+        raise AssertionError("ptxas serialized a wgmma pipeline: " + serialized[0])
 
 
 def main() -> int:

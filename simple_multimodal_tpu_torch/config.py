@@ -76,6 +76,10 @@ class ModelConfig:
     log_path: str = "./logs"
 
     # Device configuration
+    # Mirrors the JAX config and round-trips through checkpoints; nothing in
+    # the port reads it: create_model, load_checkpoint and
+    # MultimodalEmotionDemo take an explicit ``device`` argument ("cuda" by
+    # default, "cpu" on request).
     device: str = "auto"  # auto, cpu, cuda
     mixed_precision: bool = True
 

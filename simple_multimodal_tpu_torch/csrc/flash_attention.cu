@@ -1,6 +1,9 @@
 // Flash attention forward for Hopper: out = softmax(q k^T / sqrt(D) + bias) v
 // and each row's softmax statistics, for q [B, Sq, H, D] and k, v
-// [B, Sk, H, D].
+// [B, Sk, H, D]: the C entry point, and the bodies for f32 (any width), for
+// the head widths 4 and 8 of the small presets (exact FMA loops on the CUDA
+// cores) and for bf16 at D = 16 and 32 (WMMA m16n16k16). bf16 at D = 64, 96
+// and 128, the long-clip path's widths, runs flash_attention_wgmma.cu.
 //
 // Replaces simple_multimodal_tpu/ops/pallas/flash_attention.py, `_fwd_kernel`
 // via `_flash_forward`. The TPU kernel's head groups, 512-blocks, 128-lane
@@ -19,26 +22,16 @@
 // absorbs log(l) in f32 and probabilities recomputed from lse come out as 1
 // instead of 1/Sk.
 //
-// What bounds it on this card: operations. Per (batch, head) it does
-// 4 Sq Sk D FLOP on Sq D + 2 Sk D elements, far above the card's ~295
-// FLOP/byte in bf16, so the time is the tensor cores' (WMMA m16n16k16 with
-// f32 accumulators here; f32 inputs, and the head widths 4 and 8 of the
-// small presets, run exact FMA loops on the CUDA cores).
-// One block per 64 rows and WMMA through shared-memory scratch keep it well
-// below the card's peak; wgmma with TMA is the faster form.
+// What bounds it on this card: operations (4 Sq Sk D FLOP per (batch, head)
+// on Sq D + 2 Sk D elements). These bodies are the exact side of the f32
+// checks and the small presets' path and stay simple: one 128-thread block
+// per 64 rows, one synchronous stage, scores through shared-memory scratch.
 
 #include "flash_attention.cuh"
 
 namespace {
 
 using namespace smm;
-
-struct FlashOut {
-  void* out;
-  RowStrides so;
-  float* m;  // [B, H, Sq] row maximum
-  float* l;  // [B, H, Sq] sum of exp(s - m)
-};
 
 // End of a query row: normalise, store, and the row statistics.
 template <typename T, int DPL, int D>
@@ -278,22 +271,27 @@ __global__ void __launch_bounds__(kAttnThreads) flash_fwd_kernel(FlashArgs a, Fl
 
 template <typename T, int D>
 int launch_d(const FlashArgs& a, const FlashOut& w, int B, cudaStream_t st) {
-  const dim3 grid((a.Sq + kTQ - 1) / kTQ, a.H, B);
-  if constexpr (std::is_same<T, bf16>::value && D % 16 == 0) {
-    constexpr size_t smem = WmmaPlan<D, false>::bytes;
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    flash_fwd_wmma_kernel<D><<<grid, kAttnThreads, smem, st>>>(a, w);
+  if constexpr (std::is_same<T, bf16>::value && flash_wgmma_width(D)) {
+    return flash_fwd_wgmma_launch(a, w, B, D, st);
   } else {
-    constexpr size_t smem = sizeof(float) * ((size_t)(kTQ + 2 * kTK) * (D + 1) + 4 * 16 * kTK);
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    flash_fwd_kernel<T, D><<<grid, kAttnThreads, smem, st>>>(a, w);
+    const dim3 grid((a.Sq + kTQ - 1) / kTQ, a.H, B);
+    if constexpr (std::is_same<T, bf16>::value && D % 16 == 0) {
+      constexpr size_t smem = WmmaPlan<D, false>::bytes;
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd_wmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      flash_fwd_wmma_kernel<D><<<grid, kAttnThreads, smem, st>>>(a, w);
+    } else {
+      constexpr size_t smem =
+          sizeof(float) * ((size_t)(kTQ + 2 * kTK) * (D + 1) + 4 * 16 * kTK);
+      const cudaError_t e = cudaFuncSetAttribute(
+          flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      flash_fwd_kernel<T, D><<<grid, kAttnThreads, smem, st>>>(a, w);
+    }
+    SMM_CHECK_LAUNCH();
+    return 0;
   }
-  SMM_CHECK_LAUNCH();
-  return 0;
 }
 
 // Head widths the kernel is instantiated for; the wrapper checks D first.
@@ -328,4 +326,11 @@ extern "C" int smm_flash_attention(int dtype, const void* q, const void* k, cons
   const FlashOut w{out, {s[6], s[7]}, stats, stats + (size_t)B * H * Sq};
   cudaStream_t st = (cudaStream_t)stream;
   return dtype == 1 ? launch<bf16>(a, w, B, D, st) : launch<float>(a, w, B, D, st);
+}
+
+// Dynamic shared memory of a wgmma flash kernel (which: 0 forward, 1 dq,
+// 2 dk/dv) at head width D, in bytes; 0 where there is none.
+extern "C" int smm_flash_wgmma_smem(int which, int D) {
+  return which == 0 ? flash_fwd_wgmma_smem(D)
+                    : which == 1 ? flash_bwd_dq_wgmma_smem(D) : flash_bwd_dkv_wgmma_smem(D);
 }

@@ -20,11 +20,13 @@
 //
 // What bounds it on this card: operations, 10 Sq Sk D FLOP per (batch,
 // head) in five products (two of them computed in both kernels, so 14 are
-// executed). bf16 runs them on the tensor cores (WMMA, f32 accumulators; p
-// and ds rounded to bf16 before they meet dout, k and q, as the TPU kernel
-// rounds them), f32 and the head widths 4 and 8 as exact FMA loops. With a
-// full bias the dS write (4 B H Sq Sk bytes) and the strided bias reads of
-// the dk/dv kernel (its lanes run over queries) come on top.
+// executed). This file holds the C entry point and the bodies for f32 and
+// the head widths 4 and 8 (exact FMA loops) and for bf16 at D = 16 and 32
+// (WMMA, f32 accumulators; p and ds rounded to bf16 before they meet dout,
+// k and q, as the TPU kernel rounds them); bf16 at D = 64, 96 and 128 runs
+// flash_attention_bwd_dq_wgmma.cu and flash_attention_bwd_dkv_wgmma.cu
+// after the delta kernel. With a full bias the dS write (4 B H Sq Sk bytes)
+// comes on top.
 
 #include "attention_bwd.cuh"
 #include "flash_attention.cuh"
@@ -32,36 +34,6 @@
 namespace {
 
 using namespace smm;
-
-struct FlashBwdArgs {
-  FlashArgs f;
-  const void* out;
-  const void* dout;
-  RowStrides so, sdo;
-  const float* m;  // [B, H, Sq] row maximum and sum from the forward
-  const float* l;
-  float* delta;    // [B, H, Sq]
-  void* dq;
-  void* dk;
-  void* dv;
-  RowStrides sdq, sdk, sddv;
-  float* ds;  // [B, H, Sq, Sk] or null
-};
-
-// delta[b, h, s] = sum_d dout * out, one warp per (b, s, h) row.
-template <typename T>
-__global__ void flash_delta_kernel(FlashBwdArgs a, int B, int D) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  const int H = a.f.H, Sq = a.f.Sq;
-  if (row >= B * Sq * H) return;
-  const int h = row % H, s = (row / H) % Sq, b = row / (H * Sq);
-  const T* O = head_rows<T>(a.out, a.so, b, h, D) + (size_t)s * a.so.token;
-  const T* G = head_rows<T>(a.dout, a.sdo, b, h, D) + (size_t)s * a.sdo.token;
-  float d = 0.0f;
-  for (int c = lane; c < D; c += 32) d += to_f32(O[c]) * to_f32(G[c]);
-  d = warp_sum(d);
-  if (lane == 0) a.delta[((size_t)b * H + h) * Sq + s] = d;
-}
 
 // m, 1/l and delta of the 64 query rows from q0 into St[0|64|128 + r]; a
 // row whose sum is 0 gets probability 0 everywhere.
@@ -533,7 +505,10 @@ int launch_d(const FlashBwdArgs& a, int B, cudaStream_t st) {
   flash_delta_kernel<T><<<(rows + 3) / 4, 128, 0, st>>>(a, B, D);
   SMM_CHECK_LAUNCH();
   const dim3 qt((a.f.Sq + kTQ - 1) / kTQ, a.f.H, B), kt((a.f.Sk + kTK - 1) / kTK, a.f.H, B);
-  if constexpr (std::is_same<T, bf16>::value && D % 16 == 0) {
+  if constexpr (std::is_same<T, bf16>::value && flash_wgmma_width(D)) {
+    if (int e = flash_bwd_dq_wgmma_launch(a, B, D, st)) return e;
+    return flash_bwd_dkv_wgmma_launch(a, B, D, st);
+  } else if constexpr (std::is_same<T, bf16>::value && D % 16 == 0) {
     constexpr size_t bytes = BwdWmmaPlan<D, false>::bytes;
     if (int e = launch_tiles(flash_bwd_dq_wmma_kernel<D>, qt, bytes, a, st)) return e;
     return launch_tiles(flash_bwd_dkv_wmma_kernel<D>, kt, bytes, a, st);

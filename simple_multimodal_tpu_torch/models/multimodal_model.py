@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 
 from ..data.video_wire import decode_video_wire
-from ..ops.attention import dropout, linear, resolve_dtype
+from ..ops.attention import dropout, linear, require_device, resolve_dtype
 from .encoders import AudioEncoder, TextEncoder, VideoEncoder
 from .fusion import (AdaptiveFusion, ContrastiveFusion, EarlyFusion, GraphFusion,
                      HierarchicalFusion, MultimodalTransformer)
@@ -197,13 +197,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def create_model(config, model_type: str = "standard", device="cpu",
+def create_model(config, model_type: str = "standard", device="cuda",
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None) -> MultimodalEmotionModel:
-    """An eval-mode model on ``device``, initialised from ``generator``
-    (seed 0 if None). ``dtype`` defaults to ``resolve_dtype``."""
+    """An eval-mode model on ``device`` (the card unless the caller passes
+    ``device="cpu"``; raises without a CUDA device), initialised from
+    ``generator`` (seed 0 if None). ``dtype`` defaults to ``resolve_dtype``."""
     if model_type != "standard":
         raise NotImplementedError(f"model family {model_type!r} is not ported yet")
+    device = require_device(device, "create_model")
     if dtype is None:
         dtype = resolve_dtype(config, device)
     if generator is None:

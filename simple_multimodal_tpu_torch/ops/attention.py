@@ -26,6 +26,17 @@ def resolve_dtype(config, device) -> torch.dtype:
     return torch.float32
 
 
+def require_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``. The port's entry points run on the
+    card by default; with no CUDA device they raise here instead of carrying
+    on on the CPU, which a caller asks for with ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device for device={str(device)!r} (the default); "
+                           'pass device="cpu" to run on the CPU')
+    return device
+
+
 def compact_scores(scores: torch.Tensor, dtype) -> torch.Tensor:
     """Round attention logits to the compute dtype before the f32 softmax
     (the JAX plain paths do this under bf16); identity in f32."""

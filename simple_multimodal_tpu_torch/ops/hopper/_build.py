@@ -44,14 +44,20 @@ SIGNATURES = {
                               _I, _I, _I, _I] + _DROP + [_P, _P],
     "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                                   _I, _I, _I, _I] + _DROP + [_P] * 11 + [_I] + [_P] * 3,
-    # q, k, v, out, lse, bias, host strides; B, Sq, Sk, H, D; stream
+    # q, k, v, out, stats [2, B, H, Sq], bias, host strides; B, Sq, Sk, H, D; stream
     "smm_flash_attention": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    # q, k, v, out, dout, lse, bias, delta, dq, dk, dv, ds, host strides
+    # q, k, v, out, dout, stats [2, B, H, Sq], bias, delta, dq, dk, dv, ds, host strides
     "smm_flash_attention_bwd": [_I] + [_P] * 13 + [_I] * 5 + [_P],
     # wav, w, part; B, T, T1, C, K, stride; stream
     "smm_wav_frontend_stats": [_I] + [_P] * 3 + [_I] * 6 + [_P],
     # wav, w, mean, rstd, gamma, beta, out
     "smm_wav_frontend_apply": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # which (0 forward, 1 dq, 2 dk/dv), D -> bytes of dynamic shared memory
+    "smm_flash_wgmma_smem": [_I, _I],
+    # N; a, bt, v, c, o; stream
+    "smm_hopper_selftest_mma": [_I] + [_P] * 6,
+    # swizzle bytes; src, out; rows, cols, r0, c0; stream
+    "smm_hopper_selftest_swizzle": [_I, _P, _P] + [_I] * 4 + [_P],
 }
 
 _lib = None

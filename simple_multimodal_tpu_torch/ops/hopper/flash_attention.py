@@ -4,11 +4,28 @@
 Replaces the TPU kernels of simple_multimodal_tpu/ops/pallas/flash_attention.py:
 the forward (``_fwd_kernel`` via ``_flash_forward``) and the backward
 (``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` via ``_flash_backward``). On a
-CUDA tensor the wrapper runs ``FlashAttentionFn``, whose forward launches
-``csrc/flash_attention.cu`` and whose backward launches
+CUDA tensor the wrapper runs ``FlashAttentionFn``, whose forward enters
+``csrc/flash_attention.cu`` and whose backward enters
 ``csrc/flash_attention_bwd.cu``; on a CPU tensor it runs
-``flash_attention_plain`` and autograd differentiates it. Bounds and design
-of the CUDA versions are noted in the .cu sources.
+``flash_attention_plain`` and autograd differentiates it.
+
+The body is picked from the element type and the head width alone, in the
+C entry points; no argument or environment variable changes it:
+
+- bf16 at D = 64, 96, 128 (the long-clip path is 8 heads of 96): the wgmma
+  kernels ``csrc/flash_attention_wgmma.cu``,
+  ``flash_attention_bwd_dq_wgmma.cu`` and ``flash_attention_bwd_dkv_wgmma.cu``
+  on the building blocks of ``csrc/hopper.cuh``. Bound by operations
+  (4·Sq·Sk·D FLOP forward, 10 backward, per batch and head); every product is
+  a warpgroup ``wgmma`` on 64 rows, the softmax, P and dS stay in the
+  accumulator registers and feed the next product as its A operand, and K/V
+  (or Q/dO) tiles arrive by TMA through a two-stage mbarrier ring fed by a
+  producer warp. q, k, v and dout are read in place through tensor maps
+  built per call from their batch and token strides (``_rows`` guarantees
+  the 16-byte alignment the maps need). The bias is read with a key stride
+  of 1 (``_kernel_bias``).
+- bf16 at D = 16, 32: the WMMA bodies; f32 at any width and D = 4, 8 in any
+  type: the exact FMA bodies (the 1e-3 checks and the tiny preset).
 
 Masks are finite: a masked key carries a bias of -1e30 (as the JAX package
 builds them), never -inf. A row whose every key is masked that way attends
@@ -41,13 +58,36 @@ def flash_attention_plain(q, k, v, bias: Optional[torch.Tensor] = None):
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
     """A [B, S, H, D] tensor the kernels can read in place: each token's
-    H·D values dense, and in bf16 every row 16-byte aligned; else a copy."""
+    H·D values dense, no batch or token axis broadcast, and every row
+    16-byte aligned (the WMMA bodies' vector loads and the wgmma kernels'
+    tensor maps need that); else a copy."""
     D = t.shape[-1]
-    dense = t.stride(3) == 1 and t.stride(2) == D
+    dense = (t.stride(3) == 1 and t.stride(2) == D
+             and all(t.stride(i) > 0 or t.shape[i] == 1 for i in (0, 1)))
     per16 = 16 // t.element_size()
     aligned = (t.stride(0) % per16 == 0 and t.stride(1) % per16 == 0
                and t.data_ptr() % 16 == 0)
-    return t if dense and aligned else t.contiguous()
+    if dense and aligned:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)  # a fresh, aligned block
+
+
+WGMMA_WIDTHS = (64, 96, 128)  # bf16 head widths of the wgmma kernels (csrc/flash_attention.cuh)
+
+
+def _kernel_bias(bias, q, Sk: int):
+    """The bias as the kernels of q's (dtype, head width) read it: f32,
+    expanded to [B, H, Sq, Sk] through strides (0 on the axes it broadcasts
+    over; nothing is materialised). The wgmma kernels read it with a key
+    stride of 1: a bias whose key axis is strided or broadcast is copied."""
+    if bias is None:
+        return None
+    B, Sq, H, D = q.shape
+    bias_x = bias.detach().float().expand(B, H, Sq, Sk)
+    wgmma = q.dtype == torch.bfloat16 and D in WGMMA_WIDTHS
+    if wgmma and Sk > 1 and bias_x.stride(3) != 1:
+        bias_x = bias_x.contiguous()
+    return bias_x
 
 
 def _strides(*tensors, bias=None):
@@ -82,9 +122,7 @@ class FlashAttentionFn(torch.autograd.Function):
         Sk = k.shape[1]
         lib = _build.library()
         q, k, v = _rows(q), _rows(k), _rows(v)
-        bias_x = None
-        if bias is not None:
-            bias_x = bias.detach().float().expand(B, H, Sq, Sk)
+        bias_x = _kernel_bias(bias, q, Sk)
         out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
         stats = torch.empty((2, B, H, Sq), dtype=torch.float32, device=q.device)
         p = _build.ptr
@@ -104,11 +142,9 @@ class FlashAttentionFn(torch.autograd.Function):
         dev, f32 = q.device, torch.float32
         lib = _build.library()
         gy = _rows(gy.to(q.dtype))
-        bias_x = ds = None
-        if bias is not None:
-            bias_x = bias.detach().float().expand(B, H, Sq, Sk)
-            if ctx.needs_input_grad[3]:
-                ds = torch.empty((B, H, Sq, Sk), dtype=f32, device=dev)
+        bias_x, ds = _kernel_bias(bias, q, Sk), None
+        if bias is not None and ctx.needs_input_grad[3]:
+            ds = torch.empty((B, H, Sq, Sk), dtype=f32, device=dev)
         delta = torch.empty((B, H, Sq), dtype=f32, device=dev)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         p = _build.ptr

@@ -1,7 +1,8 @@
 """Serving core: per-request inference + emotion-aware responses (port of
 simple_multimodal_tpu/serving/demo.py).
 
-``MultimodalEmotionDemo`` holds a port model on an explicit device, built
+``MultimodalEmotionDemo`` holds a port model on its device (the card by
+default, the CPU with ``device="cpu"``; no silent fallback), built
 from a model + config or loaded from a port checkpoint (``save_checkpoint``:
 a ``torch.save`` of the state_dict and the config as JSON).
 ``predict(text, audio, video)`` runs one request and raises on error;
@@ -22,7 +23,7 @@ import torch
 from ..config import ModelConfig, config_from_dict, config_to_dict
 from ..data.tokenizer import get_tokenizer
 from ..models.multimodal_model import MultimodalEmotionModel
-from ..ops.attention import resolve_dtype
+from ..ops.attention import require_device, resolve_dtype
 
 EMOTION_COLORS = {
     "happy": "#FFD700", "sad": "#4169E1", "angry": "#DC143C",
@@ -194,8 +195,10 @@ def save_checkpoint(path: str, model: MultimodalEmotionModel, config) -> None:
                 "config": json.dumps(config_to_dict(config))}, path)
 
 
-def load_checkpoint(path: str, device="cpu", config=None) -> Tuple[MultimodalEmotionModel, object]:
-    """(model, config) from ``save_checkpoint``'s file, on ``device``."""
+def load_checkpoint(path: str, device="cuda", config=None) -> Tuple[MultimodalEmotionModel, object]:
+    """(model, config) from ``save_checkpoint``'s file, on ``device`` (the
+    card unless the caller passes ``device="cpu"``; raises without one)."""
+    device = require_device(device, "load_checkpoint")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if config is None:
         config = config_from_dict(ModelConfig, json.loads(payload["config"]))
@@ -208,8 +211,8 @@ class MultimodalEmotionDemo:
     """Serves per-request emotion analysis from a port model."""
 
     def __init__(self, model: Optional[MultimodalEmotionModel] = None, config=None,
-                 checkpoint_path: Optional[str] = None, device="cpu"):
-        self.device = torch.device(device)
+                 checkpoint_path: Optional[str] = None, device="cuda"):
+        self.device = require_device(device, "MultimodalEmotionDemo")
         if checkpoint_path is not None:
             model, config = load_checkpoint(checkpoint_path, self.device, config)
         elif model is None:

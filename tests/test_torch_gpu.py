@@ -172,7 +172,8 @@ def test_tiny_slice_on_cuda_matches_cpu(cuda, tmp_path):
                       fusion_num_heads=4, graph_hidden_size=16,
                       data_path=str(tmp_path / "d"), save_path=str(tmp_path / "c"),
                       log_path=str(tmp_path / "l"))
-    cpu = create_model(cfg, dtype=torch.float32, generator=torch.Generator().manual_seed(0))
+    cpu = create_model(cfg, device="cpu", dtype=torch.float32,
+                       generator=torch.Generator().manual_seed(0))
     gpu = create_model(cfg, device=cuda, dtype=torch.float32,
                        generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
@@ -293,9 +294,20 @@ def _flash_cases(dev, g):
     mask[0, ..., 90:] = -1e30
     full_mask = mask.clone()
     full_mask[1] = -1e30
-    cases.append(("biased D=32", *qkv(B, Sq, Sk, H, 32),
-                  [mask, full_mask, rn(B, H, Sq, Sk, std=0.5) + mask,
-                   rn(1, 1, Sq, Sk, std=0.5), rn(Sq, Sk, std=0.5)]))
+    biases = [mask, full_mask, rn(B, H, Sq, Sk, std=0.5) + mask,
+              rn(1, 1, Sq, Sk, std=0.5), rn(Sq, Sk, std=0.5)]
+    cases.append(("biased D=32", *qkv(B, Sq, Sk, H, 32), biases))
+    # the wgmma kernels (bf16, D = 64, 96, 128) with every kind of bias and
+    # one whose key axis is strided
+    cases.append(("biased D=96", *qkv(B, Sq, Sk, H, 96),
+                  biases + [rn(B, H, Sk, Sq, std=0.5).transpose(2, 3)]))
+    cases.append(("biased D=64", *qkv(B, Sq, Sk, H, 64), [mask, full_mask]))
+    # lengths on both sides of the wgmma kernels' 64- and 128-row tiles
+    for Sq, Sk, D in ((127, 129, 96), (129, 127, 64), (255, 257, 96), (257, 255, 64),
+                      (128, 64, 128), (1, 257, 96)):
+        pad = torch.zeros(2, 1, 1, Sk, device=dev)
+        pad[1, ..., Sk // 2:] = -1e30
+        cases.append((f"ragged {Sq}x{Sk} D={D}", *qkv(2, Sq, Sk, 3, D), [None, pad]))
     return cases
 
 
@@ -324,6 +336,38 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, tol):
     assert hopper.launch_counts() == _counts(flash_attention=n, flash_attention_bwd=n)
 
 
+def test_cuda_flash_attention_backward_is_bit_equal_between_runs(cuda):
+    """Every output tile is summed by one block in a fixed order (no
+    atomics): two backward runs on the same inputs give the same bits in dq,
+    dk, dv and dbias, for the wgmma (bf16), WMMA (bf16, D = 32) and FMA
+    (f32) bodies."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for dtype, D in ((torch.bfloat16, 96), (torch.bfloat16, 64), (torch.bfloat16, 32),
+                     (torch.float32, 96)):
+        q, k, v = (torch.randn(2, n, 3, D, generator=g, device=cuda).to(dtype).requires_grad_()
+                   for n in (257, 191, 191))
+        bias = torch.randn(2, 3, 257, 191, generator=g, device=cuda).requires_grad_()
+        gy = torch.randn(2, 257, 3, D, generator=g, device=cuda).to(dtype)
+        runs = [torch.autograd.grad(fa.flash_attention(q, k, v, bias), [q, k, v, bias], gy)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv", "dbias"), *runs):
+            assert torch.equal(a, b), (dtype, D, name)
+
+
+def test_cuda_hopper_building_blocks_are_exact(cuda):
+    """csrc/hopper.cuh on small integer cases, compared for equality: wgmma
+    with A and B from shared memory (K-major, through TMA and the 64-byte
+    swizzle), the accumulator packed as the next product's A registers with
+    an MN-major B, for N = 64, 96, 128; and the swizzle helpers (32, 64, 128 bytes) against
+    what TMA writes, zeros past the edge included."""
+    from simple_multimodal_tpu_torch.ops.hopper.selftest import WIDTHS, hopper_selftest
+
+    done = hopper_selftest(cuda)
+    assert all(done.values())
+    assert {f"wgmma_{k}_n{n}" for k in ("ss", "rs") for n in WIDTHS} <= set(done)
+
+
 def test_cuda_flash_attention_reads_strided_rows(cuda):
     """q, k and v as column blocks of one packed [B, S, 3, H, D] projection:
     read in place through their token strides."""
@@ -333,6 +377,18 @@ def test_cuda_flash_attention_reads_strided_rows(cuda):
     assert not q.is_contiguous() and fa._rows(q) is q
     torch.testing.assert_close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v),
                                atol=1e-3, rtol=1e-3)
+    # the same through the wgmma kernels' tensor maps (bf16), at D = 64 and 96
+    for H, D in ((2, 64), (3, 96)):
+        packed = torch.randn(2, 150, 3, H, D, generator=g, device=cuda).to(torch.bfloat16)
+        q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+        assert fa._rows(q) is q and fa._rows(v) is v
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float())
+        torch.testing.assert_close(fa.flash_attention(q, k, v).float(), want, atol=3e-2, rtol=3e-2)
+        # a bias constant along the keys (copied for these kernels; its gradient is zero)
+        row_bias = torch.randn(2, H, 150, 1, generator=g, device=cuda)
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), row_bias)
+        torch.testing.assert_close(fa.flash_attention(q, k, v, row_bias).float(), want,
+                                   atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])

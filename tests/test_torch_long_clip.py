@@ -149,7 +149,7 @@ def test_demo_and_train_step_take_the_long_clip(long_slice, port):
     weights that feed it."""
     cfg, pcfg, model, params, (text, audio, video, labels) = long_slice
     net, calls = port
-    demo = MultimodalEmotionDemo(model=net, config=pcfg)
+    demo = MultimodalEmotionDemo(model=net, config=pcfg, device="cpu")
     assert demo.prepare("no audio")[1].shape == (1, LONG)
     wav = (np.random.default_rng(1).standard_normal(LONG) * 3000).astype(np.int16)
     dist = demo.predict("a long clip", wav, video[0])["emotion_distribution"]

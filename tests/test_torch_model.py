@@ -123,7 +123,7 @@ def test_demo_predict_returns_a_distribution(slice_, tmp_path):
 
 def test_demo_refuses_files_until_the_data_path_is_ported(slice_):
     cfg, pcfg, model, params, port, _ = slice_
-    demo = MultimodalEmotionDemo(model=port, config=pcfg)
+    demo = MultimodalEmotionDemo(model=port, config=pcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="Host data path"):
         demo.predict("hello", audio="clip.wav")
     analysis, message, *_ = demo.process_multimodal_input("hello", video="clip.mp4")
@@ -139,13 +139,13 @@ def test_unported_options_raise(slice_, tmp_path):
     with pytest.raises(NotImplementedError, match="late"):
         PortModel(late)
     with pytest.raises(NotImplementedError):
-        create_model(pcfg, model_type="robust")
+        create_model(pcfg, model_type="robust", device="cpu")
 
 
 def test_create_model_is_seeded_and_f32_on_cpu(slice_):
     pcfg = slice_[1]
-    a = create_model(pcfg, generator=torch.Generator().manual_seed(3))
-    b = create_model(pcfg, generator=torch.Generator().manual_seed(3))
+    a = create_model(pcfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = create_model(pcfg, device="cpu", generator=torch.Generator().manual_seed(3))
     assert a.dtype == torch.float32 and not a.training
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
