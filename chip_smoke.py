@@ -9,13 +9,15 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
 1. device and build: the card's name and power limit, the torch/CUDA
    versions, the kernels built from ``csrc/`` (seconds printed);
 2. each Hopper kernel's forward against its plain PyTorch version at the
-   main path's shapes (base preset, B=8), in bf16 (atol=rtol=3e-2: bf16
+   main path's shapes (base preset, B=8; attention_block and ffn_block also
+   at a width of 96, which keeps the WMMA GEMM and core), in bf16 (atol=rtol=3e-2: bf16
    rounding of q/k/v, probabilities, the FFN intermediate and the output)
    and in f32 (atol=rtol=1e-3: only the summation order differs), with
    CUDA-event medians of kernel and plain, interleaved plain, kernel,
    kernel, plain;
-3. the same six sites with hash dropout at rate 0.1 (fixed seed), forward
-   and backward: the output and every input gradient of each kernel's
+3. the same sites with hash dropout at rate 0.1 (fixed seed), forward
+   and backward (and, first, the kept positions of both blocks' dropouts
+   read off outputs built to show them, equal to ``dropout.py``'s masks): the output and every input gradient of each kernel's
    autograd.Function against torch.autograd of the plain version on the
    same inputs and seed, in f32 (atol=rtol=1e-3) and bf16 (max error
    <= 5e-2 * max|want| per tensor; the key-bias gradient of
@@ -59,8 +61,21 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
 Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
 and prints ptxas' registers and spill bytes and the dynamic shared memory of
-every wgmma flash-attention kernel; a spill or a serialized-wgmma warning
-there fails the run.
+every wgmma kernel (the flash-attention kernels, the attention core's
+dropout variant, the GEMM's two tile shapes); a spill or a serialized-wgmma
+warning there fails the run. It prints what encoding one TMA tensor map
+costs on the host (the wgmma chains build theirs per call).
+
+After phase 1, the GEMM phase holds the wgmma GEMM alone (``smm_gemm``,
+``csrc/gemm_wgmma.cu``: the product under ffn_block and attention_block)
+against a plain f32 PyTorch expression on the same bf16 inputs, for every
+epilogue variant (bias; bias + GELU + dropout; bias + dropout + residual
+with f32 out; the GELU derivative with its f32 pre-activation and dropout)
+at M in {47280, 3992, 130}, N in {768, 2304, 3072}, K in {768, 3072}
+(bf16 out: atol=rtol=3e-2; f32 out: 1e-3; dropped positions exactly zero
+and equal to ``dropout.ffn_keep``), with the device time of one call inside
+a run of back-to-back calls, the TFLOP/s that is, and ``F.linear`` in bf16
+timed the same way beside it: a yardstick the port never calls.
 
 Phases 2 and 3 also hold flash_attention (forward, and forward+backward
 with dbias, at [8,999,8,96], at Sq != Sk and at [8,1024,12,64] with a
@@ -120,6 +135,13 @@ REPLACES = {
 SOURCES = {name: f"simple_multimodal_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 # the main path's flash_attention is bf16 at head width 96: the wgmma kernels
 SOURCES["flash_attention"] = "simple_multimodal_tpu_torch/csrc/flash_attention_wgmma.cu"
+# the main path's blocks are bf16 at width 768: the wgmma GEMM and core under the chains
+SOURCES["attention_block"] = (
+    "simple_multimodal_tpu_torch/csrc/attention_block.cu on "
+    "simple_multimodal_tpu_torch/csrc/gemm_wgmma.cu and "
+    "simple_multimodal_tpu_torch/csrc/attention_core_wgmma.cu")
+SOURCES["ffn_block"] = ("simple_multimodal_tpu_torch/csrc/ffn_block.cu on "
+                        "simple_multimodal_tpu_torch/csrc/gemm_wgmma.cu")
 SOURCES["flash_attention_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dq_wgmma.cu and "
     "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dkv_wgmma.cu")
@@ -271,6 +293,15 @@ def _kernel_cases(dev, gen):
                  rn(Fd, E, std=Fd ** -0.5), rn(E, std=0.1)],
                 [1.0 + rn(E, std=0.1), rn(E, std=0.1)])
 
+    # a width that is no multiple of 64: the WMMA GEMM and (head width 32) core
+    x96 = [rn(2 * B, 197, 96)]
+    for _ in range(4):
+        x96 += [rn(96, 96, std=96 ** -0.5), rn(96, std=0.1)]
+    ln96 = [1.0 + rn(96, std=0.1), rn(96, std=0.1)]
+    cases.append(("attention_block", "WMMA path [16,197,96] 3 heads LN+residual",
+                  lambda t, g, b: dict(ln=(g, b, 1e-12), residual=True, num_heads=3),
+                  x96, ln96))
+
     x, lnp = ffn_inputs(B * 30, 197)
     cases.append(("ffn_block", "ViT [240,197,768] pre-LN",
                   lambda t, g, b: dict(ln=(g, b, 1e-12), ln_post=False), x, lnp))
@@ -281,6 +312,12 @@ def _kernel_cases(dev, gen):
         x, lnp = ffn_inputs(B, frames)
         cases.append(("ffn_block", f"wav2vec2 [8,{frames},768] post-LN",
                       lambda t, g, b: dict(ln=(g, b, 1e-5), ln_post=True), x, lnp))
+
+    cases.append(("ffn_block", "WMMA path [16,197,96] F=160 pre-LN",
+                  lambda t, g, b: dict(ln=(g, b, 1e-12), ln_post=False),
+                  [rn(2 * B, 197, 96), rn(96, 160, std=96 ** -0.5), rn(160, std=0.1),
+                   rn(160, 96, std=160 ** -0.5), rn(96, std=0.1)],
+                  [1.0 + rn(96, std=0.1), rn(96, std=0.1)]))
 
     S, span = 512, 256
     mask = torch.ones(B, S, dtype=torch.int32, device=dev)
@@ -327,8 +364,9 @@ def _kernel_cases(dev, gen):
                       [rn(B, samples, std=0.3), rn(10, 1, 512, std=0.1),
                        1.0 + rn(512, std=0.2), rn(512, std=0.1)], []))
     fns = {
-        "attention_block": (lambda *a, **k: ab.attention_block(*a, num_heads=H, **k),
-                            lambda *a, **k: ab.attention_block_plain(*a, num_heads=H, **k)),
+        "attention_block": (
+            lambda *a, **k: ab.attention_block(*a, **{"num_heads": H, **k}),
+            lambda *a, **k: ab.attention_block_plain(*a, **{"num_heads": H, **k})),
         "ffn_block": (fb.ffn_block, fb.ffn_block_plain),
         "deberta_attention": (da.deberta_attention, da.deberta_attention_plain),
         "flash_attention": (fa.flash_attention, fa.flash_attention_plain),
@@ -690,6 +728,7 @@ def phase_backward(dev) -> dict:
             "flash_attention": {}}  # the function has no dropout
     results = {}
     wav_checked = False
+    _check_dropout_positions(dev)
     for name, label, kw_fn, inputs, lnp in cases:
         kern, plain = fns[name]
         n_in = len(inputs)
@@ -761,6 +800,87 @@ def phase_backward(dev) -> dict:
     _check_flash_backward_is_deterministic(dev, gen)
     log(f"fwd+bwd times above: CUDA-event medians on {smi_line()}")
     return results
+
+
+def _check_dropout_positions(dev):
+    """The kept positions of both blocks' dropouts, not only the values:
+    each block is given weights that copy the dropped tensor to the output
+    (identity out-projection and one-hot values for attention_block, so that
+    out[b, q, h, d] = p[b, h, q, k0 + d]; a selecting W2 for ffn_block's
+    intermediate; the output itself for its output dropout), so an output is
+    zero exactly where the kernel dropped. Compared for equality with
+    ``dropout.attention_keep`` / ``ffn_keep`` over every position, at S = 499
+    and 197 (ragged in every tile size), in bf16 (wgmma) and f32."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_block
+    from simple_multimodal_tpu_torch.ops.hopper.dropout import (
+        SALT_MID, SALT_OUT, attention_keep, ffn_keep)
+    from simple_multimodal_tpu_torch.ops.hopper.ffn_block import ffn_block
+
+    E, H, D, Fd = 768, 12, 64, 3072
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    def same(tag, got_kept, want):
+        # a dropped element must be exactly zero; a kept one is zero only if
+        # its value happens to be (an f32 sum that cancels to 0.0: a few in
+        # 10^7), so at most one in a million may be
+        wrong = int((got_kept & ~want).sum())
+        zero = int((~got_kept & want).sum())
+        log(f"fwd+bwd dropout positions {tag}: {want.numel()} positions, "
+            f"{int((~want).sum())} dropped, {wrong} kept where dropout.py drops, "
+            f"{zero} kept ones that are zero")
+        if wrong or zero > 1 + want.numel() // 10 ** 6:
+            raise AssertionError(f"{tag}: the kernel's kept positions differ from dropout.py's "
+                                 f"({wrong} wrongly kept, {zero} zero) of {want.numel()}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for rows, S in ((B, 499), (4, 197)):
+            keep = attention_keep(DROP_SEED, rows, H, S, S, DROP_RATE, device=dev)
+            got = torch.zeros_like(keep)
+            wv = torch.zeros(E, E, device=dev)
+            wv[:D] = torch.eye(D, device=dev).repeat(1, H)  # x[:, :, :D] -> every head's values
+            zeros = torch.zeros(E, device=dev)
+            ws = [rn(E, E, std=E ** -0.5), rn(E, std=0.1), rn(E, E, std=E ** -0.5),
+                  rn(E, std=0.1), wv, zeros, torch.eye(E, device=dev), zeros]
+            for k0 in range(0, S, D):
+                n = min(D, S - k0)
+                x = rn(rows, S, E)
+                x[:, :, :D] = 0.0
+                x[:, k0:k0 + n, :D] = torch.eye(D, device=dev)[:n]  # key k0 + d -> column d
+                out = attention_block(x.to(dtype), *[w.to(dtype) for w in ws], num_heads=H,
+                                      dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+                sync()
+                shown = out.reshape(rows, S, H, D).permute(0, 2, 1, 3) != 0  # [b, h, q, d]
+                if bool(shown[..., n:].any()):
+                    raise AssertionError("attention_block: weight on keys past the end")
+                got[..., k0:k0 + n] = shown[..., :n]
+            same(f"attention_block [{rows},{S},{E}] {name}", got, keep)
+        rows, S = B, 499
+        x = rn(rows, S, E, std=0.3)  # small pre-activations: no GELU underflows to 0
+        w1, b1, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(E, std=0.1)
+        got = torch.zeros(rows, S, Fd, dtype=torch.bool, device=dev)
+        for c0 in range(0, Fd, E):  # out = the intermediate's columns c0 .. c0 + E
+            w2 = torch.zeros(Fd, E, device=dev)
+            w2[c0:c0 + E] = torch.eye(E, device=dev)
+            out = ffn_block(x.to(dtype), w1.to(dtype), b1.to(dtype), w2.to(dtype),
+                            torch.zeros(E, device=dev, dtype=dtype), residual=False,
+                            dropout_rate_mid=DROP_RATE, dropout_seed=DROP_SEED)
+            sync()
+            got[..., c0:c0 + E] = out != 0
+        same(f"ffn_block mid [{rows},{S},{Fd}] {name}", got,
+             ffn_keep(DROP_SEED, SALT_MID, rows, S, Fd, DROP_RATE, device=dev))
+        out = ffn_block(x.to(dtype), w1.to(dtype), b1.to(dtype),
+                        rn(Fd, E, std=Fd ** -0.5).to(dtype), b2.to(dtype), residual=False,
+                        dropout_rate_out=DROP_RATE, dropout_seed=DROP_SEED)
+        sync()
+        same(f"ffn_block out [{rows},{S},{E}] {name}", out != 0,
+             ffn_keep(DROP_SEED, SALT_OUT, rows, S, E, DROP_RATE, device=dev))
+    torch.cuda.empty_cache()
 
 
 def _log_device_times(tag: str, fn, reps: int = 5, top: int = 5):
@@ -1076,10 +1196,24 @@ def phase_device_and_build():
     sync()
 
 
+# every wgmma kernel the build must show: name -> (instantiations, how to ask
+# the library for its dynamic shared memory from the template's integer and flags)
+WGMMA_KERNELS = {
+    # <D, bias, dropout>: six of flash_attention, three of attention_block's core
+    "flash_fwd_wgmma_kernel": (9, lambda lib, n, flags: lib.smm_flash_wgmma_smem(
+        3 if flags.endswith("1") else 0, n)),
+    "flash_bwd_dq_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_flash_wgmma_smem(1, n)),
+    "flash_bwd_dkv_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_flash_wgmma_smem(2, n)),
+    # <tile columns, blocks of a cluster>
+    "gemm_wgmma_kernel": (4, lambda lib, n, flags: lib.smm_gemm_wgmma_smem(n)),
+}
+
+
 def _report_wgmma_kernels(_build):
     """ptxas' registers and spill bytes and the dynamic shared memory of every
-    wgmma flash-attention kernel, from the build's log. A spill, or ptxas
-    serializing the wgmma pipeline, fails the run."""
+    wgmma kernel (flash attention with the attention core's dropout variant,
+    the GEMM), from the build's log. A spill, or ptxas serializing the wgmma
+    pipeline, fails the run."""
     import re
 
     log_text = _build.build_info.get("log", "")
@@ -1087,30 +1221,133 @@ def _report_wgmma_kernels(_build):
         log("wgmma kernels: library loaded from the build cache, no compiler log")
         return
     lib = _build.library()
-    which = {"flash_fwd_wgmma_kernel": 0, "flash_bwd_dq_wgmma_kernel": 1,
-             "flash_bwd_dkv_wgmma_kernel": 2}
     lines = log_text.splitlines()
-    found = 0
+    found = dict.fromkeys(WGMMA_KERNELS, 0)
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '\S*?(" + "|".join(which)
-                      + r")ILi(\d+)ELb(\d)", line)
+        m = re.search(r"Compiling entry function '\S*?(" + "|".join(WGMMA_KERNELS)
+                      + r")ILi(\d+)E((?:L[bi]\d+E)*)", line)
         if not m:
             continue
-        kernel, D, bias = m.group(1), int(m.group(2)), m.group(3) == "1"
+        kernel, n = m.group(1), int(m.group(2))
+        flags = "".join(re.findall(r"L[bi](\d+)", m.group(3)))
         block = " ".join(x.strip() for x in lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", block)
         spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
-        smem = lib.smm_flash_wgmma_smem(which[kernel], D)
-        log(f"wgmma kernel {kernel} D={D} bias={bias}: {regs.group(1) if regs else '?'} "
-            f"registers at launch, spill bytes {spill}, dynamic shared memory {smem} bytes")
-        found += 1
+        smem = WGMMA_KERNELS[kernel][1](lib, n, flags)
+        log(f"wgmma kernel {kernel}<{n}{', ' + flags if flags else ''}>: "
+            f"{regs.group(1) if regs else '?'} registers, spill bytes {spill}, "
+            f"dynamic shared memory {smem} bytes")
+        found[kernel] += 1
         if not regs or len(spill) != 2 or any(spill):
-            raise AssertionError(f"{kernel} D={D} bias={bias}: ptxas reports spills: {block}")
-    if found != 18:
-        raise AssertionError(f"expected 18 wgmma flash kernels in the compiler log, found {found}")
+            raise AssertionError(f"{kernel}<{n}, {flags}>: ptxas reports spills: {block}")
+    expected = {k: v[0] for k, v in WGMMA_KERNELS.items()}
+    if found != expected:
+        raise AssertionError(f"wgmma kernels in the compiler log: {found}, expected {expected}")
     serialized = [x for x in lines if "serializ" in x.lower()]
     if serialized:
         raise AssertionError("ptxas serialized a wgmma pipeline: " + serialized[0])
+    x = torch_empty_bf16(47280 * 768)
+    lib.smm_tensor_map_ns(x.data_ptr(), 47280, 768, 1)  # looks the driver entry point up
+    ns = lib.smm_tensor_map_ns(x.data_ptr(), 47280, 768, 2000)
+    if ns < 0:
+        raise AssertionError("cuTensorMapEncodeTiled failed")
+    log(f"host cost of one TMA tensor map: {ns} ns (cuTensorMapEncodeTiled, mean of 2000; a "
+        f"wgmma GEMM launch encodes 4, the attention core 3: ffn_block 8 per call = "
+        f"{8 * ns / 1e3:.2f} us, attention_block 11 = {11 * ns / 1e3:.2f} us)")
+
+
+def torch_empty_bf16(n):
+    import torch
+
+    return torch.empty(n, dtype=torch.bfloat16, device="cuda")
+
+
+# ------------------------------------------------------------ the GEMM phase
+
+GEMM_ROWS = (47280, 3992, 130)
+GEMM_SHAPES = tuple((n, k) for n in (768, 2304, 3072) for k in (768, 3072))
+
+
+def _back_to_back_ms(fn, reps: int = 10) -> float:
+    """Device time of one call inside a run of ``reps`` back-to-back calls."""
+    import torch
+
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def phase_gemm(dev):
+    """The wgmma GEMM alone through ``smm_gemm``: every epilogue variant
+    against a plain f32 expression, the kept positions against
+    ``dropout.ffn_keep``, TFLOP/s, and ``F.linear`` beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from simple_multimodal_tpu_torch.ops.hopper import gemm as G
+    from simple_multimodal_tpu_torch.ops.hopper.dropout import ffn_keep
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32, S = torch.bfloat16, torch.float32, 197
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    for M in GEMM_ROWS:
+        for N, K in GEMM_SHAPES:
+            a, w = rn(M, K).to(bf16), rn(N, K, std=K ** -0.5).to(bf16)
+            bias, res, aux = rn(N, std=0.1).to(bf16), rn(M, N).to(bf16), rn(M, N)
+            route = G.gemm_route(M, N, K)
+            if not route:
+                raise AssertionError(f"gemm [{M},{N},{K}] should take the wgmma kernel")
+            variants = {
+                "bias": dict(bias=bias),
+                "bias+gelu+drop": dict(bias=bias, act="gelu_tanh",
+                                       dropout=(DROP_RATE, DROP_SEED, 1, S)),
+                "bias+drop+res f32": dict(bias=bias, dropout=(DROP_RATE, DROP_SEED, 2, S),
+                                          res=res, out_dtype=f32),
+                "dgelu+drop aux": dict(act="dgelu_tanh", aux=aux,
+                                       dropout=(DROP_RATE, DROP_SEED, 1, S)),
+            }
+            flop, text = 2.0 * M * N * K, ""
+            for name, kw in variants.items():
+                got = G.gemm(a, w, **kw)
+                want = G.gemm_plain(a, w, **{**kw, "out_dtype": f32})
+                sync()
+                tol = ATOL_F32 if kw.get("out_dtype") == f32 else ATOL_BF16
+                err = float((got.float() - want).abs().max())
+                ok = bool(torch.allclose(got.float(), want, atol=tol, rtol=tol))
+                if "dropout" in kw:
+                    # a dropped element is exactly zero (its residual exactly
+                    # itself); a kept one is not, unless its value is ~0
+                    rate, seed, salt, _ = kw["dropout"]
+                    keep = ffn_keep(seed, salt, -(-M // S), S, N, rate,
+                                    device=dev).reshape(-1, N)[:M]
+                    resf = res.float() if "res" in kw else 0.0
+                    shown = got.float() - resf
+                    bad = (~keep & (shown != 0)) | (keep & (shown == 0)
+                                                    & ((want - resf).abs() > 1e-4))
+                    ok = ok and not bool(bad.any())
+                    del keep, shown, bad
+                ms = _back_to_back_ms(lambda: G.gemm(a, w, **kw))
+                text += f" | {name}: err={err:.2e} ms={ms:.4f} {flop / ms / 1e9:.0f} TFLOP/s"
+                if not ok:
+                    raise AssertionError(f"gemm [{M},{N},{K}] {name}: disagrees with the plain "
+                                         f"version (max abs err {err:.3e}, tol {tol}) or drops "
+                                         f"other positions than dropout.ffn_keep")
+                del got, want
+            lin = _back_to_back_ms(lambda: F.linear(a, w, bias))
+            log(f"gemm [{M},{N},{K}] tile_n={route}{text} | F.linear (library yardstick, "
+                f"bias only): ms={lin:.4f} {flop / lin / 1e9:.0f} TFLOP/s")
+            del a, w, res, aux
+            torch.cuda.empty_cache()
+    log(f"gemm times above: device time per call in a run of 10 back-to-back calls, bf16, "
+        f"on {smi_line()}")
 
 
 def main() -> int:
@@ -1138,6 +1375,7 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 phase_profile(dev, tmp)
             return 0
+        phase_gemm(dev)
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -7,20 +7,32 @@
 // [S, E] tile in VMEM and separates heads with masked 128-lane matmuls; on
 // the H100 the block is a chain of launches on one stream:
 //   1. LayerNorm rows (f32 statistics) when `ln` is given;
-//   2. three tiled GEMMs (bf16 on the tensor cores) with a bias epilogue,
-//      writing q|k|v side by side into one packed [rows, 3E] buffer;
-//   3. the streaming attention kernel (attention.cuh), one block per
-//      (query tile, head, batch), reading q/k/v in [B, S, H, D] straight
-//      from the packed buffer;
+//   2. the q|k|v projection with a bias epilogue into one packed
+//      [rows, 3E] buffer;
+//   3. the attention core, one block per (query tile, head, batch), reading
+//      q/k/v in [B, S, H, D] straight from the packed buffer;
 //   4. the out-projection GEMM with the bias and residual in its epilogue.
-// What bounds it here: the four projections are tensor-core GEMMs at
-// rows = B*S, compute-bound at the ViT stack's 47k rows and limited by the
-// WMMA GEMM's rate (~150 TFLOP/s measured, see PERF.md); the attention core
-// (bf16: WMMA for QK^T and P.V) is the smaller part. The q|k|v buffer and
-// the context round-trip device memory once each; keeping them on chip, and
-// wgmma/TMA, is later work.
+//
+// What bounds it on this card: operations (8 rows E^2 FLOP of projections
+// and 4 rows S E of core per call; the projections are ~80% at the ViT
+// site). What the design does about it, in bf16 at the base widths:
+// - step 2 is ONE launch of the wgmma/TMA GEMM (gemm_wgmma.cu) over N = 3E:
+//   the three weights and biases are reached through three tensor maps and
+//   pointers picked by the tile's column block, so nothing is concatenated
+//   per call and the ~4 000-row sites launch 576 tiles instead of 3 x 192;
+// - step 3 is flash_attention's wgmma forward (attention_core_wgmma.cu):
+//   K/V tiles by TMA in place from the packed buffer (token stride 3E),
+//   scores and probabilities in accumulator registers, the hash dropout of
+//   the probabilities formed there, compiled out of serving's instantiation;
+// - step 4 is the same GEMM with bias + residual on its accumulators.
+// f32, other head widths (the tiny preset) and shapes the wgmma GEMM does not
+// take run gemm.cuh's WMMA/FMA kernels and attention.cuh's core: chosen by
+// type and shape before anything is launched. The backward's re-run of the
+// core keeps attention.cuh (it needs the row statistics and delta); the
+// dropout mask is a pure function of (seed, b, h, q, k), so the two agree.
+// The q|k|v buffer and the context round-trip device memory once each.
 
-#include "attention.cuh"
+#include "flash_attention.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -42,9 +54,17 @@ int run(const void* x, const void* wq, const void* bq, const void* wk, const voi
   }
   const void* ws[3] = {wq, wk, wv};
   const void* bs[3] = {bq, bk, bv};
-  for (int i = 0; i < 3; ++i) {
-    Epilogue ep{bs[i], nullptr, 0, (T*)qkv + i * E, 3 * E, ACT_NONE, 0};
-    if (int e = launch_gemm(a, E, (const T*)ws[i], E, M, E, E, ep, st)) return e;
+  if (int e = launch_gemm_qkv<T>(a, E, ws, bs, M, E, E, qkv, st)) return e;
+  const float scale = 1.0f / sqrtf((float)D);
+  if (sizeof(T) == 2 && flash_wgmma_width(D) && ptr_aligned(qkv, 16)) {
+    // q, k, v as [B, S, H, D] views of the packed buffer: token stride 3E
+    const RowStrides rows{(long long)S * 3 * E, 3 * E};
+    const FlashArgs fa{qkv, (const T*)qkv + E, (const T*)qkv + 2 * E, rows, rows, rows,
+                       nullptr, 0, 0, 0, 0, S, S, H, scale};
+    const FlashOut fo{ctx, {(long long)S * E, E}, nullptr, nullptr};
+    if (int e = attention_core_wgmma_launch(fa, fo, drop, B, D, st)) return e;
+    Epilogue ep{bo, residual ? x : nullptr, E, out, E, ACT_NONE, 0};
+    return launch_gemm((const T*)ctx, E, (const T*)wo, E, M, E, E, ep, st);
   }
   AttnArgs at{};
   at.q = qkv;
@@ -55,7 +75,7 @@ int run(const void* x, const void* wq, const void* bq, const void* wk, const voi
   at.ldo = E;
   at.S = S;
   at.H = H;
-  at.scale = 1.0f / sqrtf((float)D);
+  at.scale = scale;
   at.drop = drop;
   if (int e = launch_attention<T, false>(at, B, D, st)) return e;
   Epilogue ep{bo, residual ? x : nullptr, E, out, E, ACT_NONE, 0};

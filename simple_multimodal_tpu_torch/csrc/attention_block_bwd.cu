@@ -43,10 +43,7 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
   }
   const void* ws[3] = {wq, wk, wv};
   const void* bs[3] = {bq, bk, bv};
-  for (int i = 0; i < 3; ++i) {
-    Epilogue ep{bs[i], nullptr, 0, (T*)qkv + i * E, 3 * E, ACT_NONE, 0};
-    if (int e = launch_gemm(in, E, (const T*)ws[i], E, M, E, E, ep, st)) return e;
-  }
+  if (int e = launch_gemm_qkv<T>(in, E, ws, bs, M, E, E, qkv, st)) return e;
   {  // da = gy . Wo^T: the flax [E_in, E_out] weight is the K-major operand
     Epilogue ep{nullptr, nullptr, 0, da, E, ACT_NONE, 0};
     if (int e = launch_gemm((const T*)gy, E, (const T*)wo, E, M, E, E, ep, st)) return e;

@@ -40,14 +40,22 @@ enum Act {
   ACT_DGELU_TANH = 4
 };
 
+// The tanh form of the GELU, 0.5 v (1 + tanh(u)) with u = sqrt(2/pi) (v +
+// 0.044715 v^3), written as v / (1 + exp(-2u)): the same function in one
+// exponential and one fast division (a GEMM epilogue evaluates it 128 times
+// a thread). The exponent is capped so the denominator stays below the
+// 2^126 above which __fdividef returns 0 for every numerator; the cap only
+// acts where the quotient is below 1e-33 in magnitude anyway.
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float u2 = 1.5957691216057308f * (v + 0.044715f * v * v * v);  // 2 sqrt(2/pi) (...)
+  return __fdividef(v, 1.0f + __expf(fminf(-u2, 80.0f)));
+}
+
 // erf-exact GELU for f32 and the tanh form for bf16, as the JAX package's
 // ops/attention.gelu picks them.
 __device__ __forceinline__ float apply_act(float v, int act) {
   if (act == ACT_GELU_ERF) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  if (act == ACT_GELU_TANH) {
-    const float c = 0.7978845608028654f;  // sqrt(2/pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
+  if (act == ACT_GELU_TANH) return gelu_tanh(v);
   return v;
 }
 
@@ -56,8 +64,11 @@ __device__ __forceinline__ float gelu_grad(float x, int act) {
   if (act == ACT_GELU_ERF)
     return 0.5f * (1.0f + erff(x * 0.70710678118654752f)) +
            x * 0.3989422804014327f * expf(-0.5f * x * x);
+  // tanh(u) = 1 - 2 / (1 + exp(2u)), in one exponential and one fast division
+  // (the exponent capped as in gelu_tanh: beyond it tanh is 1 in f32 anyway)
   const float c = 0.7978845608028654f;
-  const float t = tanhf(c * (x + 0.044715f * x * x * x));
+  const float u2 = 2.0f * c * (x + 0.044715f * x * x * x);
+  const float t = 1.0f - __fdividef(2.0f, 1.0f + __expf(fminf(u2, 80.0f)));
   return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * x * x);
 }
 
@@ -65,16 +76,27 @@ __device__ __forceinline__ float gelu_grad(float x, int act) {
 // `_hash_keep` in simple_multimodal_tpu/ops/pallas/deberta_attention.py
 // computes it; keep iff the hash >= thresh = rate * 2^32. The forward and
 // backward kernels regenerate the same mask from the same indices.
-__device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t head, uint32_t q, uint32_t k,
-                                          uint32_t thresh) {
-  uint32_t x = q * 0x9E3779B9u + k * 0x85EBCA6Bu;
-  x = x + head * 0xC2B2AE35u + seed;
+// The hash splits into a part that is constant along a row of keys
+// (hash_row) and the key's own term, so a kernel that walks a row forms the
+// first once: hash_keep(seed, head, q, k, t) == hash_row_keep(hash_row(seed,
+// head, q), k, t), bit for bit (uint32 sums wrap, so their order is free).
+__device__ __forceinline__ uint32_t hash_row(uint32_t seed, uint32_t head, uint32_t q) {
+  return q * 0x9E3779B9u + head * 0xC2B2AE35u + seed;
+}
+
+__device__ __forceinline__ bool hash_row_keep(uint32_t row, uint32_t k, uint32_t thresh) {
+  uint32_t x = row + k * 0x85EBCA6Bu;
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x >= thresh;
+}
+
+__device__ __forceinline__ bool hash_keep(uint32_t seed, uint32_t head, uint32_t q, uint32_t k,
+                                          uint32_t thresh) {
+  return hash_row_keep(hash_row(seed, head, q), k, thresh);
 }
 
 // Dropout of one call: `seed` points at the int32 seed in device memory

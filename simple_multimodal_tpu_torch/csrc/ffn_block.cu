@@ -11,11 +11,31 @@
 // the GEMM epilogues in f32, before the rounding to the compute type, over
 // (b, s, column) with b = row / S, s = row % S. Before a post-LN the GEMM2
 // sum is kept in f32, as the reference normalises the f32 sum.
-// What bounds it here: both GEMMs are tensor-core bound at the main path's
-// row counts (4k-47k rows, E=768, F=3072). In this version the [rows, F]
-// intermediate round-trips device memory (written by GEMM1, read by
-// GEMM2): ~2 x rows x F x 2 bytes per call in bf16. Keeping it on chip,
-// and wgmma/TMA, is later work.
+//
+// What bounds it on this card: operations. Both products are tensor-core
+// bound at the main path's row counts (4k-47k rows, E = 768, F = 3072:
+// 4 rows E F FLOP on ~2 rows E + 2 E F elements), and K is short (768 for
+// GEMM1), so a tile's ring fill and epilogue weigh as much as its products.
+// What the design does about it: in bf16 at these widths both GEMMs are the
+// wgmma/TMA kernel of gemm_wgmma.cu (TMA ring, two consumer warpgroups, two
+// resident blocks an SM so one block's epilogue overlaps the other's
+// products), with everything between the products fused into the epilogues
+// on the accumulator registers: bias + tanh GELU + the mid dropout in GEMM1,
+// bias + the output dropout + the residual (f32 out before a post-LN) in
+// GEMM2. Other widths (the tiny preset) and f32 run gemm.cuh's WMMA and FMA
+// kernels; the choice is made by shape in launch_gemm.
+//
+// The [rows, F] intermediate still round-trips device memory (written by
+// GEMM1, read by GEMM2: 2 x rows x F x 2 bytes, 0.17 ms of the ViT call at
+// 3.35 TB/s against 0.45 ms of products). Keeping it on chip would take one
+// kernel for both products: a 128-row tile of the intermediate is 128 x 3072
+// x 2 = 768 KB, more than three SMs' shared memory, and streaming it in
+// F-slices instead needs GEMM2's [128, 768] f32 sums resident, 384 KB or 384
+// registers a thread over two warpgroups. Neither fits one block; a cluster
+// of blocks that splits E and exchanges slices through distributed shared
+// memory would, and is later work.
+// The tensor maps of both GEMMs are encoded on the host in every call
+// (chip_smoke.py prints the cost of one).
 
 #include "gemm.cuh"
 

@@ -329,8 +329,14 @@ extern "C" int smm_flash_attention(int dtype, const void* q, const void* k, cons
 }
 
 // Dynamic shared memory of a wgmma flash kernel (which: 0 forward, 1 dq,
-// 2 dk/dv) at head width D, in bytes; 0 where there is none.
+// 2 dk/dv, 3 the forward with attention_block's dropout) at head width D, in
+// bytes; 0 where there is none.
 extern "C" int smm_flash_wgmma_smem(int which, int D) {
-  return which == 0 ? flash_fwd_wgmma_smem(D)
-                    : which == 1 ? flash_bwd_dq_wgmma_smem(D) : flash_bwd_dkv_wgmma_smem(D);
+  switch (which) {
+    case 0: return flash_fwd_wgmma_smem(D);
+    case 1: return flash_bwd_dq_wgmma_smem(D);
+    case 2: return flash_bwd_dkv_wgmma_smem(D);
+    case 3: return attention_core_wgmma_smem(D);
+    default: return 0;
+  }
 }

@@ -9,31 +9,20 @@
 // f32 inputs run a plain shared-memory tiled FMA loop, so an f32 call sums
 // in full f32 (no TF32). The epilogue adds the bias, applies the GELU,
 // applies the FFN hash dropout, adds the residual and stores in the input
-// type or in f32.
+// type or in f32 (the contract is `Epilogue` in gemm_wgmma.cuh).
+//
+// bf16 products whose shape and alignment the wgmma/TMA kernel takes
+// (gemm_wgmma_takes: N and K multiples of 64, 16-byte aligned rows; every
+// product of the base widths) go to gemm_wgmma.cu instead; the WMMA kernel
+// here keeps the rest (the tiny preset's widths). That is decided from the
+// arguments before anything is launched, never after a failure.
 #pragma once
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace smm {
-
-struct Epilogue {
-  const void* bias;  // [N] in the input type, or null
-  const void* res;   // [M, ldr] in the input type (f32 with res_f32), or null
-  int ldr;
-  void* out;  // [M, ldc]
-  int ldc;
-  int act;      // Act
-  int out_f32;  // 1: store f32, 0: store the input type
-  int res_f32;
-  // FFN dropout over (b, s, c) = (r / drop_S, r % drop_S, c), with the
-  // seed + salt of the site; off when drop.seed is null
-  Drop drop;
-  int salt;
-  int drop_S;
-  const float* aux;  // [M, N] pre-activation for ACT_DGELU_*
-};
 
 template <typename T>
 __device__ __forceinline__ void epilogue_store(const Epilogue& ep, int r, int c, float v) {
@@ -208,6 +197,8 @@ static __global__ void __launch_bounds__(256)
 
 static inline int launch_gemm(const bf16* A, int lda, const bf16* W, int ldw, int M, int N,
                               int K, const Epilogue& ep, cudaStream_t st) {
+  if (gemm_wgmma_takes(A, lda, W, ldw, N, K, ep))
+    return gemm_wgmma_launch(A, lda, &W, ldw, &ep.bias, 1, M, N, K, ep, st);
   dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM);
   gemm_bf16_kernel<<<grid, 256, 0, st>>>(A, lda, W, ldw, M, N, K, ep);
   SMM_CHECK_LAUNCH();
@@ -219,6 +210,30 @@ static inline int launch_gemm(const float* A, int lda, const float* W, int ldw, 
   dim3 grid((N + kF32BN - 1) / kF32BN, (M + kF32BM - 1) / kF32BM);
   gemm_f32_kernel<<<grid, 256, 0, st>>>(A, lda, W, ldw, M, N, K, ep);
   SMM_CHECK_LAUNCH();
+  return 0;
+}
+
+// The q|k|v projections of the attention blocks: three [E, K] weights and
+// biases, outputs side by side in one packed [M, 3E] buffer (ldc = 3E). One
+// launch of the wgmma kernel where it takes the shape, else three launches.
+template <typename T>
+static inline int launch_gemm_qkv(const T* A, int lda, const void* const* W, const void* const* bias,
+                                  int M, int E, int K, void* out, cudaStream_t st) {
+  if constexpr (sizeof(T) == 2) {
+    const Epilogue ep{nullptr, nullptr, 0, out, 3 * E, ACT_NONE, 0};
+    bool takes = true;
+    for (int i = 0; i < 3; ++i) {
+      Epilogue one = ep;
+      one.bias = bias[i];
+      takes = takes && gemm_wgmma_takes(A, lda, W[i], K, E, K, one);
+    }
+    if (takes)
+      return gemm_wgmma_launch(A, lda, (const bf16* const*)W, K, bias, 3, M, E, K, ep, st);
+  }
+  for (int i = 0; i < 3; ++i) {
+    const Epilogue ep{bias[i], nullptr, 0, (T*)out + i * E, 3 * E, ACT_NONE, 0};
+    if (int e = launch_gemm(A, lda, (const T*)W[i], K, M, E, K, ep, st)) return e;
+  }
   return 0;
 }
 

@@ -52,8 +52,17 @@ SIGNATURES = {
     "smm_wav_frontend_stats": [_I] + [_P] * 3 + [_I] * 6 + [_P],
     # wav, w, mean, rstd, gamma, beta, out
     "smm_wav_frontend_apply": [_I] + [_P] * 7 + [_I] * 6 + [_P],
-    # which (0 forward, 1 dq, 2 dk/dv), D -> bytes of dynamic shared memory
+    # which (0 forward, 1 dq, 2 dk/dv, 3 forward with dropout), D -> bytes of dynamic shared memory
     "smm_flash_wgmma_smem": [_I, _I],
+    # a, lda, w, ldw, bias, res, ldr, res_f32, out, ldc, out_f32, act, aux; seed, thresh,
+    # scale, salt, S; M, N, K; stream
+    "smm_gemm": [_P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _I, _I, _P] + _DROP + [_I] * 5 + [_P],
+    # a, lda, w, ldw, bias, res, ldr, out, ldc, aux; M, N, K -> 0 (WMMA) or the wgmma tile width
+    "smm_gemm_route": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I],
+    # tile width -> bytes of dynamic shared memory
+    "smm_gemm_wgmma_smem": [_I],
+    # base, rows, K, repetitions -> host nanoseconds per tensor map
+    "smm_tensor_map_ns": [_P, _I, _I, _I],
     # N; a, bt, v, c, o; stream
     "smm_hopper_selftest_mma": [_I] + [_P] * 6,
     # swizzle bytes; src, out; rows, cols, r0, c0; stream

@@ -5,8 +5,10 @@ Replaces the TPU kernels of simple_multimodal_tpu/ops/pallas/attention_block.py:
 the forward (``_kernel`` via ``_fused_call``) and the backward
 (``_bwd_kernel`` via ``_block_bwd``). On a CUDA tensor the wrapper runs
 ``AttentionBlockFn``, whose forward launches the kernel chain in
-``csrc/attention_block.cu`` and whose backward launches the one in
-``csrc/attention_block_bwd.cu``; on a CPU tensor it runs
+``csrc/attention_block.cu`` (in bf16 at the base widths: the wgmma GEMM of
+``csrc/gemm_wgmma.cu`` for q|k|v in one launch and for the out-projection,
+the wgmma core of ``csrc/attention_core_wgmma.cu`` between them) and whose
+backward launches the one in ``csrc/attention_block_bwd.cu``; on a CPU tensor it runs
 ``attention_block_plain``, the port of that file's ``_xla_reference``, and
 autograd differentiates it. Bounds and design of the CUDA versions are
 noted in the .cu sources.
@@ -19,6 +21,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .dropout import apply_keep, attention_keep, threshold
+from .gemm import aligned16
 
 
 def attention_block_plain(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads: int,
@@ -60,9 +63,10 @@ def _seed_tensor(seed, device) -> torch.Tensor:
 
 
 def _flax_t(w: torch.Tensor) -> torch.Tensor:
-    """flax [in, out] → [out, in] contiguous, without a copy when ``w`` is
-    the transposed view of a contiguous Linear weight."""
-    return w.t().contiguous()
+    """flax [in, out] → [out, in] contiguous and 16-byte aligned (the wgmma
+    GEMM reads it through a TMA tensor map), without a copy when ``w`` is the
+    transposed view of a contiguous, aligned Linear weight."""
+    return aligned16(w.t().contiguous())
 
 
 class AttentionBlockFn(torch.autograd.Function):
@@ -77,7 +81,8 @@ class AttentionBlockFn(torch.autograd.Function):
         dt = x.dtype
         lib = _build.library()
         ws = [_flax_t(w) for w in (wq, wk, wv, wo)]
-        bs = [b.contiguous() for b in (bq, bk, bv, bo)]
+        bs = [aligned16(b.contiguous()) for b in (bq, bk, bv, bo)]
+        x = aligned16(x)
         M = B * S
         xn = torch.empty((M, E), dtype=dt, device=x.device) if ln_g is not None else None
         qkv = torch.empty((M, 3 * E), dtype=dt, device=x.device)

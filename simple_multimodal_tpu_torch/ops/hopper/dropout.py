@@ -50,6 +50,26 @@ def hash_u32(seed, head, q, k) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def hash_row(seed: int, head: int, q: int) -> int:
+    """The part of the hash's input that is constant along a row of keys,
+    on Python ints: ``smm::hash_row`` of ``csrc/common.cuh``, which the
+    wgmma kernels form once per accumulator row."""
+    return (q * _C1 + head * _C3 + seed) & MASK32
+
+
+def hash_row_keep(row: int, k: int, thresh: int) -> bool:
+    """Keep bit of one element from its row part and its key or column, on
+    Python ints (``smm::hash_row_keep``): ``hash_row_keep(hash_row(seed,
+    head, q), k, t)`` equals ``hash_u32(seed, head, q, k) >= t``."""
+    x = (row + k * _C2) & MASK32
+    x ^= x >> 16
+    x = (x * _C2) & MASK32
+    x ^= x >> 13
+    x = (x * _C3) & MASK32
+    x ^= x >> 16
+    return x >= thresh
+
+
 def _seed(seed, device) -> torch.Tensor:
     return torch.as_tensor(seed, device=device).reshape(()).to(torch.int64) & MASK32
 

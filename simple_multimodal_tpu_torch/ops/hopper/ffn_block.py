@@ -6,7 +6,8 @@ the forward (``_kernel`` via ``_fused_call``) and the backward
 (``_bwd_kernel`` via ``_ffn_bwd``). On a CUDA tensor the wrapper runs
 ``FFNBlockFn``: its forward launches the chain in ``csrc/ffn_block.cu``
 (LN row kernel, two tensor-core GEMMs with bias/GELU/dropout and
-bias/dropout/residual epilogues, LN), its backward the chain in
+bias/dropout/residual epilogues, LN; in bf16 at the base widths both GEMMs
+are the wgmma/TMA kernel of ``csrc/gemm_wgmma.cu``), its backward the chain in
 ``csrc/ffn_block_bwd.cu``. On a CPU tensor it runs ``ffn_block_plain``, the
 port of that file's ``_xla_reference``, and autograd differentiates it.
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from . import _build
 from .attention_block import _drop_scale, _flax_t, _seed_tensor
 from .dropout import SALT_MID, SALT_OUT, apply_keep, ffn_keep, threshold
+from .gemm import aligned16
 
 
 def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
@@ -85,6 +87,7 @@ class FFNBlockFn(torch.autograd.Function):
         h = torch.empty((M, Fd), dtype=dt, device=dev)
         out = torch.empty_like(x)
         w1t, w2t = _flax_t(w1), _flax_t(w2)  # referenced until the launch
+        x, b1, b2 = aligned16(x), aligned16(b1.contiguous()), aligned16(b2.contiguous())
         p = _build.ptr
         err = lib.smm_ffn_block(
             _build.dtype_code(x), p(x), p(w1t), p(b1), p(w2t), p(b2),

@@ -466,3 +466,97 @@ def test_tiny_long_clip_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     for name, want in runs["cpu"][2].items():
         err = float((runs["cuda"][2][name] - want).abs().max())
         assert err <= 1e-3 * float(want.abs().max()) + 1e-6, (name, err)
+
+
+def test_cuda_gemm_matches_plain_at_ragged_shapes(cuda):
+    """The GEMM entry (``smm_gemm``) in bf16 against the plain f32 expression
+    on the same inputs, every epilogue variant, at shapes that take the wgmma
+    kernel with 64-column tiles (rows ragged in the last 128-row tile), with
+    128-column tiles, and the WMMA kernel (N no multiple of 64); the route
+    the library reports equals ``gemm_route``. bf16 outputs at 3e-2 (one
+    rounding of the f32 sum), f32 outputs at 1e-3; dropped elements are
+    exactly zero at ``dropout.ffn_keep``'s positions."""
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper import gemm as G
+    from simple_multimodal_tpu_torch.ops.hopper.dropout import ffn_keep
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    bf16, f32, S = torch.bfloat16, torch.float32, 77
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device=cuda) * std
+
+    lib = _build.library()
+    for (M, N, K), route in (((300, 192, 128), 64), ((130, 768, 768), 64),
+                             ((16890, 256, 64), 128), ((300, 96, 128), 0)):
+        a, w = rn(M, K).to(bf16), rn(N, K, std=K ** -0.5).to(bf16)
+        bias, res, aux = rn(N, std=0.1).to(bf16), rn(M, N).to(bf16), rn(M, N)
+        assert G.gemm_route(M, N, K) == route
+        assert lib.smm_gemm_route(a.data_ptr(), K, w.data_ptr(), K, bias.data_ptr(), None, 0,
+                                  res.data_ptr(), N, None, M, N, K) == route
+        for kw in (dict(bias=bias), dict(bias=bias, act="gelu_tanh", dropout=(0.1, 5, 1, S)),
+                   dict(bias=bias, dropout=(0.1, 5, 2, S), res=res, out_dtype=f32),
+                   dict(res=res.float()), dict(act="dgelu_tanh", aux=aux, dropout=(0.1, 5, 1, S))):
+            got = G.gemm(a, w, **kw)
+            want = G.gemm_plain(a, w, **{**kw, "out_dtype": f32})
+            torch.cuda.synchronize()
+            tol = 1e-3 if kw.get("out_dtype") == f32 else 3e-2
+            assert got.dtype == kw.get("out_dtype", bf16) and torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+            if "dropout" in kw:
+                rate, seed, salt, _ = kw["dropout"]
+                keep = ffn_keep(seed, salt, -(-M // S), S, N, rate, device=cuda).reshape(-1, N)[:M]
+                resf = res.float() if "res" in kw else 0.0
+                shown = got.float() - resf
+                assert not bool((~keep & (shown != 0)).any())
+                assert not bool((keep & (shown == 0) & ((want - resf).abs() > 1e-4)).any())
+    # a view that starts off a 16-byte boundary is copied, not refused
+    odd = torch.zeros(300 * 128 + 1, dtype=bf16, device=cuda)[1:].view(300, 128)
+    odd.copy_(rn(300, 128))
+    w = rn(192, 128, std=0.1).to(bf16)
+    torch.testing.assert_close(G.gemm(odd, w).float(), G.gemm_plain(odd, w, out_dtype=f32),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("E,H,Fd", [(128, 2, 256), (768, 12, 3072), (192, 2, 256),
+                                    (256, 2, 512), (96, 3, 160)])
+def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
+    """attention_block and ffn_block in bf16 with hash dropout: two runs on
+    the same inputs and seed give the same bits, and another seed does not
+    (widths 128 and 768: the wgmma GEMM and the wgmma core at head width 64;
+    192 and 256: the same at head widths 96 and 128; width 96: the WMMA
+    kernels). Against the plain version at 3e-2."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    bf16 = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * std).to(bf16)
+
+    B, S = 3, 197
+    x = rn(B, S, E)
+    wb = []
+    for _ in range(4):
+        wb += [rn(E, E, std=E ** -0.5), rn(E, std=0.1)]
+    ln = (rn(E, std=0.1) + 1, rn(E, std=0.1), 1e-6)
+    w1, b1, w2, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(Fd, E, std=Fd ** -0.5), rn(E)
+
+    def attn(seed):
+        return ab.attention_block(x, *wb, num_heads=H, ln=ln, residual=True, dropout_rate=0.1,
+                                  dropout_seed=seed)
+
+    def ffn(seed):
+        return fb.ffn_block(x, w1, b1, w2, b2, ln=ln, dropout_rate_mid=0.1,
+                            dropout_rate_out=0.1, dropout_seed=seed)
+
+    for fn in (attn, ffn):
+        first, second, other = fn(11), fn(11), fn(12)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert not torch.equal(first, other)
+    ln32 = (ln[0].float(), ln[1].float(), 1e-6)
+    want = ab.attention_block_plain(x.float(), *[t.float() for t in wb], num_heads=H, ln=ln32,
+                                    residual=True, dropout_rate=0.1, dropout_seed=11)
+    torch.testing.assert_close(attn(11).float(), want, atol=3e-2, rtol=3e-2)
+    want = fb.ffn_block_plain(*[t.float() for t in (x, w1, b1, w2, b2)], ln=ln32,
+                              dropout_rate_mid=0.1, dropout_rate_out=0.1, dropout_seed=11)
+    torch.testing.assert_close(ffn(11).float(), want, atol=3e-2, rtol=3e-2)
