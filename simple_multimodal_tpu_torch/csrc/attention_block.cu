@@ -56,7 +56,7 @@ int run(const void* x, const void* wq, const void* bq, const void* wk, const voi
   const void* bs[3] = {bq, bk, bv};
   if (int e = launch_gemm_qkv<T>(a, E, ws, bs, M, E, E, qkv, st)) return e;
   const float scale = 1.0f / sqrtf((float)D);
-  if (sizeof(T) == 2 && flash_wgmma_width(D) && ptr_aligned(qkv, 16)) {
+  if (sizeof(T) == 2 && (D == 64 || D == 128) && ptr_aligned(qkv, 16)) {
     // q, k, v as [B, S, H, D] views of the packed buffer: token stride 3E
     const RowStrides rows{(long long)S * 3 * E, 3 * E};
     const FlashArgs fa{qkv, (const T*)qkv + E, (const T*)qkv + 2 * E, rows, rows, rows,

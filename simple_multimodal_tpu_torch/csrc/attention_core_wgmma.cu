@@ -1,5 +1,5 @@
-// The attention core of attention_block on wgmma (bf16, head widths 64, 96
-// and 128): softmax(q k^T / sqrt(D)) [hash dropout] v per head, with q, k
+// The attention core of attention_block on wgmma (bf16, head widths 64 and
+// 128, the two of the block's widths that flash_attention's kernel has): softmax(q k^T / sqrt(D)) [hash dropout] v per head, with q, k
 // and v read in place from the packed [rows, 3E] projection buffer through
 // three-axis tensor maps (row stride 3E).
 //
@@ -29,7 +29,6 @@ int attention_core_wgmma_launch(const FlashArgs& a, const FlashOut& w, const Dro
   if (!drop.seed) return flash_fwd_wgmma_launch(a, w, B, D, st);
   switch (D) {
     case 64: return flashw::launch_fwd<64, false, true>(a, w, drop, B, st);
-    case 96: return flashw::launch_fwd<96, false, true>(a, w, drop, B, st);
     case 128: return flashw::launch_fwd<128, false, true>(a, w, drop, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -37,8 +36,7 @@ int attention_core_wgmma_launch(const FlashArgs& a, const FlashOut& w, const Dro
 
 int attention_core_wgmma_smem(int D) {
   return D == 64 ? flashw::FwdPlan<64, true>::bytes
-                 : D == 96 ? flashw::FwdPlan<96, true>::bytes
-                           : D == 128 ? flashw::FwdPlan<128, true>::bytes : 0;
+                 : D == 128 ? flashw::FwdPlan<128, true>::bytes : 0;
 }
 
 }  // namespace smm

@@ -68,9 +68,9 @@ constexpr bool flash_wgmma_width(int D) { return D == 64 || D == 96 || D == 128;
 int flash_fwd_wgmma_launch(const FlashArgs& a, const FlashOut& w, int B, int D, cudaStream_t st);
 int flash_bwd_dq_wgmma_launch(const FlashBwdArgs& a, int B, int D, cudaStream_t st);
 int flash_bwd_dkv_wgmma_launch(const FlashBwdArgs& a, int B, int D, cudaStream_t st);
-// attention_block's core: the forward kernel without a bias, with the hash
-// dropout of the probabilities when drop.seed is set (attention_core_wgmma.cu);
-// w.m and w.l may be null.
+// attention_block's core at head widths 64 and 128: the forward kernel
+// without a bias, with the hash dropout of the probabilities when drop.seed
+// is set (attention_core_wgmma.cu); w.m and w.l may be null.
 int attention_core_wgmma_launch(const FlashArgs& a, const FlashOut& w, const Drop& drop, int B,
                                 int D, cudaStream_t st);
 // Dynamic shared memory (bytes) each asks for at head width D (0: no kernel).

@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
   __syncthreads();
 
-  if (warp >= kConsumers) {  // the producer warpgroup: one lane issues every copy
+  if (warp >= kConsumers) {  // the producer warpgroup: one lane starts every copy
     hp::setmaxnreg_dec<kProducerRegs>();
     if (warp != kConsumers || lane != 0) return;
     hp::mbar_arrive_expect_tx(q_full, tile_bytes<D, kQRows>());

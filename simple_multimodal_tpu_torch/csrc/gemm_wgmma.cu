@@ -27,9 +27,7 @@
 //   other's products, which is what a short K needs. ptxas allots every
 //   thread the launch bound's register count whatever setmaxnreg says later,
 //   so a block with a third, producer warpgroup (384 threads, 80 registers
-//   for two blocks an SM) cannot hold the 64-register accumulator; and one
-//   persistent block an SM whose two warpgroups alternate whole tiles
-//   spilled its 128 accumulators and measured slower (PERF.md).
+//   for two blocks an SM) cannot hold the 64-register accumulator.
 // - The epilogue runs on the accumulator registers in their own layout
 //   (hopper.cuh): a thread owns two rows, so (b, s) = (r / S, r % S) and the
 //   row part of the dropout hash are formed once per row, not per element;
@@ -40,10 +38,19 @@
 // - Block order: the N tiles of one 128-row strip are neighbours in launch
 //   order, so a strip of A is read from device memory once and the weights
 //   stay in L2.
-// What still bounds it: a 128 x 128 tile reads 32 KB per 64-deep step, 64
-// bytes a clock at the tensor cores' full rate, which is all an SM's port to
-// L2 delivers; wider tiles or a cluster that shares the weight tile are later
-// work.
+// What still bounds it (PERF.md has the numbers): a tile costs about 2.7 us
+// beside its K steps, mostly the epilogue, which the second block covers
+// only in part, and the K steps run at ~60% of the tensor cores' rate: at
+// m64n128k16 with both operands in shared memory, the operand reads (96
+// bytes a clock at full rate) and TMA's writes (64) exceed the 128 bytes a
+// clock that shared memory moves. Tried on the card and dropped, each slower
+// or no faster at K = 768: one block an SM with a producer warpgroup (no
+// overlap); one persistent block an SM whose two warpgroups alternate whole
+// tiles (128 accumulators spill); persistent blocks of this shape that
+// stream their tiles' K steps through one ring; a cluster of two blocks
+// sharing the A boxes by TMA multicast (the blocks wait on each other's
+// stages). Wider wgmma tiles (n = 256) and an epilogue staged through shared
+// memory with TMA stores are later work.
 
 #include <time.h>
 
@@ -77,7 +84,7 @@ struct GemmMaps {
 };
 
 struct GemmArgs {
-  int M, N, K, group_n;
+  int M, K, group_n;
   const void *bias0, *bias1, *bias2;
   Epilogue ep;
 };
@@ -86,12 +93,7 @@ __device__ __forceinline__ float2 bf16_pair(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// CL = 2: the two blocks of a cluster own neighbouring N tiles of one 128-row
-// strip. Each copies half of the strip's A box into both blocks' rings
-// (TMA multicast) and its own W box, so a block reads 24 KB a step from L2
-// instead of 32. A stage may be refilled once the warps of BOTH blocks have
-// released it, since the refill writes into the peer's ring too.
-template <int BN, int CL>
+template <int BN>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     gemm_wgmma_kernel(const __grid_constant__ GemmMaps maps, const GemmArgs g) {
   using P = Plan<BN>;
@@ -104,36 +106,24 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   const int group = n0 / g.group_n, nl0 = n0 - group * g.group_n;  // this tile's weight, its row
   const CUtensorMap* mw = group == 0 ? &maps.w0 : group == 1 ? &maps.w1 : &maps.w2;
   const int nk = g.K / kBK;
-  const uint32_t rank = CL > 1 ? hp::cluster_ctarank() : 0;
 
   // thread 0: K step kt's boxes into its stage
   auto load_step = [&](int kt) {
     const int s = kt % kStages;
     const uint32_t dst = tiles + s * P::stage_bytes;
     hp::mbar_arrive_expect_tx(full + 8 * s, P::stage_bytes);
-    if constexpr (CL > 1)
-      hp::tma_load_2d_multicast(dst + rank * (kABytes / CL), &maps.a, full + 8 * s, kt * kBK,
-                                m0 + rank * (kBM / CL), (uint16_t)((1 << CL) - 1));
-    else
-      hp::tma_load_2d(dst, &maps.a, full + 8 * s, kt * kBK, m0);
+    hp::tma_load_2d(dst, &maps.a, full + 8 * s, kt * kBK, m0);
     hp::tma_load_2d(dst + kABytes, mw, full + 8 * s, kt * kBK, nl0);
   };
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       hp::mbar_init(full + 8 * s, 1);
-      hp::mbar_init(empty + 8 * s, kWarps * CL);
+      hp::mbar_init(empty + 8 * s, kWarps);
     }
     hp::mbar_fence_init();
-  }
-  if constexpr (CL > 1) {  // the peer's barriers exist before anything is copied into its ring
-    hp::cluster_arrive();
-    hp::cluster_wait();
-  } else {
-    __syncthreads();
-  }
-  if (threadIdx.x == 0)
     for (int kt = 0; kt < kStages && kt < nk; ++kt) load_step(kt);
-  __syncwarp();
+  }
+  __syncthreads();
 
   float acc[BN / 2];
   for (int kt = 0; kt < nk; ++kt) {
@@ -150,10 +140,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     if (kt > 0) {  // the previous step's products are done: its stage is free
       hp::wgmma_wait<1>();
       const int sp = (kt - 1) % kStages;
-      if (lane == 0) {
-        hp::mbar_arrive(empty + 8 * sp);
-        if constexpr (CL > 1) hp::mbar_arrive_cluster(empty + 8 * sp, rank ^ 1);
-      }
+      if (lane == 0) hp::mbar_arrive(empty + 8 * sp);
       if (threadIdx.x == 0 && kt - 1 + kStages < nk) {  // refill it once every warp has let go
         hp::mbar_wait(empty + 8 * sp, ((kt - 1) / kStages) & 1);
         load_step(kt - 1 + kStages);
@@ -163,9 +150,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   }
   hp::wgmma_wait<0>();
   hp::fence_regs(acc);
-  // this block has sent its last arrival to the peer; it may leave once the
-  // peer has too (the epilogue runs between the two halves)
-  if constexpr (CL > 1) hp::cluster_arrive();
 
   const Epilogue& ep = g.ep;
   const int lc = (lane & 3) * 2;
@@ -248,7 +232,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       if (ok1) *reinterpret_cast<uint32_t*>(out + o1 + c) = hp::pack_bf16(v10, v11);
     }
   }
-  if constexpr (CL > 1) hp::cluster_wait();
 }
 
 // A [rows, K] bf16 matrix with row stride ld (elements) as a two-axis map
@@ -271,47 +254,25 @@ int sm_count() {
   return n;
 }
 
-template <int BN, int CL>
+template <int BN>
 int launch(const bf16* A, int lda, const bf16* const* W, int ldw, const void* const* bias,
            int groups, int M, int group_n, int K, const Epilogue& ep, cudaStream_t st) {
   constexpr int bytes = Plan<BN>::bytes;
   static const int allowed = (int)cudaFuncSetAttribute(
-      gemm_wgmma_kernel<BN, CL>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      gemm_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (allowed != 0) return allowed;
   // unused weight slots repeat the first: every map is valid
   const int i1 = groups > 1 ? 1 : 0, i2 = groups > 2 ? 2 : 0;
-  const int N = groups * group_n;
   GemmMaps maps;
-  const GemmArgs g{M, N, K, group_n, bias[0], bias[i1], bias[i2], ep};
-  if (int e = make_k_major_map(&maps.a, A, M, K, lda, kBM / CL)) return e;
+  const GemmArgs g{M, K, group_n, bias[0], bias[i1], bias[i2], ep};
+  if (int e = make_k_major_map(&maps.a, A, M, K, lda, kBM)) return e;
   if (int e = make_k_major_map(&maps.w0, W[0], group_n, K, ldw, BN)) return e;
   if (int e = make_k_major_map(&maps.w1, W[i1], group_n, K, ldw, BN)) return e;
   if (int e = make_k_major_map(&maps.w2, W[i2], group_n, K, ldw, BN)) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(N / BN, (M + kBM - 1) / kBM);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CL;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<BN, CL>, maps, g);
-  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(groups * group_n / BN, (M + kBM - 1) / kBM);
+  gemm_wgmma_kernel<BN><<<grid, kThreads, bytes, st>>>(maps, g);
   SMM_CHECK_LAUNCH();
   return 0;
-}
-
-// Pairs of neighbouring N tiles share their A boxes when the tiles pair up.
-template <int BN>
-int launch_tiles(const bf16* A, int lda, const bf16* const* W, int ldw, const void* const* bias,
-                 int groups, int M, int group_n, int K, const Epilogue& ep, cudaStream_t st) {
-  if (groups * group_n / BN % 2 == 0)
-    return launch<BN, 2>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
-  return launch<BN, 1>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
 }
 
 }  // namespace
@@ -330,8 +291,8 @@ int gemm_wgmma_launch(const bf16* A, int lda, const bf16* const* W, int ldw,
   if (M <= 0) return 0;
   if (groups < 1 || groups > 3) return (int)cudaErrorInvalidValue;
   if (gemm_wgmma_tile_n(M, groups * group_n, group_n) == 128)
-    return launch_tiles<128>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
-  return launch_tiles<64>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
+    return launch<128>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
+  return launch<64>(A, lda, W, ldw, bias, groups, M, group_n, K, ep, st);
 }
 
 int gemm_wgmma_smem(int tile_n) {

@@ -288,52 +288,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// ---------------------------------------------------------------- clusters
-//
-// For a kernel launched with a cluster dimension (cudaLaunchKernelEx,
-// cudaLaunchAttributeClusterDimension): the blocks of a cluster run at the
-// same time and reach each other's shared memory and mbarriers.
-
-__device__ __forceinline__ uint32_t cluster_ctarank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The two halves of a barrier over every thread of every block of the
-// cluster (all must execute both, converged). Between them a block may do
-// work that needs nothing of its peers.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// One arrival on the mbarrier at the same shared address `bar` in block
-// `cta` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
-      "r"(cta)
-      : "memory");
-}
-
-// tma_load_2d into the same shared address of every block whose bit is set
-// in `cta_mask`; the box's bytes are counted on the mbarrier at `bar`'s
-// address in each of them.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                      uint32_t bar, int c0, int c1,
-                                                      uint16_t cta_mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "h"(cta_mask)
-      : "memory");
-}
-
 // ------------------------------------------------------- host: tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -7,7 +7,9 @@ for CUDA tensors, a ``torch.autograd.Function`` whose forward and backward
 launch CUDA kernels (built from ``csrc/`` at first use). The forward
 launches count in the wrapper's ``launches`` attribute, the backward ones
 in the ``launches`` of ``*_bwd`` (``wav_frontend`` has no backward kernel:
-its backward is autograd of its plain version).
+its backward is autograd of its plain version). ``gemm`` holds the GEMM
+with fused epilogues that the two blocks' chains launch, on its own, for
+checks and timings; no model path calls it and it has no counter.
 """
 from . import attention_block, deberta_attention, ffn_block, flash_attention, wav_frontend
 

@@ -518,14 +518,14 @@ def test_cuda_gemm_matches_plain_at_ragged_shapes(cuda):
                                atol=3e-2, rtol=3e-2)
 
 
-@pytest.mark.parametrize("E,H,Fd", [(128, 2, 256), (768, 12, 3072), (192, 2, 256),
-                                    (256, 2, 512), (96, 3, 160)])
+@pytest.mark.parametrize("E,H,Fd", [(128, 2, 256), (768, 12, 3072), (256, 2, 512),
+                                    (96, 3, 160)])
 def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
     """attention_block and ffn_block in bf16 with hash dropout: two runs on
     the same inputs and seed give the same bits, and another seed does not
     (widths 128 and 768: the wgmma GEMM and the wgmma core at head width 64;
-    192 and 256: the same at head widths 96 and 128; width 96: the WMMA
-    kernels). Against the plain version at 3e-2."""
+    256: the same at head width 128; width 96: the WMMA kernels). Against
+    the plain version at 3e-2."""
     g = torch.Generator(device=cuda).manual_seed(2)
     bf16 = torch.bfloat16
 
