@@ -17,7 +17,13 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
    kernel, plain;
 3. the same sites with hash dropout at rate 0.1 (fixed seed), forward
    and backward (and, first, the kept positions of both blocks' dropouts
-   read off outputs built to show them, equal to ``dropout.py``'s masks): the output and every input gradient of each kernel's
+   read off outputs built to show them, and of the masks that the backwards
+   of attention_block and deberta_attention replay, read off gradients built
+   the same way, equal to ``dropout.py``'s masks); the backwards of
+   attention_block and deberta_attention in bf16 also without dropout, each
+   with the body its backward takes printed and asserted (the wgmma kernels
+   in bf16 at head width 64, ``attention_bwd.cuh`` otherwise) and two runs
+   bit-equal: the output and every input gradient of each kernel's
    autograd.Function against torch.autograd of the plain version on the
    same inputs and seed, in f32 (atol=rtol=1e-3) and bf16 (max error
    <= 5e-2 * max|want| per tensor; the key-bias gradient of
@@ -62,7 +68,8 @@ Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
 and prints ptxas' registers and spill bytes and the dynamic shared memory of
 every wgmma kernel (the flash-attention kernels, the attention core's
-dropout variant, the GEMM's two tile shapes); a spill or a serialized-wgmma
+dropout variants forward and backward, deberta_attention's backward pair,
+the GEMM's two tile shapes); a spill or a serialized-wgmma
 warning there fails the run. It prints what encoding one TMA tensor map
 costs on the host (the wgmma chains build theirs per call).
 
@@ -94,7 +101,10 @@ yardstick the port never calls.
 ``python3 chip_smoke.py --profile`` runs none of the checks: after the build
 it prints, for the 10 s and the 20 s model, ``torch.profiler``'s device time
 by kernel over two B=8 forwards and two B=8 train steps, with the device's
-busy share of the wall time.
+busy share of the wall time. ``python3 chip_smoke.py --timings [--tree DIR]``
+prints only medians (the two redesigned backwards' forward+backward, the B=8
+forward, the B=8 train step), importing the package from DIR when given: the
+way to time a parent commit and a change in turns on one card, one after the other.
 
 Prints a JSON line with every kernel's launches, error, times and bound
 (the larger of its operations over 989 TFLOP/s and its bytes over
@@ -145,6 +155,17 @@ SOURCES["ffn_block"] = ("simple_multimodal_tpu_torch/csrc/ffn_block.cu on "
 SOURCES["flash_attention_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dq_wgmma.cu and "
     "simple_multimodal_tpu_torch/csrc/flash_attention_bwd_dkv_wgmma.cu")
+# bf16 at head width 64: the re-run on the wgmma forward core, dq and dk/dv on the wgmma pair
+SOURCES["attention_block_bwd"] = (
+    "simple_multimodal_tpu_torch/csrc/attention_block_bwd.cu on "
+    "simple_multimodal_tpu_torch/csrc/gemm_wgmma.cu, "
+    "simple_multimodal_tpu_torch/csrc/attention_core_wgmma.cu and "
+    "simple_multimodal_tpu_torch/csrc/attention_core_bwd_wgmma.cu")
+SOURCES["deberta_attention_bwd"] = (
+    "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd.cu on "
+    "simple_multimodal_tpu_torch/csrc/deberta_attention_fwd_wgmma.cu, "
+    "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd_dq_wgmma.cu and "
+    "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd_dkv_wgmma.cu")
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 # one B=8 forward (serve) and one B=8 train step, at 10 s and at 20 s of audio
 FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12}
@@ -745,68 +766,112 @@ def phase_backward(dev) -> dict:
                 wav_checked = True
             continue
 
-        def call(fn, args, n_in=n_in, kw_fn=kw_fn, name=name):
-            lnargs = list(args[n_in:]) + [None] * (2 - len(args[n_in:]))
-            return fn(*args[:n_in], **kw_fn(None, *lnargs), **drop[name])
-
         if kw_fn(None, 1, 1).get("ln") is None:
             lnp = []  # the site has no LayerNorm: its params take no gradient
         names = _arg_names(name, n_in + len(lnp))
+        redesigned = name in ("attention_block", "deberta_attention")
         for dtype in (torch.bfloat16, torch.float32):
-            args = [t.to(dtype).requires_grad_() for t in inputs + lnp]
-            args32 = [t.detach().float().requires_grad_() for t in args]
-            gy = torch.randn(inputs[0].shape, generator=gen, device=dev).to(dtype)
-            out = call(kern, args)
-            got = [out.detach()] + list(torch.autograd.grad(out, args, gy))
-            out32 = call(plain, args32)
-            want = [out32.detach()] + list(torch.autograd.grad(out32, args32, gy.float()))
-            del out, out32
-            sync()
-            ok, max_err, worst = _grad_errors(got, want, dtype, names)
-            del got, want
+            # the two redesigned backwards in bf16: with the dropout and without
+            rates = (DROP_RATE, 0.0) if redesigned and dtype == torch.bfloat16 else (
+                DROP_RATE if drop[name] else 0.0,)
+            for rate in rates:
+                drop_kw = drop[name] if rate else {}
 
-            def fwd_bwd(fn, xs=args):
-                o = fn(xs)
-                torch.autograd.grad(o, xs, gy)
+                def call(fn, args, n_in=n_in, kw_fn=kw_fn, drop_kw=drop_kw):
+                    lnargs = list(args[n_in:]) + [None] * (2 - len(args[n_in:]))
+                    return fn(*args[:n_in], **kw_fn(None, *lnargs), **drop_kw)
 
-            t_p1 = time_ms(lambda: fwd_bwd(lambda xs: call(plain, xs)), 3)
-            t_k1 = time_ms(lambda: fwd_bwd(lambda xs: call(kern, xs)), 3)
-            t_k2 = time_ms(lambda: fwd_bwd(lambda xs: call(kern, xs)), 3)
-            t_p2 = time_ms(lambda: fwd_bwd(lambda xs: call(plain, xs)), 3)
-            ms, plain_ms = median(t_k1 + t_k2), median(t_p1 + t_p2)
-            sync()
-            rate = DROP_RATE if drop[name] else 0.0
-            log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={rate} "
-                f"max_abs_err={max_err:.3e} worst_rel={worst:.3e} ok={ok} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
-                + _rate(name, args, ms, None, backward=True))
-            if not ok:
-                raise AssertionError(f"{name} {label} {dtype}: the backward disagrees with "
-                                     f"autograd of the plain version (max abs err "
-                                     f"{max_err:.3e}, worst relative {worst:.3e})")
-            r = results.setdefault(name + "_bwd", {"max_abs_err": 0.0})
-            r["max_abs_err"] = max(r["max_abs_err"], max_err)
-            if "ms" not in r:
-                with torch.no_grad():
-                    out_like = call(kern, args)
-                r.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                         **bound(name, args, out_like, backward=True))
-                if name in LIBRARY:
-                    r["library_ms"] = median(time_ms(
-                        lambda: fwd_bwd(lambda xs: LIBRARY[name](*xs)), 6))
-                log(f"        {name}_bwd: fwd+bwd bound {r['bound_ms']:.4f} ms by "
-                    f"{r['bound_by']}, library_ms={r['library_ms']}")
-                if name in LIBRARY:
-                    for who, fn in (("kernel", lambda xs: call(kern, xs)),
-                                    ("library", lambda xs: LIBRARY[name](*xs))):
-                        _log_device_times(f"{name} {label} fwd+bwd, {who}",
-                                          lambda fn=fn: fwd_bwd(fn))
-                del out_like
-            del args, args32
-            torch.cuda.empty_cache()
+                args = [t.to(dtype).requires_grad_() for t in inputs + lnp]
+                args32 = [t.detach().float().requires_grad_() for t in args]
+                gy = torch.randn(inputs[0].shape, generator=gen, device=dev).to(dtype)
+                out = call(kern, args)
+                got = [out.detach()] + list(torch.autograd.grad(out, args, gy))
+                out32 = call(plain, args32)
+                want = [out32.detach()] + list(torch.autograd.grad(out32, args32, gy.float()))
+                del out, out32
+                sync()
+                ok, max_err, worst = _grad_errors(got, want, dtype, names)
+                extra = ""
+                if redesigned:
+                    # no output is summed with atomics: a second run gives the same bits
+                    out = call(kern, args)
+                    again = [out.detach()] + list(torch.autograd.grad(out, args, gy))
+                    sync()
+                    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+                    route = _backward_route(name, args, kw_fn, dtype)
+                    extra = f" bit_equal={same} bwd_route={'wgmma' if route else 'wmma/f32'}"
+                    ok = ok and same
+                    del out, again
+                del got, want
+
+                def fwd_bwd(fn, xs=args):
+                    o = fn(xs)
+                    torch.autograd.grad(o, xs, gy)
+
+                t_p1 = time_ms(lambda: fwd_bwd(lambda xs: call(plain, xs)), 3)
+                t_k1 = time_ms(lambda: fwd_bwd(lambda xs: call(kern, xs)), 3)
+                t_k2 = time_ms(lambda: fwd_bwd(lambda xs: call(kern, xs)), 3)
+                t_p2 = time_ms(lambda: fwd_bwd(lambda xs: call(plain, xs)), 3)
+                ms, plain_ms = median(t_k1 + t_k2), median(t_p1 + t_p2)
+                sync()
+                log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={rate} "
+                    f"max_abs_err={max_err:.3e} worst_rel={worst:.3e} ok={ok} "
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}"
+                    + _rate(name, args, ms, None, backward=True))
+                if not ok:
+                    raise AssertionError(f"{name} {label} {dtype} rate={rate}: the backward "
+                                         f"disagrees with autograd of the plain version (max abs "
+                                         f"err {max_err:.3e}, worst relative {worst:.3e}) or two "
+                                         f"runs differ ({extra})")
+                r = results.setdefault(name + "_bwd", {"max_abs_err": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], max_err)
+                if "ms" not in r:
+                    with torch.no_grad():
+                        out_like = call(kern, args)
+                    r.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             **bound(name, args, out_like, backward=True))
+                    if name in LIBRARY:
+                        r["library_ms"] = median(time_ms(
+                            lambda: fwd_bwd(lambda xs: LIBRARY[name](*xs)), 6))
+                    log(f"        {name}_bwd: fwd+bwd bound {r['bound_ms']:.4f} ms by "
+                        f"{r['bound_by']}, library_ms={r['library_ms']}")
+                    if name in LIBRARY:
+                        for who, fn in (("kernel", lambda xs: call(kern, xs)),
+                                        ("library", lambda xs: LIBRARY[name](*xs))):
+                            _log_device_times(f"{name} {label} fwd+bwd, {who}",
+                                              lambda fn=fn: fwd_bwd(fn))
+                    elif redesigned:
+                        _log_device_times(f"{name} {label} fwd+bwd",
+                                          lambda: fwd_bwd(lambda xs: call(kern, xs)), top=8)
+                    del out_like
+                del args, args32
+                torch.cuda.empty_cache()
     _check_flash_backward_is_deterministic(dev, gen)
     log(f"fwd+bwd times above: CUDA-event medians on {smi_line()}")
     return results
+
+
+def _backward_route(name, args, kw_fn, dtype) -> int:
+    """Which body the backward of this attention_block or deberta_attention
+    case takes, as the library reports it (1: the wgmma kernels, 0:
+    ``attention_bwd.cuh``), held against the Python statement of the same
+    rule and against what the case must take: wgmma in bf16 at head widths
+    64 (and 128 for attention_block), the old bodies in f32 and elsewhere."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_bwd_route
+
+    if name == "attention_block":
+        D, rel = args[0].shape[-1] // kw_fn(None, None, None).get("num_heads", 12), False
+    else:
+        D, rel = args[0].shape[-1], True
+    route = _build.library().smm_attention_bwd_route(int(dtype == torch.bfloat16), D, int(rel))
+    want = int(dtype == torch.bfloat16 and (D == 64 or (D == 128 and not rel)))
+    if route != want or attention_bwd_route(dtype, D, rel) != want:
+        raise AssertionError(f"{name} backward at head width {D} in {dtype}: route {route}, "
+                             f"expected {want}")
+    return route
 
 
 def _check_dropout_positions(dev):
@@ -817,10 +882,14 @@ def _check_dropout_positions(dev):
     intermediate; the output itself for its output dropout), so an output is
     zero exactly where the kernel dropped. Compared for equality with
     ``dropout.attention_keep`` / ``ffn_keep`` over every position, at S = 499
-    and 197 (ragged in every tile size), in bf16 (wgmma) and f32."""
+    and 197 (ragged in every tile size), in bf16 (wgmma) and f32. The
+    backwards of attention_block and deberta_attention replay the mask: a
+    cotangent that is one-hot over 64 queries makes a gradient (dx through
+    identity projections; dv) show the dropped probabilities the same way."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_block
+    from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import deberta_attention
     from simple_multimodal_tpu_torch.ops.hopper.dropout import (
         SALT_MID, SALT_OUT, attention_keep, ffn_keep)
     from simple_multimodal_tpu_torch.ops.hopper.ffn_block import ffn_block
@@ -867,6 +936,43 @@ def _check_dropout_positions(dev):
                     raise AssertionError("attention_block: weight on keys past the end")
                 got[..., k0:k0 + n] = shown[..., :n]
             same(f"attention_block [{rows},{S},{E}] {name}", got, keep)
+            # the backward replays the mask: zero q and k projections (uniform
+            # p), identity value and out projections and a cotangent that is
+            # one-hot over 64 queries give dx[b, k, h, d] = p~[b, h, q0 + d, k]
+            got = torch.zeros_like(keep)
+            none, eye = torch.zeros(E, E, device=dev), torch.eye(E, device=dev)
+            ws = [none, rn(E, std=0.1), none, rn(E, std=0.1), eye, zeros, eye, zeros]
+            x = rn(rows, S, E).to(dtype).requires_grad_()
+            for q0 in range(0, S, D):
+                n = min(D, S - q0)
+                gy = torch.zeros(rows, S, H, D, device=dev)
+                gy[:, q0:q0 + n] = torch.eye(D, device=dev)[:n, None, :]
+                out = attention_block(x, *[w.to(dtype) for w in ws], num_heads=H,
+                                      dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+                (dx,) = torch.autograd.grad(out, [x], gy.reshape(rows, S, E).to(dtype))
+                sync()
+                shown = dx.reshape(rows, S, H, D).permute(0, 2, 3, 1) != 0  # [b, h, d, k]
+                if bool(shown[:, :, n:].any()):
+                    raise AssertionError("attention_block backward: weight on queries past the end")
+                got[:, :, q0:q0 + n] = shown[:, :, :n]
+            same(f"attention_block backward [{rows},{S},{E}] {name}", got, keep)
+        # deberta_attention's backward: dv[b, k, h, d] = p~[b, h, q0 + d, k] for the
+        # same one-hot cotangent (small scores: no probability underflows)
+        rows, S, span = 2, 512, 256
+        keep = attention_keep(DROP_SEED, rows, H, S, S, DROP_RATE, device=dev)
+        got = torch.zeros_like(keep)
+        q, k = rn(rows, S, H, D, std=0.1).to(dtype), rn(rows, S, H, D, std=0.1).to(dtype)
+        v = rn(rows, S, H, D).to(dtype).requires_grad_()
+        pk, pq = rn(2 * span, E, std=0.1).to(dtype), rn(2 * span, E, std=0.1).to(dtype)
+        for q0 in range(0, S, D):
+            gy = torch.zeros(rows, S, H, D, device=dev)
+            gy[:, q0:q0 + D] = torch.eye(D, device=dev)[:, None, :]
+            out = deberta_attention(q, k, v, pk, pq, None, span=span, max_position=512,
+                                    dropout_rate=DROP_RATE, dropout_seed=DROP_SEED)
+            (dv,) = torch.autograd.grad(out, [v], gy.to(dtype))
+            sync()
+            got[:, :, q0:q0 + D] = dv.permute(0, 2, 3, 1) != 0  # [b, h, d, k]
+        same(f"deberta_attention backward [{rows},{S},{H},{D}] {name}", got, keep)
         rows, S = B, 499
         x = rn(rows, S, E, std=0.3)  # small pre-activations: no GELU underflows to 0
         w1, b1, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(E, std=0.1)
@@ -1114,7 +1220,7 @@ def phase_full_width_train_f32(demo):
         raise AssertionError(f"f32 train step: gradient {worst_name} off by {worst:.3e} "
                              "of its max magnitude")
 
-def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 14):
+def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
     """Device time by kernel (self time of the device-side rows), per
     repetition, and the device's busy share of the wall time."""
     import torch
@@ -1180,7 +1286,75 @@ def phase_profile(dev, tmp: str):
         torch.cuda.empty_cache()
 
 
-def phase_device_and_build():
+def phase_timings(dev, tmp: str, steps: int = 8):
+    """``--timings``: no checks, only the times a parent/change comparison
+    needs, each a median: forward+backward of attention_block and
+    deberta_attention at the main path's shapes (bf16, dropout 0.1, CUDA
+    events, 10 calls), the B=8 forward (host clock, 10 calls) and the B=8
+    train step (``steps`` steps, the first left out). With ``--tree DIR``
+    the package is imported from DIR (an unpacked other commit), so two
+    trees can be timed in turns by the same script on one card."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases, fns = _kernel_cases(dev, gen)
+    out = {}
+    for name, label, kw_fn, inputs, lnp in cases:
+        if name not in ("attention_block", "deberta_attention") or "WMMA path" in label:
+            continue
+        if kw_fn(None, 1, 1).get("ln") is None:
+            lnp = []
+        n_in = len(inputs)
+        args = [t.to(torch.bfloat16).requires_grad_() for t in inputs + lnp]
+        gy = torch.randn(inputs[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+
+        def fwd_bwd(args=args, n_in=n_in, kw_fn=kw_fn, name=name, gy=gy):
+            lnargs = list(args[n_in:]) + [None] * (2 - len(args[n_in:]))
+            o = fns[name][0](*args[:n_in], **kw_fn(None, *lnargs), dropout_rate=DROP_RATE,
+                             dropout_seed=DROP_SEED)
+            torch.autograd.grad(o, args, gy)
+
+        out[f"{name} {label.split(' span')[0]} fwd+bwd ms"] = median(time_ms(fwd_bwd, 10))
+        del args, gy
+        torch.cuda.empty_cache()
+    cfg = _base_config(tmp)
+    model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batch = _train_batch(np.random.default_rng(4), cfg, dev)
+    inputs = (batch["text"], batch["audio"], batch["video"])
+    times = []
+    with torch.inference_mode():
+        model(*inputs)  # warm-up
+        sync()
+        for _ in range(10):
+            t0 = time.perf_counter()
+            model(*inputs)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+    out["B=8 forward ms"] = median(times)
+    step = make_train_step(model, make_optimizer(cfg, model, total_steps=100), cfg,
+                           augment=True, compute_contrastive_loss=True)
+    state, times = TrainState.create(0), []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["B=8 train step ms"] = median(times[1:])
+    out["train steps ms"] = [round(t, 1) for t in times]
+    log("timings " + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                                 for k, v in out.items()}) + f" on {smi_line()}")
+
+
+def phase_device_and_build(report: bool = True):
+    """Phase 1. ``report=False`` (another tree's package, ``--tree``) leaves
+    out the list of wgmma kernels, which is this tree's."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
@@ -1197,7 +1371,8 @@ def phase_device_and_build():
     for line in _build.build_info.get("log", "").splitlines():
         if "registers" in line or "error" in line or "spill" in line:
             log("  ptxas:", line.strip())
-    _report_wgmma_kernels(_build)
+    if report:
+        _report_wgmma_kernels(_build)
     from simple_multimodal_tpu_torch.ops.hopper.selftest import hopper_selftest
 
     log(f"hopper.cuh self-test (exact): {sorted(hopper_selftest(torch.device('cuda', 0)))} ok")
@@ -1210,9 +1385,14 @@ WGMMA_KERNELS = {
     # <D, bias, dropout>: six of flash_attention, two of attention_block's core
     "flash_fwd_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(
         3 if flags.endswith("1") else 0, n)),
-    "flash_bwd_dq_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_flash_wgmma_smem(1, n)),
-    "flash_bwd_dkv_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_flash_wgmma_smem(2, n)),
+    # <D, bias, dropout>: six of flash_attention, two of attention_block's backward core
+    "flash_bwd_dq_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(1, n)),
+    "flash_bwd_dkv_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(2, n)),
     "gemm_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_gemm_wgmma_smem(n)),
+    # <dropout>: deberta_attention's backward: the re-run forward and the pair
+    "deberta_fwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(2)),
+    "deberta_bwd_dq_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(0)),
+    "deberta_bwd_dkv_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(1)),
 }
 
 
@@ -1232,16 +1412,18 @@ def _report_wgmma_kernels(_build):
     found = dict.fromkeys(WGMMA_KERNELS, 0)
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*?(" + "|".join(WGMMA_KERNELS)
-                      + r")ILi(\d+)E((?:L[bi]\d+E)*)", line)
+                      + r")I((?:L[bi]\d+E)+)", line)
         if not m:
             continue
-        kernel, n = m.group(1), int(m.group(2))
-        flags = "".join(re.findall(r"L[bi](\d+)", m.group(3)))
+        # the template arguments: a leading integer (head width, tile width), then flags
+        kernel, targs = m.group(1), re.findall(r"L([bi])(\d+)E", m.group(2))
+        n = int(targs[0][1]) if targs[0][0] == "i" else 0
+        flags = "".join(v for _, v in (targs[1:] if targs[0][0] == "i" else targs))
         block = " ".join(x.strip() for x in lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", block)
         spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
         smem = WGMMA_KERNELS[kernel][1](lib, n, flags)
-        log(f"wgmma kernel {kernel}<{n}{', ' + flags if flags else ''}>: "
+        log(f"wgmma kernel {kernel}<{n or ''}{', ' if n and flags else ''}{flags}>: "
             f"{regs.group(1) if regs else '?'} registers, spill bytes {spill}, "
             f"dynamic shared memory {smem} bytes")
         found[kernel] += 1
@@ -1349,6 +1531,9 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
         return 2
+    argv = sys.argv[1:]
+    if "--tree" in argv:  # time another checkout's package with this script (--timings)
+        sys.path.insert(0, os.path.abspath(argv[argv.index("--tree") + 1]))
     try:
         import simple_multimodal_tpu_torch  # noqa: F401
     except ImportError:
@@ -1359,10 +1544,10 @@ def main() -> int:
     try:
         dev = torch.device("cuda", 0)
         t_start = time.perf_counter()
-        phase_device_and_build()
-        if "--profile" in sys.argv[1:]:
+        phase_device_and_build(report="--tree" not in argv)
+        if "--profile" in argv or "--timings" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-                phase_profile(dev, tmp)
+                (phase_profile if "--profile" in argv else phase_timings)(dev, tmp)
             return 0
         phase_gemm(dev)
         kern = phase_kernels(dev)

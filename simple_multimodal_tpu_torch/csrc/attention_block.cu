@@ -27,8 +27,8 @@
 // - step 4 is the same GEMM with bias + residual on its accumulators.
 // f32, other head widths (the tiny preset) and shapes the wgmma GEMM does not
 // take run gemm.cuh's WMMA/FMA kernels and attention.cuh's core: chosen by
-// type and shape before anything is launched. The backward's re-run of the
-// core keeps attention.cuh (it needs the row statistics and delta); the
+// type and shape before anything is launched. The backward re-runs the same
+// core with the row statistics asked for (attention_block_bwd.cu); the
 // dropout mask is a pure function of (seed, b, h, q, k), so the two agree.
 // The q|k|v buffer and the context round-trip device memory once each.
 

@@ -12,14 +12,25 @@
 // and then over blocks in a fixed order). The four weight gradients are
 // plain matmuls outside, as in the JAX `_block_bwd`.
 //
-// What bounds it here: the five GEMMs (three projections, da, dxn) run on
-// the tensor cores through gemm.cuh; the attention backward runs f32 FMA
-// loops from shared memory (see attention_bwd.cuh) and is the slower part
-// at the ViT and wav2vec2 shapes. The TPU's VMEM budget gate (`_bwd_viable`,
-// which sends wav2vec2's S = 499 to an XLA fallback) is a Mosaic limit:
-// here the kernel serves every S.
+// What bounds it on this card: operations (the five GEMMs, 3 projections +
+// da + dxn = 16 rows E^2 FLOP, and the core's nine S S D products per
+// head). What the design does about it, in bf16 at head widths 64 and 128
+// (`attention_bwd_wgmma_takes`, attention_bwd.cuh): the GEMMs are the
+// wgmma/TMA GEMM (gemm_wgmma.cu); the re-run of the forward core is the
+// wgmma forward kernel itself (attention_core_wgmma.cu), asked for the row
+// maximum and sum beside the context; delta = rowsum(da . ctx) per head is
+// flash_attention's small row kernel; dq and dk/dv are the wgmma backward
+// pair with the replayed dropout in the accumulator layout
+// (attention_core_bwd_wgmma.cu), reading q | k | v and da in place and
+// writing dq | dk | dv into the packed buffer the dxn GEMM reads. f32 and
+// the other head widths keep attention.cuh's re-run and attention_bwd.cuh's
+// kernels (WMMA in bf16, exact FMA loops in f32); the body is chosen from
+// type and shape before anything is launched, and no error changes it. The
+// TPU's VMEM budget gate (`_bwd_viable`, which sends wav2vec2's S = 499 to
+// an XLA fallback) is a Mosaic limit: here the kernel serves every S.
 
 #include "attention_bwd.cuh"
+#include "flash_attention.cuh"
 #include "gemm.cuh"
 
 namespace {
@@ -48,34 +59,63 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
     Epilogue ep{nullptr, nullptr, 0, da, E, ACT_NONE, 0};
     if (int e = launch_gemm((const T*)gy, E, (const T*)wo, E, M, E, E, ep, st)) return e;
   }
-  AttnArgs at{};
-  at.q = qkv;
-  at.k = (const T*)qkv + E;
-  at.v = (const T*)qkv + 2 * E;
-  at.ldq = at.ldk = at.ldv = 3 * E;
-  at.out = a;
-  at.ldo = E;
-  at.S = S;
-  at.H = H;
-  at.scale = 1.0f / sqrtf((float)D);
-  at.drop = drop;
-  at.m_out = stats;
-  at.l_out = stats + BHS;
-  at.delta = stats + 2 * BHS;
-  at.dout = da;
-  at.lddo = E;
-  if (int e = launch_attention<T, false>(at, B, D, st)) return e;
-  AttnBwdArgs bw{};
-  bw.f = at;
-  bw.dout = da;
-  bw.m = stats;
-  bw.l = stats + BHS;
-  bw.delta = stats + 2 * BHS;
-  bw.dq = dqkv;
-  bw.dk = (T*)dqkv + E;
-  bw.dv = (T*)dqkv + 2 * E;
-  bw.lddq = bw.lddk = bw.lddv = 3 * E;
-  if (int e = launch_attention_bwd<T, false>(bw, B, D, st)) return e;
+  const float scale = 1.0f / sqrtf((float)D);
+  float* m = stats;
+  float* l = stats + BHS;
+  float* delta = stats + 2 * BHS;
+  if (attention_bwd_wgmma_takes(sizeof(T) == 2, D, false)) {
+    // q, k, v and dq, dk, dv as [B, S, H, D] views of the packed buffers
+    // (token stride 3E), the context and da with token stride E
+    const RowStrides packed{(long long)S * 3 * E, 3 * E}, rows{(long long)S * E, E};
+    const FlashArgs fa{qkv, (const T*)qkv + E, (const T*)qkv + 2 * E, packed, packed, packed,
+                       nullptr, 0, 0, 0, 0, S, S, H, scale};
+    const FlashOut fo{a, rows, m, l};
+    if (int e = attention_core_wgmma_launch(fa, fo, drop, B, D, st)) return e;
+    FlashBwdArgs bw{};
+    bw.f = fa;
+    bw.out = a;
+    bw.dout = da;
+    bw.so = bw.sdo = rows;
+    bw.m = m;
+    bw.l = l;
+    bw.delta = delta;
+    bw.dq = dqkv;
+    bw.dk = (T*)dqkv + E;
+    bw.dv = (T*)dqkv + 2 * E;
+    bw.sdq = bw.sdk = bw.sddv = packed;
+    flash_delta_kernel<T><<<(B * S * H + 3) / 4, 128, 0, st>>>(bw, B, D);
+    SMM_CHECK_LAUNCH();
+    if (int e = attention_core_bwd_wgmma_launch(bw, drop, B, D, st)) return e;
+  } else {
+    AttnArgs at{};
+    at.q = qkv;
+    at.k = (const T*)qkv + E;
+    at.v = (const T*)qkv + 2 * E;
+    at.ldq = at.ldk = at.ldv = 3 * E;
+    at.out = a;
+    at.ldo = E;
+    at.S = S;
+    at.H = H;
+    at.scale = scale;
+    at.drop = drop;
+    at.m_out = m;
+    at.l_out = l;
+    at.delta = delta;
+    at.dout = da;
+    at.lddo = E;
+    if (int e = launch_attention<T, false>(at, B, D, st)) return e;
+    AttnBwdArgs bw{};
+    bw.f = at;
+    bw.dout = da;
+    bw.m = m;
+    bw.l = l;
+    bw.delta = delta;
+    bw.dq = dqkv;
+    bw.dk = (T*)dqkv + E;
+    bw.dv = (T*)dqkv + 2 * E;
+    bw.lddq = bw.lddk = bw.lddv = 3 * E;
+    if (int e = launch_attention_bwd<T, false>(bw, B, D, st)) return e;
+  }
   // dxn = dqkv . [Wq | Wk | Wv]^T over K = 3E
   const T* res = residual ? (const T*)gy : nullptr;
   if (!ln_g) {
@@ -115,4 +155,12 @@ extern "C" int smm_attention_block_bwd(int dtype, const void* x, const void* gy,
                      E, H, drop, xn, qkv, da, a, stats, dqkv, dxn, dx, part, dln, st);
   return run<float>(x, gy, wq, bq, wk, bk, wv, bv, wcat, wo, ln_g, ln_b, ln_eps, residual, B, S,
                     E, H, drop, xn, qkv, da, a, stats, dqkv, dxn, dx, part, dln, st);
+}
+
+// The body the attention backward of a call takes: 1 = the wgmma kernels,
+// 0 = attention_bwd.cuh's (dtype: 0 = f32, 1 = bf16; D the head width; rel:
+// 1 for deberta_attention, 0 for attention_block). The rule the chains
+// apply, for checks.
+extern "C" int smm_attention_bwd_route(int dtype, int D, int rel) {
+  return attention_bwd_wgmma_takes(dtype == 1, D, rel != 0) ? 1 : 0;
 }

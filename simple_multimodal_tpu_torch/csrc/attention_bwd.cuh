@@ -59,6 +59,18 @@ struct AttnBwdArgs {
   float* gp;
 };
 
+// Which body the backward of an attention core takes (attention_block's:
+// rel = false; deberta_attention's: rel = true): true = the wgmma kernels
+// (attention_core_bwd_wgmma.cu; deberta_attention_bwd_{dq,dkv}_wgmma.cu),
+// false = this file's. One rule, from the element type and the head width
+// alone: bf16 at D = 64, and at 128 without the position tables. (At these
+// widths a token's row is a multiple of 64 elements, so the tensor maps'
+// 16-byte strides hold; the wrappers see to 16-byte aligned bases.) The
+// bf16 bodies below are therefore not instantiated at those widths.
+constexpr bool attention_bwd_wgmma_takes(bool is_bf16, int D, bool rel) {
+  return is_bf16 && (D == 64 || (D == 128 && !rel));
+}
+
 struct DsPd {
   float ds, pd;
 };
@@ -1187,12 +1199,17 @@ static inline int launch_attention_bwd_d(const AttnBwdArgs& a, int B, cudaStream
 // forward; the caller folds gc/gp.
 template <typename T, bool REL>
 static inline int launch_attention_bwd(const AttnBwdArgs& a, int B, int D, cudaStream_t st) {
+  constexpr bool is_bf16 = std::is_same<T, bf16>::value;
   switch (D) {
     case 16: return launch_attention_bwd_d<T, 16, REL>(a, B, st);
     case 32: return launch_attention_bwd_d<T, 32, REL>(a, B, st);
-    case 64: return launch_attention_bwd_d<T, 64, REL>(a, B, st);
-    case 128:
-      if constexpr (REL) return (int)cudaErrorInvalidValue;
+    case 64:
+      if constexpr (attention_bwd_wgmma_takes(is_bf16, 64, REL))
+        return (int)cudaErrorInvalidValue;
+      else return launch_attention_bwd_d<T, 64, REL>(a, B, st);
+    case 128:  // the two staged position tables do not fit next to D = 128
+      if constexpr (REL || attention_bwd_wgmma_takes(is_bf16, 128, REL))
+        return (int)cudaErrorInvalidValue;
       else return launch_attention_bwd_d<T, 128, false>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -17,8 +17,9 @@
 // ops/hopper/dropout.py. Serving runs flash_attention's own instantiation
 // (no dropout compiled in); only the training variant is compiled here,
 // with key tiles of 64 (128 scores a row beside the hash made ptxas spill).
-// The backward's re-run, other head widths, f32 and deberta_attention keep
-// attention.cuh.
+// The backward re-runs this core for the context and, asked through
+// FlashOut.m and .l, each row's maximum and sum (attention_block_bwd.cu).
+// Other head widths, f32 and deberta_attention's forward keep attention.cuh.
 
 #include "flash_attention_fwd_wgmma.cuh"
 

@@ -73,6 +73,11 @@ int flash_bwd_dkv_wgmma_launch(const FlashBwdArgs& a, int B, int D, cudaStream_t
 // is set (attention_core_wgmma.cu); w.m and w.l may be null.
 int attention_core_wgmma_launch(const FlashArgs& a, const FlashOut& w, const Drop& drop, int B,
                                 int D, cudaStream_t st);
+// attention_block's backward core at head widths 64 and 128: the backward
+// pair without a bias, with the replayed hash dropout when drop.seed is set
+// (attention_core_bwd_wgmma.cu); expects m, l and delta already computed.
+int attention_core_bwd_wgmma_launch(const FlashBwdArgs& a, const Drop& drop, int B, int D,
+                                    cudaStream_t st);
 // Dynamic shared memory (bytes) each asks for at head width D (0: no kernel).
 int flash_fwd_wgmma_smem(int D);
 int flash_bwd_dq_wgmma_smem(int D);

@@ -31,7 +31,9 @@ _NOT_PORTED = ("adapters and prompt tuning are not ported yet "
 
 
 def resolve_backbone_configs(config):
-    """Backbone dimension presets from a ModelConfig: 'tiny' or 'base'.
+    """Backbone dimension presets from a ModelConfig: 'tiny', else 'base'
+    (any other name resolves to 'base', as in the JAX package; 'half', the
+    distillation student's scale, is not ported yet and raises).
     ``SMM_WAV_FRONTEND=1`` in the environment turns on wav2vec2's fused
     front end (off by default), the JAX package's own switch."""
     preset = getattr(config, "encoder_preset", "base")
@@ -39,13 +41,13 @@ def resolve_backbone_configs(config):
         text = dataclasses.replace(DebertaConfig.tiny(), vocab_size=128100)
         audio = Wav2Vec2Config.tiny()
         vit = dataclasses.replace(ViTConfig.tiny(), image_size=config.video_frame_size[0])
-    elif preset == "base":
+    elif preset == "half":
+        raise NotImplementedError("encoder preset 'half' is not ported yet (ROADMAP Queue 1, "
+                                  "'The other model families'; the port has 'tiny' and 'base')")
+    else:
         text = DebertaConfig.base()
         audio = Wav2Vec2Config.base()
         vit = dataclasses.replace(ViTConfig.base(), image_size=config.video_frame_size[0])
-    else:
-        raise NotImplementedError(f"encoder preset {preset!r} is not ported yet "
-                                  "(the port has 'tiny' and 'base')")
     audio = dataclasses.replace(
         audio, fused_frontend=os.environ.get("SMM_WAV_FRONTEND", "0") == "1")
     return text, audio, vit

@@ -129,11 +129,11 @@ class MultimodalEmotionModel(nn.Module):
         logits = self.classifier(fused, dt, gen)
         output = {
             "emotion_logits": logits,
-            "emotion_probs": torch.softmax(logits.float(), dim=-1).to(dt),
+            # both softmaxes in the compute dtype, as the JAX model's
+            "emotion_probs": torch.softmax(logits, dim=-1),
             "valence": linear(fused, self.valence_regressor, dt),
             "arousal": linear(fused, self.arousal_regressor, dt),
-            "uncertainty": torch.softmax(
-                linear(fused, self.uncertainty_head, dt).float(), dim=-1).to(dt),
+            "uncertainty": torch.softmax(linear(fused, self.uncertainty_head, dt), dim=-1),
             "text_features": text,
             "audio_features": audio,
             "video_features": video,

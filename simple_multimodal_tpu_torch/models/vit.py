@@ -11,8 +11,13 @@ every token) on the plain path, as the JAX model does, and the final LN
 sees only that row.
 
 ViT-base trains with no dropout (hidden and attention rates 0, as in the
-JAX config), so train mode draws nothing here; the rates are passed to the
-kernels all the same.
+JAX config), so train mode draws nothing at the presets. A non-zero
+``attention_dropout`` drops probabilities inside ``attention_block`` (hash
+dropout) and, on the CLS-only layer, from the generator. A non-zero
+``hidden_dropout`` in training takes the residual out of the fused
+attention kernel, as the JAX layer leaves its fusion: the attention output
+is dropped with the generator, then added to the input; the FFN output is
+dropped inside ``ffn_block`` (CLS-only layer: from the generator).
 """
 import dataclasses
 
@@ -77,9 +82,14 @@ class ViTLayer(nn.Module):
         ln1 = (self.layernorm_before.weight.to(dtype),
                self.layernorm_before.bias.to(dtype), cfg.layer_norm_eps)
         rate, seed = kernel_seed(gen, cfg.attention_dropout, self.training, hidden.device)
+        # dropout between the attention output and the residual keeps the
+        # residual out of the kernel
+        drop_attn = self.training and cfg.hidden_dropout > 0.0
         h = attention_block(hidden, *fused_weights(self._attn_layers(), dtype),
-                            num_heads=cfg.num_heads, ln=ln1, residual=True,
+                            num_heads=cfg.num_heads, ln=ln1, residual=not drop_attn,
                             dropout_rate=rate, dropout_seed=seed)
+        if drop_attn:
+            h = hidden + dropout(h, cfg.hidden_dropout, gen, self.training)
         ln2 = (self.layernorm_after.weight.to(dtype),
                self.layernorm_after.bias.to(dtype), cfg.layer_norm_eps)
         w1, b1, w2, b2 = fused_weights((self.intermediate.dense, self.output.dense), dtype)
@@ -87,9 +97,11 @@ class ViTLayer(nn.Module):
         return ffn_block(h, w1, b1, w2, b2, ln=ln2, ln_post=False, residual=True,
                          dropout_rate_out=rate, dropout_seed=seed)
 
-    def forward_cls(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
+    def forward_cls(self, hidden: torch.Tensor, dtype, gen=None) -> torch.Tensor:
         """CLS-only layer: the first query row against every key, on the
-        plain path. Returns [N, 1, E]."""
+        plain path; in training the probabilities drop at
+        ``attention_dropout``, the attention and FFN outputs at
+        ``hidden_dropout`` (masks from ``gen``). Returns [N, 1, E]."""
         cfg = self.cfg
         E, H = cfg.hidden_size, cfg.num_heads
         D = E // H
@@ -101,11 +113,14 @@ class ViTLayer(nn.Module):
         v = linear(x, wv, dtype).reshape(N, S, H, D)
         scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (D ** -0.5)
         probs = torch.softmax(compact_scores(scores, dtype), dim=-1).to(dtype)
+        probs = dropout(probs, cfg.attention_dropout, gen, self.training)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(dtype)
-        h = hidden[:, :1] + linear(ctx.reshape(N, 1, E), wo, dtype)
+        attn = linear(ctx.reshape(N, 1, E), wo, dtype)
+        h = hidden[:, :1] + dropout(attn, cfg.hidden_dropout, gen, self.training)
         y = layer_norm(h, self.layernorm_after, dtype)
         y = gelu(linear(y, self.intermediate.dense, dtype), dtype)
-        return h + linear(y, self.output.dense, dtype)
+        y = linear(y, self.output.dense, dtype)
+        return h + dropout(y, cfg.hidden_dropout, gen, self.training)
 
 
 class ViTModel(nn.Module):
@@ -141,6 +156,6 @@ class ViTModel(nn.Module):
         for layer in layers[:split]:
             x = layer(x, dtype, gen)
         if split < len(layers):
-            x = layers[split].forward_cls(x, dtype)
+            x = layers[split].forward_cls(x, dtype, gen)
         x = layer_norm(x, self.layernorm, dtype)
         return x[:, 0] if cls_only else x

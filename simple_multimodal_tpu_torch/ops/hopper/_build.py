@@ -61,6 +61,12 @@ SIGNATURES = {
     "smm_gemm_route": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I],
     # tile width -> bytes of dynamic shared memory
     "smm_gemm_wgmma_smem": [_I],
+    # dtype, head width, rel (0 attention_block, 1 deberta_attention) ->
+    # 1 (the wgmma backward kernels) or 0 (attention_bwd.cuh)
+    "smm_attention_bwd_route": [_I, _I, _I],
+    # which (0 dq, 1 dk/dv, 2 the re-run forward) -> bytes of dynamic shared memory of
+    # deberta_attention's wgmma backward kernels
+    "smm_deberta_bwd_wgmma_smem": [_I],
     # base, rows, K, repetitions -> host nanoseconds per tensor map
     "smm_tensor_map_ns": [_P, _I, _I, _I],
     # N; a, bt, v, c, o; stream

@@ -8,7 +8,10 @@ the forward (``_kernel`` via ``_fused_call``) and the backward
 ``csrc/attention_block.cu`` (in bf16 at the base widths: the wgmma GEMM of
 ``csrc/gemm_wgmma.cu`` for q|k|v in one launch and for the out-projection,
 the wgmma core of ``csrc/attention_core_wgmma.cu`` between them) and whose
-backward launches the one in ``csrc/attention_block_bwd.cu``; on a CPU tensor it runs
+backward launches the one in ``csrc/attention_block_bwd.cu`` (in bf16 at head
+widths 64 and 128: the same GEMM, the wgmma forward core re-run for the row
+statistics, and the wgmma dq and dk/dv kernels of
+``csrc/attention_core_bwd_wgmma.cu``); on a CPU tensor it runs
 ``attention_block_plain``, the port of that file's ``_xla_reference``, and
 autograd differentiates it. Bounds and design of the CUDA versions are
 noted in the .cu sources.
@@ -148,6 +151,16 @@ class AttentionBlockFn(torch.autograd.Function):
         return (dx.reshape(B, S, E), dW[:, :E], db[:E].to(bq.dtype), dW[:, E:2 * E],
                 db[E:2 * E].to(bk.dtype), dW[:, 2 * E:], db[2 * E:].to(bv.dtype),
                 dwo, dbo, dln_g, dln_b, None, None, None, None, None)
+
+
+def attention_bwd_route(dtype: torch.dtype, head_width: int, rel: bool) -> int:
+    """Which body the backward of an attention core runs, as
+    ``attention_bwd_wgmma_takes`` (``csrc/attention_bwd.cuh``) decides it
+    and ``smm_attention_bwd_route`` reports it: 1 for the wgmma kernels (bf16,
+    head width 64, or 128 without position tables), 0 for the WMMA / f32
+    kernels of ``csrc/attention_bwd.cuh``. ``rel``: deberta_attention's core."""
+    wide = head_width == 64 or (head_width == 128 and not rel)
+    return int(dtype == torch.bfloat16 and wide)
 
 
 def _drop_scale(rate: float) -> float:

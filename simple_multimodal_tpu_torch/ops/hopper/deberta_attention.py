@@ -13,7 +13,12 @@ the forward (``_kernel`` via ``_fused_call``) and the backward
 ``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``
 (one block per (query tile, head, batch) that gathers the position-table
 rows each key tile needs through the host-built index maps below), its
-backward ``csrc/deberta_attention_bwd.cu``. On a CPU tensor it runs
+backward ``csrc/deberta_attention_bwd.cu`` (in bf16 at head width 64: the
+wgmma kernels of ``csrc/deberta_attention_fwd_wgmma.cu``, the re-run, and of
+``csrc/deberta_attention_bwd_dq_wgmma.cu`` and
+``csrc/deberta_attention_bwd_dkv_wgmma.cu``, which form the two
+relative-position terms in the accumulator layout,
+``csrc/deberta_scores_wgmma.cuh``). On a CPU tensor it runs
 ``deberta_attention_plain``, the port of that file's ``_xla_reference`` with
 a gather in place of the TPU's rel-shift skew, and autograd differentiates
 it.
@@ -26,8 +31,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention_block import _drop_scale, _seed_tensor
+from .attention_block import _drop_scale, _seed_tensor, attention_bwd_route
 from .dropout import apply_keep, attention_keep, threshold
+from .gemm import aligned16
 
 NEG_INF = -1e30  # finite fill: an all-masked row attends uniformly
 
@@ -141,13 +147,13 @@ class DebertaAttentionFn(torch.autograd.Function):
         span, max_position, rate = ctx.cfg
         B, S, H, D = q.shape
         dev, f32 = q.device, torch.float32
-        gy = gy.to(q.dtype).contiguous()
+        gy = aligned16(gy.to(q.dtype).contiguous())
         lib = _build.library()
         idx_c, idx_p, ord_c, off_c, ord_p, off_p = _device_maps(S, span, max_position, dev)
         ctx_buf = torch.empty_like(q)
         stats = torch.empty((3, B * H * S), dtype=f32, device=dev)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        g_rel = torch.empty((2, B, H, 2 * S - 1, D), dtype=f32, device=dev)
+        g_rel = torch.empty(rel_scratch_shape(q.dtype, B, S, H, D), dtype=f32, device=dev)
         dpk = torch.empty((2 * span, H * D), dtype=f32, device=dev)
         dpq = torch.empty((2 * span, H * D), dtype=f32, device=dev)
         p = _build.ptr
@@ -161,6 +167,38 @@ class DebertaAttentionFn(torch.autograd.Function):
         deberta_attention_bwd.launches += 1
         return (dq, dk, dv, dpk.to(pk.dtype), dpq.to(pq.dtype), None, None, None,
                 None, None)
+
+
+def rel_scratch_shape(dtype, B: int, S: int, H: int, D: int) -> tuple:
+    """Shape of the backward's f32 scratch for the per-offset table sums:
+    one row per offset and (batch, head) for the kernels of
+    ``csrc/attention_bwd.cuh``; where the wgmma kernels run
+    (``attention_bwd_route``), one partial per 64-row tile, in ``T + 1``
+    blocks of 64 offsets (``T`` tiles along the sequence)."""
+    if attention_bwd_route(dtype, D, True):
+        T = -(-S // 64)
+        return (2, B, H, T, T + 1, 64, D)
+    return (2, B, H, 2 * S - 1, D)
+
+
+def partial_row(r: int, tile: int, tiles: int, by_key: bool):
+    """Where the wgmma backward kernels leave the per-offset sum of offset
+    ``r = q − k`` in the partial of 64-row tile ``tile`` (a query tile for
+    the pos_k cotangent, a key tile with ``by_key`` for pos_q's):
+    (block, row) in its ``tiles + 1`` blocks of 64 offsets, or None where
+    the tile's pairs never reach ``r``. The pair (query tile i, key tile j)
+    covers the offsets 64(i − j) − 63 + u, u < 128; its half that the next
+    streamed pair shares is carried on and written once, complete, as that
+    pair's block (``fold_partials_kernel`` in ``csrc/deberta_attention_bwd.cu``
+    applies the same rule)."""
+    if by_key:
+        w = r + 64 * tile + 63
+        return (w >> 6, w & 63) if 0 <= w < 64 * (tiles + 1) else None
+    w = 64 * tile + 1 - r
+    if w < -63 or w > 64 * tiles:
+        return None
+    blk = (w + 63) >> 6
+    return blk, 64 * blk - w
 
 
 def deberta_attention(q, k, v, pos_k, pos_q,
@@ -190,9 +228,10 @@ def deberta_attention(q, k, v, pos_k, pos_q,
         raise ValueError(f"deberta_attention: head width {D} not in (16, 32, 64)")
     dt = q.dtype
     _build.dtype_code(q)
-    q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
-    pk = pos_k.to(dt).reshape(2 * span, H * D).contiguous()
-    pq = pos_q.to(dt).reshape(2 * span, H * D).contiguous()
+    # 16-byte aligned bases: the wgmma backward reads them through TMA tensor maps
+    q, k, v = (aligned16(t.to(dt).contiguous()) for t in (q, k, v))
+    pk = aligned16(pos_k.to(dt).reshape(2 * span, H * D).contiguous())
+    pq = aligned16(pos_q.to(dt).reshape(2 * span, H * D).contiguous())
     if attention_mask is None:
         mask = torch.ones((B, S), dtype=torch.int32, device=q.device)
     else:

@@ -87,7 +87,7 @@ def make_eval_step(model, compute_loss: bool = True, logits_key: str = "emotion_
         logits = outputs[logits_key]
         result = {
             "logits": logits,
-            "probs": torch.softmax(logits.float(), dim=-1),
+            "probs": torch.softmax(logits, dim=-1),  # in the logits' dtype, as the JAX step
             "predictions": logits.argmax(dim=-1),
             "features": (outputs["text_features"] + outputs["audio_features"]
                          + outputs["video_features"]) / 3.0,

@@ -130,6 +130,38 @@ def _backward_cases(dev, dtype, rate, g):
                                             dropout_rate=rate, dropout_seed=seed)
     cases.append(("deberta_attention", dfn(da.deberta_attention), dfn(da.deberta_attention_plain),
                   [rn(B, S, H, E // H) for _ in range(3)] + [rn(2 * span, E), rn(2 * span, E)]))
+    # the main path's width (E = 768, 12 heads of 64: in bf16 the wgmma backward
+    # kernels) at lengths that are no multiples of the 64-row tiles
+    WE, WH = 768, 12
+    wide = []
+    for _ in range(4):
+        wide += [rn(WE, WE, std=WE ** -0.5), rn(WE, std=0.1)]
+    wlg, wlb = rn(WE, std=0.1) + 1, rn(WE, std=0.1)
+    for WS, use_ln in ((197, True), (499, False)):
+        def fn(impl, ln_on=use_ln):
+            def f(x, *w):
+                ln = (w[8], w[9], 1e-12) if ln_on else None
+                return impl(x, *w[:8], num_heads=WH, ln=ln, residual=ln_on,
+                            dropout_rate=rate, dropout_seed=seed)
+            return f
+        cases.append((f"attention_block S={WS} E=768", fn(ab.attention_block),
+                      fn(ab.attention_block_plain),
+                      [rn(B, WS, WE)] + wide + ([wlg, wlb] if use_ln else [])))
+    # DeBERTa-base's shape: log buckets are reached, the random tables are not
+    # symmetric (a flipped p2c sign shows), one row is padded, one wholly masked
+    LS, wide_span = 512, 256
+    long_mask = torch.ones(B, LS, dtype=torch.int32, device=dev)
+    long_mask[1, 300:] = 0
+    long_mask[2] = 0
+
+    def lfn(impl):
+        return lambda q, k, v, pk, pq: impl(q, k, v, pk, pq, long_mask, span=wide_span,
+                                            max_position=512, dropout_rate=rate,
+                                            dropout_seed=seed)
+    cases.append(("deberta_attention S=512", lfn(da.deberta_attention),
+                  lfn(da.deberta_attention_plain),
+                  [rn(B, LS, WH, 64) for _ in range(3)]
+                  + [rn(2 * wide_span, WE), rn(2 * wide_span, WE)]))
     return cases
 
 
@@ -144,7 +176,16 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
     gradient of attention_block is zero in exact arithmetic (softmax is
     invariant to a per-row shift) and is left as a sum of rounded terms, so
     it is held to tol * max|query-bias gradient|, its sibling over the same
-    rows."""
+    rows. The body each backward takes is the one ``attention_bwd_route``
+    names: wgmma in bf16 at head width 64, ``attention_bwd.cuh`` in f32."""
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+
+    lib = _build.library()
+    for rel in (0, 1):
+        want_route = int(dtype == torch.bfloat16)
+        assert ab.attention_bwd_route(dtype, 64, bool(rel)) == want_route
+        assert lib.smm_attention_bwd_route(_build.dtype_code(torch.empty(0, dtype=dtype)), 64,
+                                           rel) == want_route
     g = torch.Generator(device=cuda).manual_seed(0)
     hopper.reset_launch_counts()
     for name, kern, plain, inputs in _backward_cases(cuda, dtype, rate, g):
@@ -158,9 +199,9 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
             err = float((a.float() - b).abs().max())
             scale = want[3] if name.startswith("attention_block") and i == 5 else b
             assert err <= tol * float(scale.abs().max()), (name, i, err)
-    assert hopper.launch_counts() == _counts(attention_block=2, ffn_block=3,
-                                             deberta_attention=1, attention_block_bwd=2,
-                                             ffn_block_bwd=3, deberta_attention_bwd=1)
+    assert hopper.launch_counts() == _counts(attention_block=4, ffn_block=3,
+                                             deberta_attention=2, attention_block_bwd=4,
+                                             ffn_block_bwd=3, deberta_attention_bwd=2)
 
 
 def test_tiny_slice_on_cuda_matches_cpu(cuda, tmp_path):
@@ -525,7 +566,9 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
     the same inputs and seed give the same bits, and another seed does not
     (widths 128 and 768: the wgmma GEMM and the wgmma core at head width 64;
     256: the same at head width 128; width 96: the WMMA kernels). Against
-    the plain version at 3e-2."""
+    the plain version at 3e-2. The same for the gradients of attention_block
+    and of deberta_attention (dq, dk, dv and both tables' cotangents): no
+    output is summed with atomics."""
     g = torch.Generator(device=cuda).manual_seed(2)
     bf16 = torch.bfloat16
 
@@ -553,6 +596,31 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
         torch.cuda.synchronize()
         assert torch.equal(first, second)
         assert not torch.equal(first, other)
+
+    def attn_grads(seed):
+        ins = [t.detach().clone().requires_grad_() for t in [x] + wb + [ln[0], ln[1]]]
+        out = ab.attention_block(ins[0], *ins[1:9], num_heads=H, ln=(ins[9], ins[10], 1e-6),
+                                 residual=True, dropout_rate=0.1, dropout_seed=seed)
+        return torch.autograd.grad(out, ins, gy)
+
+    D, span = E // H, 64
+    qkv = [rn(B, S, H, D) for _ in range(3)] + [rn(2 * span, E), rn(2 * span, E)]
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[1, 120:] = 0
+    mask[2] = 0
+
+    def deberta_grads(seed):
+        ins = [t.detach().clone().requires_grad_() for t in qkv]
+        out = da.deberta_attention(*ins, mask, span=span, max_position=256, dropout_rate=0.1,
+                                   dropout_seed=seed)
+        return torch.autograd.grad(out, ins, gy.reshape(B, S, H, D))
+
+    gy = rn(B, S, E)
+    for fn in (attn_grads,) + ((deberta_grads,) if D in (16, 32, 64) else ()):
+        first, second, other = fn(11), fn(11), fn(12)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert not all(torch.equal(a, b) for a, b in zip(first, other))
     ln32 = (ln[0].float(), ln[1].float(), 1e-6)
     want = ab.attention_block_plain(x.float(), *[t.float() for t in wb], num_heads=H, ln=ln32,
                                     residual=True, dropout_rate=0.1, dropout_seed=11)

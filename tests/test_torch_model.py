@@ -73,6 +73,36 @@ def test_slice_matches_jax(slice_, missing):
     assert set(got) == set(want)
 
 
+def test_bf16_probabilities_are_softmaxed_in_the_compute_dtype(slice_):
+    """Under bf16 the JAX model softmaxes its logits in bf16; so does the
+    port (``emotion_probs``, ``uncertainty``, the eval step's ``probs``).
+    Port against JAX on converted weights: 3e-2 (bf16 rounding through the
+    whole model), each distribution summing to 1 within 1e-2."""
+    import jax.numpy as jnp
+
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step
+
+    cfg, pcfg, model, params, port, inputs = slice_
+    jmodel = MultimodalEmotionModel(cfg, dtype=jnp.bfloat16)
+    want = jax.jit(jmodel.apply)(params, *inputs)
+    bport = PortModel(pcfg, dtype=torch.bfloat16).eval()
+    bport.load_state_dict(port.state_dict())
+    text, audio, video = _port_inputs(*inputs)
+    with torch.no_grad():
+        got = bport(text, audio, video)
+    for key in ("emotion_probs", "uncertainty"):
+        assert got[key].dtype == torch.bfloat16 and want[key].dtype == jnp.bfloat16
+        g, w = got[key].float().numpy(), np.asarray(want[key].astype(jnp.float32))
+        np.testing.assert_allclose(g, w, atol=3e-2, rtol=0, err_msg=key)
+        np.testing.assert_allclose(g.sum(-1), 1.0, atol=1e-2, err_msg=key)
+    assert torch.equal(got["emotion_probs"], torch.softmax(got["emotion_logits"], dim=-1))
+    step = make_eval_step(bport, compute_loss=False)
+    out = step({"text": text, "audio": audio, "video": video})
+    assert out["probs"].dtype == torch.bfloat16
+    assert torch.equal(out["probs"], torch.softmax(out["logits"], dim=-1))
+    np.testing.assert_allclose(out["probs"].float().numpy().sum(-1), 1.0, atol=1e-2)
+
+
 def test_slice_matches_jax_on_yuv420_video(slice_):
     cfg, pcfg, model, params, port, (text, audio, video) = slice_
     packed = pack_yuv420(video)

@@ -93,6 +93,70 @@ def test_vit_matches_jax(bundle, cls_only):
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("cls_only", [True, False])
+def test_vit_drops_attention_output_and_probabilities_in_training(bundle, monkeypatch, cls_only):
+    """Non-zero ViT rates (the presets keep 0): in training the attention
+    output is dropped before the residual, as the JAX layer does outside its
+    fused kernel, on the full layers and on the CLS-only one."""
+    from simple_multimodal_tpu_torch.models import vit as pvit
+
+    base = bundle.port.video_encoder.vit
+    E = base.cfg.hidden_size
+
+    def build(rate):
+        m = pvit.ViTModel(dataclasses.replace(base.cfg, hidden_dropout=rate,
+                                              attention_dropout=rate))
+        m.load_state_dict(base.state_dict())
+        return m
+
+    frames = torch.from_numpy(np.random.default_rng(3).random((24, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = base(frames, F32, cls_only=cls_only)
+        same = build(0.0).train()(frames, F32, cls_only=cls_only,
+                                  gen=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(_np(same), _np(want))  # rate 0: train mode is eval mode
+
+    calls = []
+    real = pvit.dropout
+
+    def recording(x, rate, gen, training):
+        y = real(x, rate, gen, training)
+        calls.append((tuple(x.shape), float((y == 0).float().mean())))
+        return y
+
+    monkeypatch.setattr(pvit, "dropout", recording)
+    with torch.no_grad():
+        got = build(0.5).train()(frames, F32, cls_only=cls_only,
+                                 gen=torch.Generator().manual_seed(0))
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) > 1e-3
+    # the embeddings, then per full layer the attention output; the CLS-only
+    # layer drops its probabilities, its attention output and its FFN output
+    layers = base.cfg.num_layers
+    assert len(calls) == (1 + (layers - 1) + 3 if cls_only else 1 + layers)
+    hidden = [share for shape, share in calls if shape[-1] == E and len(shape) == 3]
+    assert len(hidden) == (1 + (layers - 1) + 2 if cls_only else 1 + layers)
+    for share in hidden:
+        assert abs(share - 0.5) <= 0.05, calls
+
+
+def test_unknown_encoder_preset_resolves_to_base_and_half_raises():
+    """As the JAX ``resolve_backbone_configs``: any unknown preset name is
+    'base'; 'half' alone is refused until the distillation student lands."""
+    def resolve(preset):
+        return pencoders.resolve_backbone_configs(
+            SimpleNamespace(encoder_preset=preset, video_frame_size=(224, 224)))
+
+    assert resolve("large") == resolve("base")
+    text, audio, vit = resolve("no-such-preset")
+    assert (text.hidden_size, audio.hidden_size, vit.hidden_size) == (768, 768, 768)
+    jt, ja, jv = resolve_backbone_configs(
+        SimpleNamespace(encoder_preset="no-such-preset", video_frame_size=(224, 224)))
+    assert (jt.hidden_size, ja.hidden_size, jv.hidden_size) == (768, 768, 768)
+    with pytest.raises(NotImplementedError, match="half"):
+        resolve("half")
+
+
 def test_deberta_matches_jax_on_valid_rows(bundle):
     want = DebertaModel(bundle.text_cfg).apply(
         {"params": bundle.params["text_encoder"]["model"]}, bundle.ids, bundle.mask)
