@@ -10,7 +10,9 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
    versions, the kernels built from ``csrc/`` (seconds printed);
 2. each Hopper kernel's forward against its plain PyTorch version at the
    main path's shapes (base preset, B=8; attention_block and ffn_block also
-   at a width of 96, which keeps the WMMA GEMM and core), in bf16 (atol=rtol=3e-2: bf16
+   at a width of 96, which keeps the WMMA GEMM and core; deberta_attention
+   also at S = 130 and 522, off its 64-row tiles, with padded and all-masked
+   rows, its body printed and asserted, no statistics stored), in bf16 (atol=rtol=3e-2: bf16
    rounding of q/k/v, probabilities, the FFN intermediate and the output)
    and in f32 (atol=rtol=1e-3: only the summation order differs), with
    CUDA-event medians of kernel and plain, interleaved plain, kernel,
@@ -18,11 +20,17 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
 3. the same sites with hash dropout at rate 0.1 (fixed seed), forward
    and backward (and, first, the kept positions of both blocks' dropouts
    read off outputs built to show them, and of the masks that the backwards
-   of attention_block and deberta_attention replay, read off gradients built
-   the same way, equal to ``dropout.py``'s masks); the backwards of
-   attention_block and deberta_attention in bf16 also without dropout, each
-   with the body its backward takes printed and asserted (the wgmma kernels
-   in bf16 at head width 64, ``attention_bwd.cuh`` otherwise) and two runs
+   of attention_block, ffn_block and deberta_attention replay, read off
+   gradients built the same way, equal to ``dropout.py``'s masks); the
+   backwards of attention_block, ffn_block and deberta_attention in bf16
+   also without dropout, each with the body its backward takes printed and
+   asserted (the wgmma kernels in bf16 at head width 64 or, for ffn_block,
+   E and F in multiples of 64; the older bodies otherwise), DeBERTa's
+   forward body too, its training forward (which keeps the row statistics
+   the backward takes) bit-equal to its eval forward, the first case's
+   device profile showing one two-product kernel and one row LayerNorm
+   backward and no GELU replay per FFN call and one DeBERTa forward kernel
+   (no re-run) per DeBERTa call, and two runs
    bit-equal: the output and every input gradient of each kernel's
    autograd.Function against torch.autograd of the plain version on the
    same inputs and seed, in f32 (atol=rtol=1e-3) and bf16 (max error
@@ -68,8 +76,9 @@ Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
 and prints ptxas' registers and spill bytes and the dynamic shared memory of
 every wgmma kernel (the flash-attention kernels, the attention core's
-dropout variants forward and backward, deberta_attention's backward pair,
-the GEMM's two tile shapes); a spill or a serialized-wgmma
+dropout variants forward and backward, deberta_attention's forward and
+backward pair, the GEMM's and the FFN backward's two tile shapes) and the
+row kernels of the FFN and LayerNorm backwards; a spill or a serialized-wgmma
 warning there fails the run. It prints what encoding one TMA tensor map
 costs on the host (the wgmma chains build theirs per call).
 
@@ -83,6 +92,15 @@ at M in {47280, 3992, 130}, N in {768, 2304, 3072}, K in {768, 3072}
 and equal to ``dropout.ffn_keep``), with the device time of one call inside
 a run of back-to-back calls, the TFLOP/s that is, and ``F.linear`` in bf16
 timed the same way beside it: a yardstick the port never calls.
+
+After the GEMM phase, the FFN backward's two-product kernel alone
+(``smm_ffn_bwd_mm``, ``csrc/ffn_block_bwd_wgmma.cu``) at both tiles, with
+and without dropout, against a plain f32 expression at M in {47280, 3992,
+130} (``ffn_bwd two-product`` lines: h and dh_pre at 3e-2, db1 the fold of
+its partials, dropped positions, two runs bit-equal, device time and
+TFLOP/s), and the LayerNorm backward alone (``smm_ln_bwd``) against autograd
+of ``F.layer_norm`` at [47280,768], [4096,768] and [1001,768] (``ln_bwd``
+lines: errors, device time, byte bound).
 
 Phases 2 and 3 also hold flash_attention (forward, and forward+backward
 with dbias, at [8,999,8,96], at Sq != Sk and at [8,1024,12,64] with a
@@ -102,8 +120,9 @@ yardstick the port never calls.
 it prints, for the 10 s and the 20 s model, ``torch.profiler``'s device time
 by kernel over two B=8 forwards and two B=8 train steps, with the device's
 busy share of the wall time. ``python3 chip_smoke.py --timings [--tree DIR]``
-prints only medians (the two redesigned backwards' forward+backward, the B=8
-forward, the B=8 train step), importing the package from DIR when given: the
+prints only medians (the forward+backward of attention_block, ffn_block and
+deberta_attention, deberta_attention's forward alone, the B=8 forward, the
+B=8 train step), importing the package from DIR when given: the
 way to time a parent commit and a change in turns on one card, one after the other.
 
 Prints a JSON line with every kernel's launches, error, times and bound
@@ -161,6 +180,12 @@ SOURCES["attention_block_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/gemm_wgmma.cu, "
     "simple_multimodal_tpu_torch/csrc/attention_core_wgmma.cu and "
     "simple_multimodal_tpu_torch/csrc/attention_core_bwd_wgmma.cu")
+SOURCES["ffn_block_bwd"] = (
+    "simple_multimodal_tpu_torch/csrc/ffn_block_bwd.cu on "
+    "simple_multimodal_tpu_torch/csrc/ffn_block_bwd_wgmma.cu, "
+    "simple_multimodal_tpu_torch/csrc/gemm_wgmma.cu and simple_multimodal_tpu_torch/csrc/gemm.cuh")
+SOURCES["deberta_attention"] = ("simple_multimodal_tpu_torch/csrc/deberta_attention.cu on "
+                                "simple_multimodal_tpu_torch/csrc/deberta_attention_fwd_wgmma.cu")
 SOURCES["deberta_attention_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd.cu on "
     "simple_multimodal_tpu_torch/csrc/deberta_attention_fwd_wgmma.cu, "
@@ -364,6 +389,16 @@ def _kernel_cases(dev, gen):
                   "DeBERTa [8,512,12,64] span 256, padded + all-masked rows",
                   lambda t, g, b: dict(attention_mask=mask, span=span,
                                        max_position=512), d_in, []))
+    for Sr in (130, 522):  # lengths off the 64-row tiles (522: a prompt of Queue 1)
+        mask_r = torch.ones(B, Sr, dtype=torch.int32, device=dev)
+        mask_r[1, Sr // 2:] = 0
+        mask_r[2] = 0
+        cases.append(("deberta_attention",
+                      f"DeBERTa [8,{Sr},12,64] span 256, padded + all-masked rows",
+                      lambda t, g, b, m=mask_r: dict(attention_mask=m, span=span,
+                                                     max_position=512),
+                      [rn(B, Sr, H, E // H), rn(B, Sr, H, E // H), rn(B, Sr, H, E // H),
+                       rn(2 * span, E), rn(2 * span, E)], []))
 
     def no_kw(t, g, b):
         return {}
@@ -432,6 +467,24 @@ def _rate(name, args, ms, fn, backward=False) -> str:
     return text
 
 
+def _forward_route(args, dtype) -> str:
+    """The body deberta_attention's forward takes, as the library reports it,
+    held against the Python rule and against what the case must take: the
+    wgmma kernel in bf16 at head width 64, attention.cuh's otherwise."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import deberta_fwd_route
+
+    D = args[0].shape[-1]
+    route = _build.library().smm_deberta_fwd_route(int(dtype == torch.bfloat16), D)
+    want = int(dtype == torch.bfloat16 and D == 64)
+    if route != want or deberta_fwd_route(dtype, D) != want:
+        raise AssertionError(f"deberta_attention forward at head width {D} in {dtype}: route "
+                             f"{route}, expected {want}")
+    return "wgmma" if route else "wmma/f32"
+
+
 def phase_kernels(dev) -> dict:
     """Phase 2: every kernel against its plain version. Returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} (times and
@@ -464,9 +517,12 @@ def phase_kernels(dev) -> dict:
             t_plain2 = time_ms(lambda: plain(*args, **kw), 5)
             ms, plain_ms = median(t_k1 + t_k2), median(t_plain1 + t_plain2)
             sync()
+            route = ""
+            if name == "deberta_attention":  # eval: no statistics stored
+                route = f" fwd_route={_forward_route(args, dtype)} stats=none"
             log(f"kernel {name:18s} {label:56s} {str(dtype)[6:]:8s} "
                 f"max_abs_err={max_err:.3e} tol={tol:g} ok={ok} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}"
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{route}"
                 + _rate(name, args, ms, lambda: kern(*args, **kw)))
             if not (ok and finite):
                 raise AssertionError(f"{name} {label} {dtype}: kernel disagrees "
@@ -769,7 +825,7 @@ def phase_backward(dev) -> dict:
         if kw_fn(None, 1, 1).get("ln") is None:
             lnp = []  # the site has no LayerNorm: its params take no gradient
         names = _arg_names(name, n_in + len(lnp))
-        redesigned = name in ("attention_block", "deberta_attention")
+        redesigned = name in ("attention_block", "deberta_attention", "ffn_block")
         for dtype in (torch.bfloat16, torch.float32):
             # the two redesigned backwards in bf16: with the dropout and without
             rates = (DROP_RATE, 0.0) if redesigned and dtype == torch.bfloat16 else (
@@ -801,6 +857,16 @@ def phase_backward(dev) -> dict:
                     route = _backward_route(name, args, kw_fn, dtype)
                     extra = f" bit_equal={same} bwd_route={'wgmma' if route else 'wmma/f32'}"
                     ok = ok and same
+                    if name == "deberta_attention":
+                        # the forward that kept its statistics gives the eval forward's bits
+                        with torch.no_grad():
+                            ev = call(kern, args)
+                        sync()
+                        kept = bool(torch.equal(ev, got[0]))
+                        extra += f" fwd_route={_forward_route(args, dtype)} " \
+                                 f"train_fwd_equals_eval={kept}"
+                        ok = ok and kept
+                        del ev
                     del out, again
                 del got, want
 
@@ -841,14 +907,46 @@ def phase_backward(dev) -> dict:
                             _log_device_times(f"{name} {label} fwd+bwd, {who}",
                                               lambda fn=fn: fwd_bwd(fn))
                     elif redesigned:
-                        _log_device_times(f"{name} {label} fwd+bwd",
-                                          lambda: fwd_bwd(lambda xs: call(kern, xs)), top=8)
+                        calls = _log_device_times(f"{name} {label} fwd+bwd",
+                                                  lambda: fwd_bwd(lambda xs: call(kern, xs)),
+                                                  top=10)
+                        _check_bodies(name, dtype, calls)
                     del out_like
                 del args, args32
                 torch.cuda.empty_cache()
     _check_flash_backward_is_deterministic(dev, gen)
     log(f"fwd+bwd times above: CUDA-event medians on {smi_line()}")
     return results
+
+
+def _check_bodies(name, dtype, calls: dict):
+    """From the device-time profile of one fwd+bwd (calls per kernel name):
+    in bf16 the FFN backward launches the two-product kernel and the row
+    LayerNorm backward (pre- and post-LN) and no GELU replay, and
+    deberta_attention's training backward re-runs no forward (at most one
+    ``deberta_fwd_wgmma_kernel`` a call: the forward's own). The profiler
+    can miss the first launches of its window (0.8 calls a repetition where
+    there is one), so a body is held present or absent, not counted."""
+    import torch
+
+    if dtype != torch.bfloat16:
+        return
+
+    def n(key):
+        return sum(c for k, c in calls.items() if key in k)
+
+    if name == "ffn_block":
+        bad = not n("ffn_bwd_wgmma_kernel") or n("gelu_drop_kernel") or not n("ln_bwd_rows_kernel")
+    elif name == "deberta_attention":
+        bad = not 0 < n("deberta_fwd_wgmma_kernel") <= 1 or n("attention_wmma_kernel")
+    else:
+        return
+    log(f"        {name}: kernels per fwd+bwd " + ", ".join(
+        f"{k}={n(k):g}" for k in ("ffn_bwd_wgmma_kernel", "ln_bwd_rows_kernel", "gelu_drop_kernel",
+                                  "deberta_fwd_wgmma_kernel", "attention_wmma_kernel")))
+    if bad:
+        raise AssertionError(f"{name} fwd+bwd in bf16 launched other bodies than expected: "
+                             f"{calls}")
 
 
 def _backward_route(name, args, kw_fn, dtype) -> int:
@@ -862,6 +960,16 @@ def _backward_route(name, args, kw_fn, dtype) -> int:
     from simple_multimodal_tpu_torch.ops.hopper import _build
     from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_bwd_route
 
+    if name == "ffn_block":
+        from simple_multimodal_tpu_torch.ops.hopper.ffn_block import ffn_bwd_route
+
+        E, Fd = args[0].shape[-1], args[1].shape[1]
+        route = _build.library().smm_ffn_bwd_route(int(dtype == torch.bfloat16), E, Fd)
+        want = int(dtype == torch.bfloat16 and E % 64 == 0 and Fd % 64 == 0)
+        if route != want or ffn_bwd_route(dtype, E, Fd) != want:
+            raise AssertionError(f"ffn_block backward at [{E}, {Fd}] in {dtype}: route {route}, "
+                                 f"expected {want}")
+        return route
     if name == "attention_block":
         D, rel = args[0].shape[-1] // kw_fn(None, None, None).get("num_heads", 12), False
     else:
@@ -987,6 +1095,23 @@ def _check_dropout_positions(dev):
             got[..., c0:c0 + E] = out != 0
         same(f"ffn_block mid [{rows},{S},{Fd}] {name}", got,
              ffn_keep(DROP_SEED, SALT_MID, rows, S, Fd, DROP_RATE, device=dev))
+        # the backward replays the mid mask: W1 = the identity on columns c0 .. c0 + E
+        # and no LayerNorm or residual give dx = dh_pre[:, c0 .. c0 + E]
+        got = torch.zeros(rows, S, Fd, dtype=torch.bool, device=dev)
+        w2 = rn(Fd, E, std=Fd ** -0.5).to(dtype)
+        gy = rn(rows, S, E).to(dtype)
+        xg = x.to(dtype).requires_grad_()
+        for c0 in range(0, Fd, E):
+            w1e = torch.zeros(E, Fd, device=dev)
+            w1e[:, c0:c0 + E] = torch.eye(E, device=dev)
+            out = ffn_block(xg, w1e.to(dtype), b1.to(dtype), w2,
+                            torch.zeros(E, device=dev, dtype=dtype), residual=False,
+                            dropout_rate_mid=DROP_RATE, dropout_seed=DROP_SEED)
+            (dx,) = torch.autograd.grad(out, [xg], gy)
+            sync()
+            got[..., c0:c0 + E] = dx != 0
+        same(f"ffn_block backward mid [{rows},{S},{Fd}] {name}", got,
+             ffn_keep(DROP_SEED, SALT_MID, rows, S, Fd, DROP_RATE, device=dev))
         out = ffn_block(x.to(dtype), w1.to(dtype), b1.to(dtype),
                         rn(Fd, E, std=Fd ** -0.5).to(dtype), b2.to(dtype), residual=False,
                         dropout_rate_out=DROP_RATE, dropout_seed=DROP_SEED)
@@ -1020,6 +1145,7 @@ def _log_device_times(tag: str, fn, reps: int = 5, top: int = 5):
     for e in rows[:top]:
         log(f"device time {tag}: {self_us(e) / reps / 1e3:9.4f} ms {e.count / reps:5.1f} calls  "
             f"{e.key[:110]}")
+    return {e.key: e.count / reps for e in rows}
 
 
 def _check_flash_backward_is_deterministic(dev, gen):
@@ -1288,9 +1414,10 @@ def phase_profile(dev, tmp: str):
 
 def phase_timings(dev, tmp: str, steps: int = 8):
     """``--timings``: no checks, only the times a parent/change comparison
-    needs, each a median: forward+backward of attention_block and
-    deberta_attention at the main path's shapes (bf16, dropout 0.1, CUDA
-    events, 10 calls), the B=8 forward (host clock, 10 calls) and the B=8
+    needs, each a median: forward+backward of attention_block, ffn_block and
+    deberta_attention at the main path's shapes and deberta_attention's
+    forward alone (bf16, dropout 0.1, CUDA events, 10 calls), the B=8
+    forward (host clock, 10 calls) and the B=8
     train step (``steps`` steps, the first left out). With ``--tree DIR``
     the package is imported from DIR (an unpacked other commit), so two
     trees can be timed in turns by the same script on one card."""
@@ -1306,21 +1433,29 @@ def phase_timings(dev, tmp: str, steps: int = 8):
     cases, fns = _kernel_cases(dev, gen)
     out = {}
     for name, label, kw_fn, inputs, lnp in cases:
-        if name not in ("attention_block", "deberta_attention") or "WMMA path" in label:
+        if (name not in ("attention_block", "deberta_attention", "ffn_block")
+                or "WMMA path" in label or (name == "deberta_attention" and "512" not in label)):
             continue
         if kw_fn(None, 1, 1).get("ln") is None:
             lnp = []
         n_in = len(inputs)
         args = [t.to(torch.bfloat16).requires_grad_() for t in inputs + lnp]
         gy = torch.randn(inputs[0].shape, generator=gen, device=dev).to(torch.bfloat16)
+        drop = (dict(dropout_rate_mid=DROP_RATE, dropout_rate_out=DROP_RATE)
+                if name == "ffn_block" else dict(dropout_rate=DROP_RATE))
 
-        def fwd_bwd(args=args, n_in=n_in, kw_fn=kw_fn, name=name, gy=gy):
+        def fwd(args=args, n_in=n_in, kw_fn=kw_fn, name=name, drop=drop):
             lnargs = list(args[n_in:]) + [None] * (2 - len(args[n_in:]))
-            o = fns[name][0](*args[:n_in], **kw_fn(None, *lnargs), dropout_rate=DROP_RATE,
-                             dropout_seed=DROP_SEED)
-            torch.autograd.grad(o, args, gy)
+            return fns[name][0](*args[:n_in], **kw_fn(None, *lnargs), **drop,
+                                dropout_seed=DROP_SEED)
+
+        def fwd_bwd(args=args, gy=gy, fwd=fwd):
+            torch.autograd.grad(fwd(), args, gy)
 
         out[f"{name} {label.split(' span')[0]} fwd+bwd ms"] = median(time_ms(fwd_bwd, 10))
+        if name == "deberta_attention":
+            with torch.no_grad():
+                out[f"{name} {label.split(' span')[0]} fwd ms"] = median(time_ms(fwd, 10))
         del args, gy
         torch.cuda.empty_cache()
     cfg = _base_config(tmp)
@@ -1389,11 +1524,17 @@ WGMMA_KERNELS = {
     "flash_bwd_dq_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(1, n)),
     "flash_bwd_dkv_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(2, n)),
     "gemm_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_gemm_wgmma_smem(n)),
-    # <dropout>: deberta_attention's backward: the re-run forward and the pair
+    # <tile width>: ffn_block's backward, the two products over one [M, F] tile
+    "ffn_bwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_ffn_bwd_wgmma_smem(n)),
+    # <dropout>: deberta_attention's forward, the backward's pair
     "deberta_fwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(2)),
     "deberta_bwd_dq_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(0)),
     "deberta_bwd_dkv_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(1)),
 }
+
+
+# the FFN and LayerNorm backwards' row kernels (csrc/gemm.cuh), checked for spills like the above
+ROW_KERNELS = ("ln_bwd_rows_kernel", "drop_cast_sum_kernel", "fold_columns_kernel")
 
 
 def _report_wgmma_kernels(_build):
@@ -1432,6 +1573,27 @@ def _report_wgmma_kernels(_build):
     expected = {k: v[0] for k, v in WGMMA_KERNELS.items()}
     if found != expected:
         raise AssertionError(f"wgmma kernels in the compiler log: {found}, expected {expected}")
+    # the row kernels of the FFN and LayerNorm backwards (every instantiation)
+    rows_found = 0
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\S*?(" + "|".join(ROW_KERNELS) + r")\S*)'",
+                      line)
+        if not m:
+            continue
+        block = " ".join(x.strip() for x in lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
+        smem = re.search(r"(\d+) bytes smem", block)
+        if "Li3E" in m.group(1) or (not rows_found and "fold" in m.group(2)):
+            log(f"row kernel {m.group(2)} ({m.group(1)[-40:]}): {regs.group(1) if regs else '?'} "
+                f"registers, spill bytes {spill}, static shared memory "
+                f"{smem.group(1) if smem else '?'} bytes")
+        rows_found += 1
+        if not regs or len(spill) != 2 or any(spill):
+            raise AssertionError(f"{m.group(1)}: ptxas reports spills: {block}")
+    if rows_found < len(ROW_KERNELS):
+        raise AssertionError(f"row kernels in the compiler log: {rows_found}")
+    log(f"row kernels: {rows_found} instantiations of {', '.join(ROW_KERNELS)}, none spills")
     serialized = [x for x in lines if "serializ" in x.lower()]
     if serialized:
         raise AssertionError("ptxas serialized a wgmma pipeline: " + serialized[0])
@@ -1521,6 +1683,144 @@ def phase_gemm(dev):
         f"on {smi_line()}")
 
 
+def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile_n, store_h=True):
+    """One launch of the FFN backward's two-product kernel alone
+    (``smm_ffn_bwd_mm``): (h or None, dhp, part, db1)."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper.dropout import threshold
+
+    (M, E), Fd = a.shape, w1t.shape[0]
+    dev, p = a.device, _build.ptr
+    h = torch.empty(M, Fd, dtype=torch.bfloat16, device=dev) if store_h else None
+    dhp = torch.empty(M, Fd, dtype=torch.bfloat16, device=dev)
+    part = torch.empty(-(-M // 128), Fd, device=dev)
+    db1 = torch.empty(Fd, device=dev)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev) if rate else None
+    lib = _build.library()
+    err = lib.smm_ffn_bwd_mm(p(a), p(dy0), p(w1t), p(b1), p(w2t), M, E, Fd, S, p(seed),
+                             threshold(rate), 1.0 / (1.0 - rate), p(h), p(dhp), p(part), p(db1),
+                             tile_n, _build.stream_ptr(a))
+    _build.check(lib, err, "ffn_bwd_mm")
+    return h, dhp, part, db1
+
+
+def phase_ffn_bwd_kernels(dev):
+    """The FFN backward's two-product kernel alone, both tiles, with and
+    without the mid dropout, against a plain f32 expression on the same bf16
+    inputs (h and dh_pre bf16: atol=rtol=3e-2; db1, the fold of the kernel's
+    per-strip partials, bit-equal to ``ffn_block.fold_columns`` of those
+    partials and within 1e-3 of the f32 sum of the kernel's own dh_pre; the
+    dropped positions of h and dh_pre exactly zero and equal to
+    ``dropout.ffn_keep``; two runs bit-equal), its device time and TFLOP/s;
+    then the LayerNorm backward (``smm_ln_bwd``) against autograd of
+    ``F.layer_norm`` with its time and byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
+    from simple_multimodal_tpu_torch.ops.hopper.dropout import SALT_MID, ffn_keep
+    from simple_multimodal_tpu_torch.ops.hopper.gemm import gelu_grad
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, E, Fd, S = torch.bfloat16, 768, 3072, 197
+    lib = _build.library()
+
+    def rn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * std
+
+    w1t, b1 = rn(Fd, E, std=E ** -0.5).to(bf16), rn(Fd, std=0.1).to(bf16)
+    w2t = rn(E, Fd, std=Fd ** -0.5).to(bf16)
+    for M in GEMM_ROWS:
+        a, dy0 = rn(M, E).to(bf16), rn(M, E).to(bf16)
+        hpre = a.float() @ w1t.float().t() + b1.float()
+        dh = dy0.float() @ w2t.float()
+        rule = lib.smm_ffn_bwd_tile_n(Fd)
+        text = ""
+        for rate in (DROP_RATE, 0.0):
+            keep = (ffn_keep(DROP_SEED, SALT_MID, -(-M // S), S, Fd, rate,
+                             device=dev).reshape(-1, Fd)[:M] if rate else None)
+            sc = 1.0 / (1.0 - rate)
+            want_h = F.gelu(hpre, approximate="tanh")
+            want_d = dh * gelu_grad(hpre, True)
+            if rate:
+                want_h, want_d = want_h * keep * sc, want_d * keep * sc
+            for tile in (64, 128):
+                h, dhp, part, db1 = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile)
+                again = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile)
+                sync()
+                err_h = float((h.float() - want_h).abs().max())
+                err_d = float((dhp.float() - want_d).abs().max())
+                ok = bool(torch.allclose(h.float(), want_h, atol=ATOL_BF16, rtol=ATOL_BF16)
+                          and torch.allclose(dhp.float(), want_d, atol=ATOL_BF16, rtol=ATOL_BF16))
+                folded = torch.equal(db1, fb.fold_columns(part))
+                plain_sum = dhp.float().sum(0)
+                err_b = float((db1 - plain_sum).abs().max()) / float(plain_sum.abs().max())
+                same = all(bool(torch.equal(x, y)) for x, y in zip((h, dhp, part, db1), again))
+                wrong = 0
+                if rate:  # dropped: exactly zero; kept: zero only by chance
+                    wrong = int(((h != 0) & ~keep).sum() + ((dhp != 0) & ~keep).sum())
+                    zero = int(((h == 0) & keep & (want_h.abs() > 1e-3)).sum())
+                    ok = ok and zero <= 1 + M * Fd // 10 ** 6
+                ok = ok and folded and err_b <= 1e-3 and same and not wrong
+                ms = _back_to_back_ms(lambda: _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile))
+                text += (f" | rate={rate} tile_n={tile}: err h={err_h:.2e} dhp={err_d:.2e} "
+                         f"db1 rel={err_b:.1e} fold_bit_equal={folded} bit_equal={same} "
+                         f"wrongly_kept={wrong} ms={ms:.4f} "
+                         f"{4.0 * M * E * Fd / ms / 1e9:.0f} TFLOP/s")
+                if not ok:
+                    raise AssertionError(f"ffn_bwd two-product [{M},{E},{Fd}] rate={rate} "
+                                         f"tile_n={tile}: {text.split(' | ')[-1]}")
+                del h, dhp, part, db1, again
+            del want_h, want_d, keep
+        log(f"ffn_bwd two-product [{M},{E},{Fd}] rule tile_n={rule}{text}")
+        del a, dy0, hpre, dh
+        torch.cuda.empty_cache()
+    log(f"ffn_bwd times above: device time per call in a run of 10 back-to-back calls, bf16, "
+        f"on {smi_line()}")
+    # the LayerNorm backward as the pre-LN sites call it: dy f32 (dxn), x, g and the
+    # residual cotangent bf16, dx bf16
+    for M in (47280, 4096, 1001):
+        x, dy, add = rn(M, E).to(bf16), rn(M, E), rn(M, E).to(bf16)
+        g = (1.0 + rn(E, std=0.1)).to(bf16)
+        blocks = _build.ln_bwd_blocks(M)
+        part = torch.empty(blocks, 2 * E, device=dev)
+        dln, dx = torch.empty(2, E, device=dev), torch.empty(M, E, dtype=bf16, device=dev)
+
+        def call():
+            err = lib.smm_ln_bwd(dy.data_ptr(), x.data_ptr(), g.data_ptr(), 1e-12, M, E,
+                                 add.data_ptr(), dx.data_ptr(), part.data_ptr(), dln.data_ptr(),
+                                 _build.stream_ptr(x))
+            _build.check(lib, err, "ln_bwd")
+
+        call()
+        xf = x.float().requires_grad_()
+        gf = g.float().requires_grad_()
+        bf = torch.zeros(E, device=dev, requires_grad=True)
+        F.layer_norm(xf, (E,), gf, bf, 1e-12).backward(dy)
+        want_dx = xf.grad + add.float()
+        sync()
+        err_dx = float((dx.float() - want_dx).abs().max())
+        rel_g = float((dln[0] - gf.grad).abs().max()) / float(gf.grad.abs().max())
+        rel_b = float((dln[1] - bf.grad).abs().max()) / float(bf.grad.abs().max())
+        ok = bool(torch.allclose(dx.float(), want_dx, atol=ATOL_BF16, rtol=ATOL_BF16)
+                  and rel_g <= 1e-3 and rel_b <= 1e-3)
+        ms = _back_to_back_ms(call)
+        nbytes = M * E * (4 + 2 + 2 + 2) + 2 * E * 2 + 2 * E * 4
+        log(f"ln_bwd [{M},{E}] max_abs_err dx={err_dx:.3e} (atol=rtol={ATOL_BF16:g}) "
+            f"dgamma rel={rel_g:.1e} dbeta rel={rel_b:.1e} ok={ok} ms={ms:.4f} "
+            f"bound_ms={nbytes / PEAK_BYTES * 1e3:.4f} (bytes: {nbytes / 1e6:.0f} MB) "
+            f"partials={blocks}")
+        if not ok:
+            raise AssertionError(f"ln_bwd [{M},{E}] disagrees with autograd of F.layer_norm")
+        del x, dy, add, part, dx, xf
+        torch.cuda.empty_cache()
+    log(f"ln_bwd times above: device time per call in a run of 10 back-to-back calls on "
+        f"{smi_line()}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1550,6 +1850,7 @@ def main() -> int:
                 (phase_profile if "--profile" in argv else phase_timings)(dev, tmp)
             return 0
         phase_gemm(dev)
+        phase_ffn_bwd_kernels(dev)
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

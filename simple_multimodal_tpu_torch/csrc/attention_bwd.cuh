@@ -59,18 +59,6 @@ struct AttnBwdArgs {
   float* gp;
 };
 
-// Which body the backward of an attention core takes (attention_block's:
-// rel = false; deberta_attention's: rel = true): true = the wgmma kernels
-// (attention_core_bwd_wgmma.cu; deberta_attention_bwd_{dq,dkv}_wgmma.cu),
-// false = this file's. One rule, from the element type and the head width
-// alone: bf16 at D = 64, and at 128 without the position tables. (At these
-// widths a token's row is a multiple of 64 elements, so the tensor maps'
-// 16-byte strides hold; the wrappers see to 16-byte aligned bases.) The
-// bf16 bodies below are therefore not instantiated at those widths.
-constexpr bool attention_bwd_wgmma_takes(bool is_bf16, int D, bool rel) {
-  return is_bf16 && (D == 64 || (D == 128 && !rel));
-}
-
 struct DsPd {
   float ds, pd;
 };

@@ -20,22 +20,26 @@
 // bucket in a fixed order: deterministic, at the price of one extra pass
 // over the S x S elements.
 //
-// The forward is re-run first for the softmax row statistics and
-// delta = dout . ctx. What bounds it on this card: operations, per element
-// four length-D dot products and the accumulations. In bf16 at head width 64
-// (`attention_bwd_wgmma_takes`, attention_bwd.cuh) the whole backward is
-// on wgmma: the re-run (deberta_attention_fwd_wgmma.cu, then
-// flash_attention's delta kernel) and two kernels for the rest
-// (deberta_attention_bwd_dq_wgmma.cu, deberta_attention_bwd_dkv_wgmma.cu;
-// all three on deberta_scores_wgmma.cuh): the relative-position terms are formed in the
-// accumulator layout from two table products per tile pair, and the
-// diagonal sums come out of the same two kernels as per-tile partials
-// (`fold_partials_kernel` adds the tiles, the batch and a bucket's offsets
-// in a fixed order), so the scores are recomputed twice, not three times.
-// Other widths and f32 keep attention.cuh's re-run and attention_bwd.cuh's
-// three kernels (WMMA tiles in shared memory in bf16, exact FMA loops in
-// f32) and `fold_kernel`. The
-// body is chosen from type and shape before anything is launched.
+// The softmax row statistics and delta = dout . ctx come first. What bounds
+// it on this card: operations, per element four length-D dot products and
+// the accumulations. In bf16 at head width 64 (`attention_bwd_wgmma_takes`,
+// attention.cuh) the whole backward is on wgmma: the forward
+// (deberta_attention_fwd_wgmma.cu), then flash_attention's delta kernel, and
+// two kernels for the rest (deberta_attention_bwd_dq_wgmma.cu,
+// deberta_attention_bwd_dkv_wgmma.cu; all three on deberta_scores_wgmma.cuh):
+// the relative-position terms are formed in the accumulator layout from two
+// table products per tile pair, and the diagonal sums come out of the same
+// two kernels as per-tile partials (`fold_partials_kernel` adds the tiles,
+// the batch and a bucket's offsets in a fixed order). On this route the
+// forward is that same wgmma kernel, and whenever a backward can follow it
+// keeps its output and row statistics: the backward takes them instead of
+// re-running the forward, and what it takes is bit for bit what a re-run
+// would give, the same kernel on the same inputs (q, k, v, tables, mask,
+// seed). Other widths and f32 keep attention.cuh's forward, which the
+// backward re-runs into ctx and stats, and attention_bwd.cuh's three kernels
+// (WMMA tiles in shared memory in bf16, exact FMA loops in f32) and
+// `fold_kernel`. The body is chosen from type and shape before anything is
+// launched.
 
 #include "attention_bwd.cuh"
 #include "deberta_scores_wgmma.cuh"
@@ -88,9 +92,9 @@ __global__ void fold_partials_kernel(const float* __restrict__ part,
 template <typename T>
 int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, const void* pos_q,
         int ldp, const int* idx_c, const int* idx_p, const int* mask, int B, int S, int H, int D,
-        Drop drop, const void* gy, void* ctx, float* stats, void* dq, void* dk, void* dv,
-        float* g_rel, const int* ord_c, const int* off_c, const int* ord_p, const int* off_p,
-        int rows, float* dpos_k, float* dpos_q, cudaStream_t st) {
+        Drop drop, const void* gy, void* ctx, float* stats, float* delta, void* dq, void* dk,
+        void* dv, float* g_rel, const int* ord_c, const int* off_c, const int* ord_p,
+        const int* off_p, int rows, float* dpos_k, float* dpos_q, cudaStream_t st) {
   const size_t BHS = (size_t)B * H * S;
   AttnArgs at{};
   at.q = q;
@@ -111,7 +115,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
   at.drop = drop;
   at.m_out = stats;
   at.l_out = stats + BHS;
-  at.delta = stats + 2 * BHS;
+  at.delta = delta;
   at.dout = gy;
   at.lddo = ld;
   const int n = rows * H * D;
@@ -130,18 +134,14 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
     ra.drop = drop;
     ra.m = stats;
     ra.l = stats + BHS;
-    ra.delta = stats + 2 * BHS;
+    ra.delta = delta;
     ra.dq = dq;
     ra.dk = dk;
     ra.dv = dv;
     ra.ld = ld;
     ra.gc_part = g_rel;
     ra.gp_part = g_rel + (size_t)B * H * tiles * (tiles + 1) * 64 * 64;
-    // the re-run: context, row maximum and sum from the wgmma forward, then
-    // delta = rowsum(dout . ctx) per head
-    debw::RelFwdArgs fa{ra.pos_k, ra.pos_q, ldp, idx_c, idx_p, mask, S, H, at.scale, drop,
-                        ctx, ld, stats, stats + BHS};
-    if (int e = debw::deberta_fwd_wgmma_launch(q, k, v, fa, B, st)) return e;
+    // context, row maximum and sum are the forward's; delta = rowsum(dout . ctx) per head
     const RowStrides tokens{(long long)S * ld, ld};
     FlashBwdArgs fd{};
     fd.f.Sq = S;
@@ -149,7 +149,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
     fd.out = ctx;
     fd.dout = gy;
     fd.so = fd.sdo = tokens;
-    fd.delta = stats + 2 * BHS;
+    fd.delta = delta;
     flash_delta_kernel<bf16><<<(B * S * H + 3) / 4, 128, 0, st>>>(fd, B, D);
     SMM_CHECK_LAUNCH();
     if (int e = debw::deberta_bwd_dq_wgmma_launch(q, k, v, gy, ra, B, st)) return e;
@@ -169,7 +169,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
   bw.dout = gy;
   bw.m = stats;
   bw.l = stats + BHS;
-  bw.delta = stats + 2 * BHS;
+  bw.delta = delta;
   bw.dq = dq;
   bw.dk = dk;
   bw.dv = dv;
@@ -190,7 +190,10 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
 // with `ld` elements per token; pos_k/pos_q [rows = 2*span, ldp];
 // idx_c/idx_p int32 [2S - 1]; mask int32 [B, S]; seed device int32 [1] or
 // null. ord_*/off_* are the fold CSRs of idx_c/idx_p. Outputs dpos_k/dpos_q
-// f32 [rows, H*D]. Scratch: ctx [B, S, H, D], stats f32 [3, B*H*S], g_rel
+// f32 [rows, H*D]. ctx [B, S, H, D] and stats f32 [2, B*H*S] (row maximum,
+// row sum): where the forward is the wgmma kernel (smm_deberta_fwd_route),
+// its output and statistics; else scratch the forward is re-run into.
+// Scratch: delta f32 [B*H*S], g_rel
 // f32 [2, B, H, 2S - 1, D] or, where the wgmma kernels run (bf16, D = 64:
 // `smm_attention_bwd_route`), [2, B, H, T, T + 1, 64, 64] with T = ceil(S / 64).
 // Returns the first CUDA error, or 0.
@@ -199,7 +202,7 @@ extern "C" int smm_deberta_attention_bwd(int dtype, const void* q, const void* k
                                          const int* idx_c, const int* idx_p, const int* mask,
                                          int B, int S, int H, int D, const int* seed,
                                          unsigned thresh, float scale, const void* gy, void* ctx,
-                                         float* stats, void* dq, void* dk, void* dv,
+                                         float* stats, float* delta, void* dq, void* dk, void* dv,
                                          float* g_rel, const int* ord_c, const int* off_c,
                                          const int* ord_p, const int* off_p, int rows,
                                          float* dpos_k, float* dpos_q, void* stream) {
@@ -207,15 +210,15 @@ extern "C" int smm_deberta_attention_bwd(int dtype, const void* q, const void* k
   const Drop drop{seed, thresh, scale};
   if (dtype == 1)
     return run<bf16>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, drop, gy, ctx,
-                     stats, dq, dk, dv, g_rel, ord_c, off_c, ord_p, off_p, rows, dpos_k, dpos_q,
+                     stats, delta, dq, dk, dv, g_rel, ord_c, off_c, ord_p, off_p, rows, dpos_k, dpos_q,
                      st);
   return run<float>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, drop, gy, ctx,
-                    stats, dq, dk, dv, g_rel, ord_c, off_c, ord_p, off_p, rows, dpos_k, dpos_q,
+                    stats, delta, dq, dk, dv, g_rel, ord_c, off_c, ord_p, off_p, rows, dpos_k, dpos_q,
                     st);
 }
 
 // Dynamic shared memory (bytes) of the wgmma backward kernels: which = 0 the
-// dq kernel, 1 the dk/dv kernel, 2 the re-run forward.
+// dq kernel, 1 the dk/dv kernel, 2 the forward.
 extern "C" int smm_deberta_bwd_wgmma_smem(int which) {
   return which == 0   ? debw::deberta_bwd_dq_wgmma_smem()
          : which == 1 ? debw::deberta_bwd_dkv_wgmma_smem()

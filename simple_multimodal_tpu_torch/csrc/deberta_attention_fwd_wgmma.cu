@@ -1,17 +1,16 @@
 // DeBERTa's disentangled attention forward on wgmma (bf16, head width 64):
 // ctx = softmax((q k^T + c2p + p2c) / sqrt(3D), masked keys = -1e30)
-// [hash dropout] v and each row's maximum and sum.
+// [hash dropout] v and, where asked for, each row's maximum and sum.
 //
-// The forward function of
-// simple_multimodal_tpu/ops/pallas/deberta_attention.py, `_kernel` via
-// `_fused_call`, as the BACKWARD needs it: `_bwd_call`'s port re-runs the
-// forward for the row statistics and the context (delta = rowsum(dout .
-// ctx)), and this kernel is that re-run (deberta_attention_bwd.cu). The
-// wrapper's forward still launches attention.cuh's WMMA kernel; the
-// conventions here are that kernel's (a finite -1e30 for masked keys, so a
-// row whose every key is masked attends uniformly; keys past S get weight
-// 0; probabilities normalised by the sum of ALL exponentials, dropped and
-// scaled before their bf16 rounding), so the statistics are interchangeable.
+// Replaces simple_multimodal_tpu/ops/pallas/deberta_attention.py, `_kernel`
+// via `_fused_call` (forward), where attention_bwd_wgmma_takes (attention.cuh)
+// says so: deberta_attention.cu launches it, with the row statistics stored
+// where a backward can follow (the backward takes them and the output as
+// they are) and not in eval (null m and l). The conventions are attention.cuh's WMMA kernel's, which keeps f32 and the other
+// widths: a finite -1e30 for masked keys (kept f32), so a row whose every key
+// is masked attends uniformly; keys past S get weight 0; probabilities
+// normalised by the sum of ALL exponentials, dropped and scaled before their
+// bf16 rounding.
 //
 // What bounds it on this card: operations (per 64 x 64 tile pair q.k^T and
 // p.v of 64 x 64 x 64 and the two table products of 64 x 128 x 64: 3.1
@@ -210,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* O = (bf16*)a.out + (size_t)b * S * a.ld + h * kD + (size_t)q0 * a.ld;
   store_acc<kD>(o, O, a.ld, S - q0, ln, l0 > 0.0f ? 1.0f / l0 : 0.0f,
                 l1 > 0.0f ? 1.0f / l1 : 0.0f);
-  if ((lane & 3) == 0) {
+  if (a.m && (lane & 3) == 0) {  // the statistics, where the caller keeps them
     if (row0 < S) {
       a.m[bh * S + row0] = m0;
       a.l[bh * S + row0] = l0;

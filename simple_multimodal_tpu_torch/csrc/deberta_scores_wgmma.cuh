@@ -95,7 +95,7 @@ struct RelFwdArgs {
   Drop drop;
   void* out;
   long long ld;
-  float* m;  // row maximum of the scaled, masked scores
+  float* m;  // row maximum of the scaled, masked scores, or null (with l: not stored)
   float* l;  // sum of exp(s - m), before the dropout
 };
 

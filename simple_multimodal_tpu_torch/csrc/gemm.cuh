@@ -270,101 +270,229 @@ static inline int launch_layernorm(const TIn* x, const T* g, const T* b, T* y, i
   return 0;
 }
 
+// ------------------------------------------------ row kernels with partials
+
+// The row kernels that leave per-block column partials (the LayerNorm
+// backward, drop_cast_sum_kernel) cut the M rows into contiguous blocks of
+// rows_per_block rows: as many blocks as two of 256 threads on each of 132
+// SMs, fewer when M is short, so the partials number a few hundred whatever
+// M is and fold_columns_kernel reads them in a fixed order. Warp w of a
+// block takes its rows w, w + 8, ... _build.row_partition mirrors this.
+constexpr int kRowBlocks = 264;
+constexpr int kRowWarps = 8;
+constexpr int kLnMaxE = 1024;
+
+inline int rows_per_block(int M) {
+  const int want = (M + kRowWarps - 1) / kRowWarps;
+  const int blocks = want < kRowBlocks ? want : kRowBlocks;
+  return blocks > 0 ? (M + blocks - 1) / blocks : 1;
+}
+inline int row_blocks(int M) { return M > 0 ? (M + rows_per_block(M) - 1) / rows_per_block(M) : 0; }
+
+// 8 consecutive elements (16 bytes of bf16, 32 of f32) as f32, and back.
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// A block's per-column sums of its eight warps, added in warp order, to
+// out[0, E): acc[i][j] is column 8 (lane + 32 i) + j of this warp.
+template <int NC>
+__device__ __forceinline__ void block_column_sums(const float (&acc)[NC][8], int E, float* out) {
+  __shared__ float red[kRowWarps][kLnMaxE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = lane + 32 * i;
+    if (8 * c < E)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[warp][8 * c + j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < E; j += blockDim.x) {
+    float s = red[0][j];
+#pragma unroll
+    for (int w = 1; w < kRowWarps; ++w) s += red[w][j];
+    out[j] = s;
+  }
+  __syncthreads();
+}
+
+// out[c] = sum over r < rows of part[r * cols + c], in a fixed order: warp w
+// of a block sums the w-th eighth of the rows in row order, then the eight
+// sums are added in warp order. One block per 32 columns, whose lanes read
+// neighbouring columns. Run to run the same bits, as f32 atomics would not be.
+static __global__ void __launch_bounds__(256)
+    fold_columns_kernel(const float* __restrict__ part, int rows, int cols,
+                        float* __restrict__ out) {
+  __shared__ float red[kRowWarps][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, c = blockIdx.x * 32 + lane;
+  const int lo = rows * warp / kRowWarps, hi = rows * (warp + 1) / kRowWarps;
+  float s = 0.0f;
+  if (c < cols)
+#pragma unroll 4
+    for (int r = lo; r < hi; ++r) s += part[(size_t)r * cols + c];
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < cols) {
+    float t = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kRowWarps; ++w) t += red[w][lane];
+    out[c] = t;
+  }
+}
+
+static inline int launch_fold_columns(const float* part, int rows, int cols, float* out,
+                                      cudaStream_t st) {
+  fold_columns_kernel<<<(cols + 31) / 32, 256, 0, st>>>(part, rows, cols, out);
+  SMM_CHECK_LAUNCH();
+  return 0;
+}
+
 // ------------------------------------------------------ LayerNorm backward
 
 // dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) [+ add], with
-// dxhat = dy g and the statistics recomputed (two passes, f32), one warp
-// per row. The scale and bias gradients (sums over rows of dy xhat and dy)
-// are kept per block as [2, E] partials and summed over blocks in a fixed
-// order by ln_grad_reduce_kernel, so the result does not vary from run to
-// run as f32 atomics would. dx may alias dy (each lane reads its columns
-// before it writes them).
-constexpr int kLnBwdRows = 64;  // 4 warps x 16 rows; _build.LN_BWD_ROWS
-constexpr int kLnMaxE = 1024;
-
-template <typename T, typename TDy, typename TX, typename TAdd, typename TOut>
-__global__ void __launch_bounds__(128)
-    ln_bwd_kernel(const TDy* dy, const TX* x, const T* __restrict__ g, float eps, int M, int E,
-                  const TAdd* add, TOut* dx, float* __restrict__ part) {
-  __shared__ float red[4][2 * kLnMaxE];
+// dxhat = dy g and the statistics recomputed (two passes over the row, f32,
+// as the JAX reference computes mean((x - mu)^2)). The scale and bias
+// gradients (sums over rows of dy xhat and dy) are per-block [2, E]
+// partials, folded over blocks by fold_columns_kernel in a fixed order.
+//
+// What bounds it: bytes (dy, x and add read once, dx written once: 364 MB
+// at the ViT site [47 280, 768], 0.11 ms at 3.35 TB/s). The design: one
+// warp per row with the row in registers (lane l holds the 8-column chunks
+// l, l + 32, ..., NC of them: 24 values a lane at E = 768), loaded once with
+// 16-byte loads, so the row is read once; the column sums stay in
+// registers across a warp's rows; 256-thread blocks own contiguous row
+// ranges (rows_per_block), so the partials number at most 264; two blocks
+// an SM up to E = 768, one above. dx may alias
+// dy or x: a warp reads its whole row before it writes it.
+template <typename T, typename TDy, typename TX, typename TAdd, typename TOut, int NC>
+__global__ void __launch_bounds__(256, NC < 4 ? 2 : 1)  // E > 768: 128 registers would spill
+    ln_bwd_rows_kernel(const TDy* dy, const TX* x, const T* __restrict__ g, float eps, int M,
+                       int E, int rpb, const TAdd* add, TOut* dx, float* __restrict__ part) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float ag[kLnMaxE / 32], ab[kLnMaxE / 32];
+  float ag[NC][8], ab[NC][8];
 #pragma unroll
-  for (int i = 0; i < kLnMaxE / 32; ++i) ag[i] = ab[i] = 0.0f;
-  for (int rr = 0; rr < kLnBwdRows / 4; ++rr) {
-    const int row = blockIdx.x * kLnBwdRows + warp * (kLnBwdRows / 4) + rr;
-    if (row >= M) break;
-    const TX* xr = x + (size_t)row * E;
-    const TDy* dr = dy + (size_t)row * E;
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ag[i][j] = ab[i][j] = 0.0f;
+  const int r0 = (int)blockIdx.x * rpb, r_end = min(r0 + rpb, M);
+  for (int row = r0 + warp; row < r_end; row += kRowWarps) {
+    const size_t o = (size_t)row * E;
+    float xv[NC][8], dv[NC][8];
     float s = 0.0f;
-    for (int c = lane; c < E; c += 32) s += to_f32(xr[c]);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = 8 * (lane + 32 * i);
+      if (c < E) {
+        load8(x + o + c, xv[i]);
+        load8(dy + o + c, dv[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) xv[i][j] = dv[i][j] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += xv[i][j];
+    }
     const float mu = warp_sum(s) / E;
     float v = 0.0f;
-    for (int c = lane; c < E; c += 32) {
-      const float d = to_f32(xr[c]) - mu;
-      v += d * d;
-    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      if (8 * (lane + 32 * i) < E)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          xv[i][j] -= mu;
+          v += xv[i][j] * xv[i][j];
+        }
     const float rstd = rsqrtf(warp_sum(v) / E + eps);
     float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kLnMaxE / 32; ++i) {
-      const int c = lane + 32 * i;
+    for (int i = 0; i < NC; ++i) {
+      const int c = 8 * (lane + 32 * i);
       if (c < E) {
-        const float xh = (to_f32(xr[c]) - mu) * rstd, d = to_f32(dr[c]);
-        const float dh = d * to_f32(g[c]);
-        s1 += dh;
-        s2 += dh * xh;
-        ag[i] += d * xh;
-        ab[i] += d;
+        float gv[8];
+        load8(g + c, gv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = xv[i][j] * rstd, d = dv[i][j], dh = d * gv[j];
+          xv[i][j] = xh;
+          s1 += dh;
+          s2 += dh * xh;
+          ag[i][j] += d * xh;
+          ab[i][j] += d;
+        }
       }
     }
     s1 = warp_sum(s1) / E;
     s2 = warp_sum(s2) / E;
 #pragma unroll
-    for (int i = 0; i < kLnMaxE / 32; ++i) {
-      const int c = lane + 32 * i;
+    for (int i = 0; i < NC; ++i) {
+      const int c = 8 * (lane + 32 * i);
       if (c < E) {
-        const float xh = (to_f32(xr[c]) - mu) * rstd;
-        float o = rstd * (to_f32(dr[c]) * to_f32(g[c]) - s1 - xh * s2);
-        if (add) o += to_f32(add[(size_t)row * E + c]);
-        dx[(size_t)row * E + c] = from_f32<TOut>(o);
+        float gv[8], av[8], out[8];
+        load8(g + c, gv);
+        if (add) load8(add + o + c, av);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          out[j] = rstd * (dv[i][j] * gv[j] - s1 - xv[i][j] * s2);
+          if (add) out[j] += av[j];
+        }
+        store8(dx + o + c, out);
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < kLnMaxE / 32; ++i) {
-    const int c = lane + 32 * i;
-    if (c < E) {
-      red[warp][c] = ag[i];
-      red[warp][E + c] = ab[i];
-    }
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < 2 * E; j += blockDim.x)
-    part[(size_t)blockIdx.x * 2 * E + j] = red[0][j] + red[1][j] + red[2][j] + red[3][j];
+  float* mine = part + (size_t)blockIdx.x * 2 * E;
+  block_column_sums<NC>(ag, E, mine);
+  block_column_sums<NC>(ab, E, mine + E);
 }
 
-// dln[2, E] (scale grad, bias grad) = sum over blocks of the partials.
-static __global__ void ln_grad_reduce_kernel(const float* __restrict__ part, int nblk, int E,
-                                             float* __restrict__ dln) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= 2 * E) return;
-  float s = 0.0f;
-  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * 2 * E + j];
-  dln[j] = s;
+template <typename T, typename TDy, typename TX, typename TAdd, typename TOut, int NC>
+static inline void launch_ln_bwd_nc(const TDy* dy, const TX* x, const T* g, float eps, int M,
+                                    int E, const TAdd* add, TOut* dx, float* part,
+                                    cudaStream_t st) {
+  ln_bwd_rows_kernel<T, TDy, TX, TAdd, TOut, NC>
+      <<<row_blocks(M), 256, 0, st>>>(dy, x, g, eps, M, E, rows_per_block(M), add, dx, part);
 }
 
+// The LayerNorm backward and its fold into dln[2, E] (scale grad, bias
+// grad). part: f32 [row_blocks(M), 2E]. E a multiple of 8, at most 1024, and
+// every row 16-byte aligned (the wrappers align the bases).
 template <typename T, typename TDy, typename TX, typename TAdd, typename TOut>
 static inline int launch_ln_bwd(const TDy* dy, const TX* x, const T* g, float eps, int M, int E,
                                 const TAdd* add, TOut* dx, float* part, float* dln,
                                 cudaStream_t st) {
-  if (E > kLnMaxE) return (int)cudaErrorInvalidValue;
-  const int nblk = (M + kLnBwdRows - 1) / kLnBwdRows;
-  ln_bwd_kernel<T, TDy, TX, TAdd, TOut><<<nblk, 128, 0, st>>>(dy, x, g, eps, M, E, add, dx, part);
-  SMM_CHECK_LAUNCH();
-  ln_grad_reduce_kernel<<<(2 * E + 255) / 256, 256, 0, st>>>(part, nblk, E, dln);
-  SMM_CHECK_LAUNCH();
-  return 0;
+  if (E > kLnMaxE || E % 8) return (int)cudaErrorInvalidValue;
+  if (M > 0) {
+    switch ((E + 255) / 256) {
+      case 1: launch_ln_bwd_nc<T, TDy, TX, TAdd, TOut, 1>(dy, x, g, eps, M, E, add, dx, part, st); break;
+      case 2: launch_ln_bwd_nc<T, TDy, TX, TAdd, TOut, 2>(dy, x, g, eps, M, E, add, dx, part, st); break;
+      case 3: launch_ln_bwd_nc<T, TDy, TX, TAdd, TOut, 3>(dy, x, g, eps, M, E, add, dx, part, st); break;
+      default: launch_ln_bwd_nc<T, TDy, TX, TAdd, TOut, 4>(dy, x, g, eps, M, E, add, dx, part, st);
+    }
+    SMM_CHECK_LAUNCH();
+  }
+  return launch_fold_columns(part, row_blocks(M), 2 * E, dln, st);
 }
 
 // ------------------------------------------------- FFN elementwise passes
@@ -400,6 +528,63 @@ __global__ void drop_cast_kernel(const TIn* __restrict__ src, T* __restrict__ ds
               ? v * drop.scale : 0.0f;
     dst[i] = from_f32<T>(v);
   }
+}
+
+// dst = drop(src) in bf16 (the output dropout's backward: dy0) and the
+// per-block column sums of the dropped f32 values (db2's partials, [row
+// blocks, E]), folded into db2 [E] in a fixed order. The row partition and
+// the 16-byte row chunks of the LayerNorm backward; E a multiple of 8, at
+// most 1024.
+template <typename TIn, int NC>
+__global__ void __launch_bounds__(256)
+    drop_cast_sum_kernel(const TIn* __restrict__ src, bf16* __restrict__ dst, int M, int E,
+                         int rpb, Drop drop, int salt, int S, float* __restrict__ part) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t seed = drop.seed ? (uint32_t)*drop.seed + (uint32_t)salt : 0u;
+  float acc[NC][8];
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int r0 = (int)blockIdx.x * rpb, r_end = min(r0 + rpb, M);
+  for (int row = r0 + warp; row < r_end; row += kRowWarps) {
+    const size_t o = (size_t)row * E;
+    const uint32_t hr = drop.seed ? hash_row(seed, row / S, row % S) : 0u;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = 8 * (lane + 32 * i);
+      if (c < E) {
+        float v[8];
+        load8(src + o + c, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (drop.seed) v[j] = hash_row_keep(hr, c + j, drop.thresh) ? v[j] * drop.scale : 0.0f;
+          acc[i][j] += v[j];
+        }
+        store8(dst + o + c, v);
+      }
+    }
+  }
+  block_column_sums<NC>(acc, E, part + (size_t)blockIdx.x * E);
+}
+
+template <typename TIn>
+static inline int launch_drop_cast_sum(const TIn* src, bf16* dst, int M, int E, Drop drop,
+                                       int salt, int S, float* part, float* sum,
+                                       cudaStream_t st) {
+  if (E > kLnMaxE || E % 8) return (int)cudaErrorInvalidValue;
+  if (M > 0) {
+    const dim3 grid(row_blocks(M));
+    const int rpb = rows_per_block(M);
+    switch ((E + 255) / 256) {
+      case 1: drop_cast_sum_kernel<TIn, 1><<<grid, 256, 0, st>>>(src, dst, M, E, rpb, drop, salt, S, part); break;
+      case 2: drop_cast_sum_kernel<TIn, 2><<<grid, 256, 0, st>>>(src, dst, M, E, rpb, drop, salt, S, part); break;
+      case 3: drop_cast_sum_kernel<TIn, 3><<<grid, 256, 0, st>>>(src, dst, M, E, rpb, drop, salt, S, part); break;
+      default: drop_cast_sum_kernel<TIn, 4><<<grid, 256, 0, st>>>(src, dst, M, E, rpb, drop, salt, S, part);
+    }
+    SMM_CHECK_LAUNCH();
+  }
+  return launch_fold_columns(part, row_blocks(M), E, sum, st);
 }
 
 static inline int elementwise_grid(size_t n) {

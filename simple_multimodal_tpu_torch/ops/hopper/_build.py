@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LN_BWD_ROWS = 64  # rows per block of the LayerNorm backward (csrc/gemm.cuh)
+ROW_BLOCKS, ROW_WARPS = 264, 8  # csrc/gemm.cuh kRowBlocks, kRowWarps
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,10 +40,15 @@ SIGNATURES = {
     "smm_attention_block_bwd": [_I] + [_P] * 12 + [_F] + [_I] * 5 + _DROP + [_P] * 11,
     "smm_ffn_block": [_I] + [_P] * 7 + [_F] + [_I] * 6 + _DROP2 + [_P] * 5,
     "smm_ffn_block_bwd": [_I] + [_P] * 10 + [_F] + [_I] * 6 + _DROP2 + [_P] * 11,
+    # ..., out, stats [2, B*H*S] or null, stream
     "smm_deberta_attention": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                              _I, _I, _I, _I] + _DROP + [_P, _P],
-    "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                                  _I, _I, _I, _I] + _DROP + [_P] * 11 + [_I] + [_P] * 3,
+                              _I, _I, _I, _I] + _DROP + [_P] * 3,
+    # ..., gy, ctx, stats, delta, dq, dk, dv, g_rel, the two fold CSRs, rows, dpos_k, dpos_q,
+    # stream
+    "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I]
+                                 + _DROP + [_P] * 12 + [_I] + [_P] * 3,
+    # dtype, head width -> 1 (deberta_attention_fwd_wgmma.cu) or 0 (attention.cuh)
+    "smm_deberta_fwd_route": [_I, _I],
     # q, k, v, out, stats [2, B, H, Sq], bias, host strides; B, Sq, Sk, H, D; stream
     "smm_flash_attention": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, out, dout, stats [2, B, H, Sq], bias, delta, dq, dk, dv, ds, host strides
@@ -61,6 +66,15 @@ SIGNATURES = {
     "smm_gemm_route": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I],
     # tile width -> bytes of dynamic shared memory
     "smm_gemm_wgmma_smem": [_I],
+    # a, dy0, w1t, b1, w2t; M, E, F, S; seed, thresh, scale; h, dhp, part, db1; tile_n; stream
+    "smm_ffn_bwd_mm": [_P] * 5 + [_I] * 4 + _DROP + [_P] * 4 + [_I, _P],
+    # dtype, E, F -> 1 (the wgmma chain) or 0 (gemm.cuh's chain)
+    "smm_ffn_bwd_route": [_I, _I, _I],
+    # F -> the two-product kernel's tile width; tile width -> its dynamic shared memory
+    "smm_ffn_bwd_tile_n": [_I],
+    "smm_ffn_bwd_wgmma_smem": [_I],
+    # dy (f32), x, g; eps; M, E; add, dx, part, dln; stream
+    "smm_ln_bwd": [_P] * 3 + [_F] + [_I] * 2 + [_P] * 5,
     # dtype, head width, rel (0 attention_block, 1 deberta_attention) ->
     # 1 (the wgmma backward kernels) or 0 (attention_bwd.cuh)
     "smm_attention_bwd_route": [_I, _I, _I],
@@ -198,7 +212,19 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
+def row_partition(rows: int) -> tuple:
+    """(rows per block, blocks) of the row kernels that leave per-block column
+    partials (``csrc/gemm.cuh``: the LayerNorm backward, ``drop_cast_sum``):
+    contiguous row ranges, as many as two 256-thread blocks on each of 132
+    SMs, or one per eight rows where that is fewer."""
+    if rows <= 0:
+        return 1, 0
+    want = min(-(-rows // ROW_WARPS), ROW_BLOCKS)
+    per = -(-rows // want)
+    return per, -(-rows // per)
+
+
 def ln_bwd_blocks(rows: int) -> int:
     """Blocks of the LayerNorm backward: each writes one [2, E] partial of
-    the scale/bias gradients, summed in block order afterwards."""
-    return -(-rows // LN_BWD_ROWS)
+    the scale/bias gradients, folded in block order afterwards."""
+    return row_partition(rows)[1]

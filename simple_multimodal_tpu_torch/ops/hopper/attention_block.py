@@ -111,7 +111,7 @@ class AttentionBlockFn(torch.autograd.Function):
         B, S, E = x.shape
         M = B * S
         dt, dev = x.dtype, x.device
-        gy = gy.to(dt).contiguous()
+        gy = aligned16(gy.to(dt).contiguous())  # the LayerNorm backward reads 16-byte rows
         lib = _build.library()
         w_proj = [_flax_t(w) for w in (wq, wk, wv)]      # [out, in]: recompute q/k/v
         w_cat = torch.cat([wq, wk, wv], dim=1).contiguous()  # [E, 3E]: dxn
@@ -204,7 +204,8 @@ def attention_block(x, wq, bq, wk, bk, wv, bv, wo, bo, num_heads: int,
     ln_g = ln_b = None
     eps = 0.0
     if ln is not None:
-        ln_g, ln_b, eps = ln[0].to(dt), ln[1].to(dt), float(ln[2])
+        # 16-byte aligned: the LayerNorm backward reads them in 16-byte chunks
+        ln_g, ln_b, eps = aligned16(ln[0].to(dt)), aligned16(ln[1].to(dt)), float(ln[2])
     seed = _seed_tensor(dropout_seed, x.device) if rate else None
     return AttentionBlockFn.apply(x.contiguous(), *ws, ln_g, ln_b, seed, num_heads,
                                   eps, bool(residual), rate)

@@ -10,18 +10,20 @@ antisymmetric).
 Replaces the TPU kernels of simple_multimodal_tpu/ops/pallas/deberta_attention.py:
 the forward (``_kernel`` via ``_fused_call``) and the backward
 (``_bwd_kernel`` via ``_bwd_call``). On a CUDA tensor the wrapper runs
-``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``
-(one block per (query tile, head, batch) that gathers the position-table
-rows each key tile needs through the host-built index maps below), its
-backward ``csrc/deberta_attention_bwd.cu`` (in bf16 at head width 64: the
-wgmma kernels of ``csrc/deberta_attention_fwd_wgmma.cu``, the re-run, and of
-``csrc/deberta_attention_bwd_dq_wgmma.cu`` and
-``csrc/deberta_attention_bwd_dkv_wgmma.cu``, which form the two
-relative-position terms in the accumulator layout,
-``csrc/deberta_scores_wgmma.cuh``). On a CPU tensor it runs
-``deberta_attention_plain``, the port of that file's ``_xla_reference`` with
-a gather in place of the TPU's rel-shift skew, and autograd differentiates
-it.
+``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``,
+its backward ``csrc/deberta_attention_bwd.cu``. In bf16 at head width 64
+(``deberta_fwd_route``) the forward is the wgmma kernel of
+``csrc/deberta_attention_fwd_wgmma.cu``, which in training also keeps each
+row's maximum and sum, and the backward takes those and the output instead of
+re-running the forward; its other kernels are ``csrc/deberta_attention_bwd_dq_wgmma.cu``
+and ``csrc/deberta_attention_bwd_dkv_wgmma.cu``, which form the two
+relative-position terms in the accumulator layout (``csrc/deberta_scores_wgmma.cuh``).
+f32 and head widths 16 and 32 keep ``csrc/attention.cuh``'s kernel (one block
+per (query tile, head, batch) that gathers the position-table rows each key
+tile needs through the host-built index maps below), which the backward
+re-runs. On a CPU tensor it runs ``deberta_attention_plain``, the port of
+that file's ``_xla_reference`` with a gather in place of the TPU's rel-shift
+skew, and autograd differentiates it.
 """
 import functools
 import math
@@ -122,36 +124,41 @@ def deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span: int,
 
 class DebertaAttentionFn(torch.autograd.Function):
     """The CUDA forward and backward of the disentangled attention. Saves
-    only the inputs; the backward recomputes the probabilities."""
+    the inputs and, where the forward is the wgmma kernel and a backward
+    can follow (``keep``), its output and row statistics, which that
+    backward takes; else the backward re-runs the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pk, pq, mask, seed, span, max_position, rate):
+    def forward(ctx, q, k, v, pk, pq, mask, seed, span, max_position, rate, keep):
         B, S, H, D = q.shape
         lib = _build.library()
         idx_c, idx_p = _device_maps(S, span, max_position, q.device)[:2]
         out = torch.empty_like(q)
+        stats = torch.empty((2, B * H * S), dtype=torch.float32, device=q.device) if keep else None
         p = _build.ptr
         err = lib.smm_deberta_attention(
             _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
             p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
-            threshold(rate), _drop_scale(rate), p(out), _build.stream_ptr(q))
+            threshold(rate), _drop_scale(rate), p(out), p(stats), _build.stream_ptr(q))
         _build.check(lib, err, "deberta_attention")
         deberta_attention.launches += 1
-        ctx.save_for_backward(q, k, v, pk, pq, mask, seed)
+        ctx.save_for_backward(q, k, v, pk, pq, mask, seed, out if keep else None, stats)
         ctx.cfg = (span, max_position, rate)
         return out
 
     @staticmethod
     def backward(ctx, gy):
-        q, k, v, pk, pq, mask, seed = ctx.saved_tensors
+        q, k, v, pk, pq, mask, seed, out, stats = ctx.saved_tensors
         span, max_position, rate = ctx.cfg
         B, S, H, D = q.shape
         dev, f32 = q.device, torch.float32
         gy = aligned16(gy.to(q.dtype).contiguous())
         lib = _build.library()
         idx_c, idx_p, ord_c, off_c, ord_p, off_p = _device_maps(S, span, max_position, dev)
-        ctx_buf = torch.empty_like(q)
-        stats = torch.empty((3, B * H * S), dtype=f32, device=dev)
+        if stats is None:  # attention.cuh's forward: scratch the backward re-runs it into
+            out = torch.empty_like(q)
+            stats = torch.empty((2, B * H * S), dtype=f32, device=dev)
+        delta = torch.empty((B * H * S,), dtype=f32, device=dev)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         g_rel = torch.empty(rel_scratch_shape(q.dtype, B, S, H, D), dtype=f32, device=dev)
         dpk = torch.empty((2 * span, H * D), dtype=f32, device=dev)
@@ -160,13 +167,20 @@ class DebertaAttentionFn(torch.autograd.Function):
         err = lib.smm_deberta_attention_bwd(
             _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
             p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
-            threshold(rate), _drop_scale(rate), p(gy), p(ctx_buf), p(stats), p(dq),
+            threshold(rate), _drop_scale(rate), p(gy), p(out), p(stats), p(delta), p(dq),
             p(dk), p(dv), p(g_rel), p(ord_c), p(off_c), p(ord_p), p(off_p), 2 * span,
             p(dpk), p(dpq), _build.stream_ptr(q))
         _build.check(lib, err, "deberta_attention_bwd")
         deberta_attention_bwd.launches += 1
         return (dq, dk, dv, dpk.to(pk.dtype), dpq.to(pq.dtype), None, None, None,
-                None, None)
+                None, None, None)
+
+
+def deberta_fwd_route(dtype: torch.dtype, head_width: int) -> int:
+    """Which body the forward runs, as ``smm_deberta_fwd_route`` reports it:
+    1 for the wgmma kernel (bf16 at head width 64, the rule that picks the
+    backward's body, ``attention_bwd_route``), 0 for ``csrc/attention.cuh``'s."""
+    return attention_bwd_route(dtype, head_width, True)
 
 
 def rel_scratch_shape(dtype, B: int, S: int, H: int, D: int) -> tuple:
@@ -237,7 +251,10 @@ def deberta_attention(q, k, v, pos_k, pos_q,
     else:
         mask = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
     seed = _seed_tensor(dropout_seed, q.device) if rate else None
-    return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate)
+    # the forward keeps its output and row statistics where the backward takes them
+    keep = bool(deberta_fwd_route(dt, D) and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (q, k, v, pk, pq)))
+    return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate, keep)
 
 
 def deberta_attention_bwd():

@@ -25,7 +25,9 @@ import torch.nn.functional as F
 from . import _build
 from .attention_block import _drop_scale, _flax_t, _seed_tensor
 from .dropout import SALT_MID, SALT_OUT, apply_keep, ffn_keep, threshold
-from .gemm import aligned16
+from .gemm import aligned16, gelu_grad
+
+STRIP = 128  # rows of the two-product kernel's block tile: one db1 partial per strip
 
 
 def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
@@ -62,6 +64,123 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
         g, b, eps = ln
         y = F.layer_norm(y, (E,), g.float(), b.float(), eps)
     return y.to(x.dtype)
+
+
+def ffn_bwd_route(dtype: torch.dtype, E: int, Fd: int) -> int:
+    """Which chain ``FFNBlockFn.backward`` runs, as ``ffn_bwd_wgmma_takes``
+    (``csrc/ffn_block_bwd_wgmma.cuh``) decides it and ``smm_ffn_bwd_route``
+    reports it: 1 for the wgmma chain (bf16, E and F multiples of 64: every
+    base-width site), 0 for the chain of ``csrc/gemm.cuh``'s kernels (f32,
+    the tiny preset's widths)."""
+    return int(dtype == torch.bfloat16 and 0 < E <= 1024 and Fd > 0
+               and E % 64 == 0 and Fd % 64 == 0)
+
+
+def ffn_bwd_part_floats(route: int, M: int, E: int, Fd: int) -> int:
+    """Floats of the backward's partials buffer: the LayerNorm backward's
+    [row blocks, 2E] and, on the wgmma chain, db1's [strips, F] and db2's
+    [row blocks, E] after it (``run_wgmma`` in ``csrc/ffn_block_bwd.cu``)."""
+    blocks = _build.row_partition(M)[1]
+    ln = blocks * 2 * E
+    return ln + -(-M // STRIP) * Fd + blocks * E if route else ln
+
+
+def fold_columns(part: torch.Tensor) -> torch.Tensor:
+    """``fold_columns_kernel`` (``csrc/gemm.cuh``) in PyTorch, in its order:
+    part [rows, C] f32 → [C], eight contiguous eighths of the rows each
+    summed in row order, then the eight sums in order."""
+    rows = part.shape[0]
+    sums = []
+    for w in range(8):
+        s = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
+        for r in range(rows * w // 8, rows * (w + 1) // 8):
+            s = s + part[r]
+        sums.append(s)
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out
+
+
+def strip_partials(v: torch.Tensor) -> torch.Tensor:
+    """db1's partials as the two-product kernel leaves them: [M, F] →
+    [ceil(M / 128), F], the column sums of each 128-row strip."""
+    M, C = v.shape
+    pad = torch.zeros((-M % STRIP, C), dtype=v.dtype, device=v.device)
+    return torch.cat([v, pad]).reshape(-1, STRIP, C).sum(1)
+
+
+def row_block_partials(v: torch.Tensor) -> torch.Tensor:
+    """The partials of the row kernels (LayerNorm backward, drop_cast_sum):
+    [M, C] → [row blocks, C], the column sums of each block's contiguous
+    rows (``_build.row_partition``)."""
+    per, blocks = _build.row_partition(v.shape[0])
+    return torch.stack([v[b * per:(b + 1) * per].sum(0) for b in range(blocks)])
+
+
+def _ln_bwd_rows(dy, x, g, eps):
+    """The LayerNorm backward of the row kernel on f32 rows: (dx, dln [2, E])
+    with dln the fold of its per-block partials."""
+    E = x.shape[1]
+    xc = x - x.mean(1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
+    xh, dh = xc * rstd, dy * g
+    dx = rstd * (dh - dh.mean(1, keepdim=True) - xh * (dh * xh).mean(1, keepdim=True))
+    part = row_block_partials(torch.cat([dy * xh, dy], 1))
+    return dx, fold_columns(part).reshape(2, E)
+
+
+def ffn_block_bwd_plain(x, w1, b1, w2, b2, gy, ln: Optional[tuple] = None,
+                        ln_post: bool = False, residual: bool = True,
+                        dropout_rate_mid: float = 0.0, dropout_rate_out: float = 0.0,
+                        dropout_seed=None):
+    """The wgmma chain of ``csrc/ffn_block_bwd.cu`` step by step in PyTorch,
+    in f32 with x's dtype where the chain rounds: (dx, dw1, db1, dw2, db2,
+    dln_g, dln_b), the bias and LayerNorm gradients folded from the kernels'
+    partials (``strip_partials``, ``row_block_partials``, ``fold_columns``).
+    Same arguments as ``ffn_block`` plus the cotangent ``gy``."""
+    f32, dt = torch.float32, x.dtype
+    B, S, E = x.shape
+    Fd, M = w1.shape[1], B * S
+    tanh = dt == torch.bfloat16
+
+    def drop(v, salt, rate):
+        if not rate:
+            return v
+        keep = ffn_keep(dropout_seed, salt, B, S, v.shape[1], rate, device=x.device)
+        return apply_keep(v, keep.reshape(M, -1), rate)
+
+    def gelu(v):
+        return F.gelu(v, approximate="tanh" if tanh else "none")
+
+    xf, g = x.reshape(M, E).float(), gy.reshape(M, E).to(dt).float()
+    w1f, b1f, w2f, b2f = w1.to(dt).float(), b1.to(dt).float(), w2.to(dt).float(), b2.to(dt).float()
+    lg, lb, eps = (ln[0].to(dt).float(), ln[1].to(dt).float(), ln[2]) if ln is not None else (None,) * 3
+    dln = None
+    a = xf
+    if ln is not None and not ln_post:
+        a = F.layer_norm(xf, (E,), lg, lb, eps).to(dt).float()
+    dy1 = g
+    if ln is not None and ln_post:
+        h = drop(gelu(a @ w1f + b1f), SALT_MID, dropout_rate_mid).to(dt).float()
+        y = drop(h @ w2f + b2f, SALT_OUT, dropout_rate_out) + (xf if residual else 0.0)
+        dy1, dln = _ln_bwd_rows(g, y, lg, eps)
+    dy0 = drop(dy1, SALT_OUT, dropout_rate_out)
+    db2 = fold_columns(row_block_partials(dy0))
+    dy0 = dy0.to(dt).float()
+    hpre = a @ w1f + b1f
+    h = drop(gelu(hpre), SALT_MID, dropout_rate_mid).to(dt).float()
+    dhp = (drop(dy0 @ w2f.t(), SALT_MID, dropout_rate_mid) * gelu_grad(hpre, tanh)).to(dt).float()
+    db1 = fold_columns(strip_partials(dhp))
+    dxn = dhp @ w1f.t()
+    if ln is not None and not ln_post:
+        dx, dln = _ln_bwd_rows(dxn, xf, lg, eps)
+        dx = dx + g if residual else dx
+    else:
+        dx = dxn + dy1 if residual else dxn
+    out = [dx.reshape(B, S, E), a.t() @ dhp, db1, h.t() @ dy0, db2]
+    out += [None, None] if dln is None else [dln[0], dln[1]]
+    return tuple(None if t is None else t.to(dt) for t in out)
 
 
 def _ln_mode(ln_g, ln_post: bool) -> int:
@@ -110,23 +229,27 @@ class FFNBlockFn(torch.autograd.Function):
         Fd = w1.shape[1]
         M = B * S
         dt, dev, f32 = x.dtype, x.device, torch.float32
-        gy = gy.to(dt).contiguous()
+        gy = aligned16(gy.to(dt).contiguous())
         lib = _build.library()
         mode = _ln_mode(ln_g, ln_post)
-        xn = torch.empty((M, E), dtype=dt, device=dev) if mode == 1 else None
-        hpre = torch.empty((M, Fd), dtype=f32, device=dev)
-        h = torch.empty((M, Fd), dtype=dt, device=dev)
-        y32 = torch.empty((M, E), dtype=f32, device=dev) if mode == 2 else None
-        dy0 = torch.empty((M, E), dtype=dt, device=dev)
-        dhp = torch.empty((M, Fd), dtype=dt, device=dev)
-        dxn = torch.empty((M, E), dtype=f32, device=dev) if mode == 1 else None
-        dx = torch.empty((M, E), dtype=dt, device=dev)
-        part = (torch.empty((_build.ln_bwd_blocks(M), 2 * E), dtype=f32, device=dev)
-                if mode else None)
-        dln = torch.empty((2, E), dtype=f32, device=dev) if mode else None
-        # operands referenced until the launch: torch layout for the
-        # recompute, flax layout (K-major) for dh and dxn
-        w1t, w2t, w1f, w2f = _flax_t(w1), _flax_t(w2), w1.contiguous(), w2.contiguous()
+        route = ffn_bwd_route(dt, E, Fd)
+
+        def empty(shape, dtype=dt, when=True):
+            return torch.empty(shape, dtype=dtype, device=dev) if when else None
+
+        xn = empty((M, E), when=mode == 1)
+        hpre = empty((M, Fd), f32, when=not route)  # the wgmma chain keeps it in registers
+        h, dy0, dhp, dx = empty((M, Fd)), empty((M, E)), empty((M, Fd)), empty((M, E))
+        y32 = empty((M, E), f32, when=mode == 2)
+        dxn = empty((M, E), f32, when=mode == 1)
+        part = empty((ffn_bwd_part_floats(route, M, E, Fd),), f32, when=bool(route or mode))
+        dsum = empty((2 * E + (Fd + E if route else 0),), f32, when=bool(route or mode))
+        # operands referenced until the launch: torch layout (the model's own, no
+        # copy there) for the recompute and, on the wgmma chain, for both
+        # products of the two-product kernel (W2 read MN-major); flax layout
+        # (K-major) for dxn and, on the gemm.cuh chain, dh
+        w1t, w2t, w1f = _flax_t(w1), _flax_t(w2), aligned16(w1.contiguous())
+        w2f = None if route else aligned16(w2.contiguous())
         p = _build.ptr
         err = lib.smm_ffn_block_bwd(
             _build.dtype_code(x), p(x), p(gy), p(w1t), p(b1), p(w2t),
@@ -135,20 +258,22 @@ class FFNBlockFn(torch.autograd.Function):
             threshold(rate_mid), _drop_scale(rate_mid), int(rate_mid > 0),
             threshold(rate_out), _drop_scale(rate_out), int(rate_out > 0),
             p(xn), p(hpre), p(h), p(y32), p(dy0), p(dhp), p(dxn), p(dx), p(part),
-            p(dln), _build.stream_ptr(x))
+            p(dsum), _build.stream_ptr(x))
         _build.check(lib, err, "ffn_block_bwd")
         ffn_block_bwd.launches += 1
         # weight grads: (B, S)-contractions outside the kernel, as in the JAX
-        # _ffn_bwd
+        # _ffn_bwd; the bias sums are the chain's folds on the wgmma chain
         xin = xn if mode == 1 else x.reshape(M, E)
         dw1 = (xin.t() @ dhp).to(w1.dtype)
-        db1 = dhp.float().sum(0).to(b1.dtype)
         dw2 = (h.t() @ dy0).to(w2.dtype)
-        db2 = dy0.float().sum(0).to(b2.dtype)
-        dln_g = dln[0].to(ln_g.dtype) if mode else None
-        dln_b = dln[1].to(ln_b.dtype) if mode else None
-        return (dx.reshape(B, S, E), dw1, db1, dw2, db2, dln_g, dln_b, None, None,
-                None, None, None, None)
+        if route:
+            db1, db2 = dsum[2 * E:2 * E + Fd], dsum[2 * E + Fd:]
+        else:
+            db1, db2 = dhp.float().sum(0), dy0.float().sum(0)
+        dln_g = dsum[:E].to(ln_g.dtype) if mode else None
+        dln_b = dsum[E:2 * E].to(ln_b.dtype) if mode else None
+        return (dx.reshape(B, S, E), dw1, db1.to(b1.dtype), dw2, db2.to(b2.dtype), dln_g, dln_b,
+                None, None, None, None, None, None)
 
 
 def ffn_block(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
@@ -187,7 +312,8 @@ def ffn_block(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
     ln_g = ln_b = None
     eps = 0.0
     if ln is not None:
-        ln_g, ln_b, eps = ln[0].to(dt), ln[1].to(dt), float(ln[2])
+        # 16-byte aligned: the LayerNorm backward reads them in 16-byte chunks
+        ln_g, ln_b, eps = aligned16(ln[0].to(dt)), aligned16(ln[1].to(dt)), float(ln[2])
     seed = _seed_tensor(dropout_seed, x.device) if (rate_mid or rate_out) else None
     return FFNBlockFn.apply(x.contiguous(), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt),
                             ln_g, ln_b, seed, eps, bool(ln_post), bool(residual),

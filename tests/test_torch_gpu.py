@@ -628,3 +628,63 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
     want = fb.ffn_block_plain(*[t.float() for t in (x, w1, b1, w2, b2)], ln=ln32,
                               dropout_rate_mid=0.1, dropout_rate_out=0.1, dropout_seed=11)
     torch.testing.assert_close(ffn(11).float(), want, atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("ln_mode", ["none", "pre", "post"])
+def test_cuda_ffn_backward_matches_its_plain_chain(cuda, ln_mode):
+    """The wgmma chain of the FFN backward (bf16, E and F in multiples of 64)
+    with both dropouts at ragged rows (3 x 45 = 135) against
+    ``ffn_block_bwd_plain``, the same chain step by step in PyTorch on the
+    same bf16 inputs: every gradient within 5e-2 of its largest magnitude."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, E, Fd = 3, 45, 128, 256
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * std).to(torch.bfloat16)
+
+    args = [rn(B, S, E), rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(Fd, E, std=Fd ** -0.5),
+            rn(E, std=0.1)]
+    lnp = [(1.0 + rn(E, std=0.1).float()).to(torch.bfloat16), rn(E, std=0.1)]
+    if ln_mode != "none":
+        args += lnp
+    args = [a.requires_grad_() for a in args]
+    gy = rn(B, S, E)
+    kw = dict(ln_post=ln_mode == "post", residual=True, dropout_rate_mid=0.1,
+              dropout_rate_out=0.1, dropout_seed=7)
+    ln = None if ln_mode == "none" else (args[5], args[6], 1e-5)
+    assert fb.ffn_bwd_route(torch.bfloat16, E, Fd) == 1
+    out = fb.ffn_block(*args[:5], ln=ln, **kw)
+    got = torch.autograd.grad(out, args, gy)
+    want = fb.ffn_block_bwd_plain(*[a.detach() for a in args[:5]], gy, ln=None if ln is None else (
+        args[5].detach(), args[6].detach(), 1e-5), **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        ref = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 5e-2 * ref, f"gradient {i}"
+
+
+@pytest.mark.parametrize("S", [130, 512])
+def test_cuda_deberta_training_forward_equals_eval_forward(cuda, S):
+    """bf16 at head width 64: the forward that keeps its row statistics for
+    the backward gives the eval forward's bits, padded and all-masked rows
+    included, and its gradients match autograd of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, H, D, span = 3, 2, 64, 256
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    pk, pq = (torch.randn(2 * span, H * D, generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[1, S // 2:] = 0
+    mask[2] = 0
+    kw = dict(span=span, max_position=512, dropout_rate=0.1, dropout_seed=11)
+    with torch.no_grad():
+        ev = da.deberta_attention(q, k, v, pk, pq, mask, **kw)
+    ts = [t.clone().requires_grad_() for t in (q, k, v, pk, pq)]
+    out = da.deberta_attention(*ts, mask, **kw)
+    assert torch.equal(out, ev)
+    gy = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+    got = torch.autograd.grad(out, ts, gy)
+    t32 = [t.detach().float().requires_grad_() for t in ts]
+    want = torch.autograd.grad(da.deberta_attention_plain(*t32, mask, **kw), t32, gy.float())
+    for a, b in zip(got, want):
+        assert float((a.float() - b).abs().max()) <= 5e-2 * float(b.abs().max())
