@@ -25,7 +25,7 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
    backwards of attention_block, ffn_block and deberta_attention in bf16
    also without dropout, each with the body its backward takes printed and
    asserted (the wgmma kernels in bf16 at head width 64 or, for ffn_block,
-   E and F in multiples of 64; the older bodies otherwise), DeBERTa's
+   E in multiples of 64 and F of 128; the older bodies otherwise), DeBERTa's
    forward body too, its training forward (which keeps the row statistics
    the backward takes) bit-equal to its eval forward, the first case's
    device profile showing one two-product kernel and one row LayerNorm
@@ -77,7 +77,8 @@ Phase 1 also runs the exact self-test of the shared Hopper building blocks
 and prints ptxas' registers and spill bytes and the dynamic shared memory of
 every wgmma kernel (the flash-attention kernels, the attention core's
 dropout variants forward and backward, deberta_attention's forward and
-backward pair, the GEMM's and the FFN backward's two tile shapes) and the
+backward pair, the GEMM's two tile shapes and the FFN backward's two-product
+kernel) and the
 row kernels of the FFN and LayerNorm backwards; a spill or a serialized-wgmma
 warning there fails the run. It prints what encoding one TMA tensor map
 costs on the host (the wgmma chains build theirs per call).
@@ -94,8 +95,8 @@ a run of back-to-back calls, the TFLOP/s that is, and ``F.linear`` in bf16
 timed the same way beside it: a yardstick the port never calls.
 
 After the GEMM phase, the FFN backward's two-product kernel alone
-(``smm_ffn_bwd_mm``, ``csrc/ffn_block_bwd_wgmma.cu``) at both tiles, with
-and without dropout, against a plain f32 expression at M in {47280, 3992,
+(``smm_ffn_bwd_mm``, ``csrc/ffn_block_bwd_wgmma.cu``), with and without
+dropout, against a plain f32 expression at M in {47280, 3992,
 130} (``ffn_bwd two-product`` lines: h and dh_pre at 3e-2, db1 the fold of
 its partials, dropped positions, two runs bit-equal, device time and
 TFLOP/s), and the LayerNorm backward alone (``smm_ln_bwd``) against autograd
@@ -474,12 +475,12 @@ def _forward_route(args, dtype) -> str:
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
-    from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import deberta_fwd_route
+    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
     D = args[0].shape[-1]
-    route = _build.library().smm_deberta_fwd_route(int(dtype == torch.bfloat16), D)
+    route = _build.library().smm_attention_wgmma_route(int(dtype == torch.bfloat16), D, 1)
     want = int(dtype == torch.bfloat16 and D == 64)
-    if route != want or deberta_fwd_route(dtype, D) != want:
+    if route != want or attention_wgmma_route(dtype, D, True) != want:
         raise AssertionError(f"deberta_attention forward at head width {D} in {dtype}: route "
                              f"{route}, expected {want}")
     return "wgmma" if route else "wmma/f32"
@@ -958,14 +959,14 @@ def _backward_route(name, args, kw_fn, dtype) -> int:
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
-    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_bwd_route
+    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
     if name == "ffn_block":
         from simple_multimodal_tpu_torch.ops.hopper.ffn_block import ffn_bwd_route
 
         E, Fd = args[0].shape[-1], args[1].shape[1]
         route = _build.library().smm_ffn_bwd_route(int(dtype == torch.bfloat16), E, Fd)
-        want = int(dtype == torch.bfloat16 and E % 64 == 0 and Fd % 64 == 0)
+        want = int(dtype == torch.bfloat16 and E % 64 == 0 and Fd % 128 == 0)
         if route != want or ffn_bwd_route(dtype, E, Fd) != want:
             raise AssertionError(f"ffn_block backward at [{E}, {Fd}] in {dtype}: route {route}, "
                                  f"expected {want}")
@@ -974,9 +975,9 @@ def _backward_route(name, args, kw_fn, dtype) -> int:
         D, rel = args[0].shape[-1] // kw_fn(None, None, None).get("num_heads", 12), False
     else:
         D, rel = args[0].shape[-1], True
-    route = _build.library().smm_attention_bwd_route(int(dtype == torch.bfloat16), D, int(rel))
+    route = _build.library().smm_attention_wgmma_route(int(dtype == torch.bfloat16), D, int(rel))
     want = int(dtype == torch.bfloat16 and (D == 64 or (D == 128 and not rel)))
-    if route != want or attention_bwd_route(dtype, D, rel) != want:
+    if route != want or attention_wgmma_route(dtype, D, rel) != want:
         raise AssertionError(f"{name} backward at head width {D} in {dtype}: route {route}, "
                              f"expected {want}")
     return route
@@ -1524,8 +1525,8 @@ WGMMA_KERNELS = {
     "flash_bwd_dq_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(1, n)),
     "flash_bwd_dkv_wgmma_kernel": (8, lambda lib, n, flags: lib.smm_flash_wgmma_smem(2, n)),
     "gemm_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_gemm_wgmma_smem(n)),
-    # <tile width>: ffn_block's backward, the two products over one [M, F] tile
-    "ffn_bwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_ffn_bwd_wgmma_smem(n)),
+    # ffn_block's backward, the two products over one [M, F] tile (no template)
+    "ffn_bwd_wgmma_kernel": (1, lambda lib, n, flags: lib.smm_ffn_bwd_wgmma_smem()),
     # <dropout>: deberta_attention's forward, the backward's pair
     "deberta_fwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(2)),
     "deberta_bwd_dq_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(0)),
@@ -1553,18 +1554,20 @@ def _report_wgmma_kernels(_build):
     found = dict.fromkeys(WGMMA_KERNELS, 0)
     for i, line in enumerate(lines):
         m = re.search(r"Compiling entry function '\S*?(" + "|".join(WGMMA_KERNELS)
-                      + r")I((?:L[bi]\d+E)+)", line)
+                      + r")(?:I((?:L[bi]\d+E)+))?", line)
         if not m:
             continue
-        # the template arguments: a leading integer (head width, tile width), then flags
-        kernel, targs = m.group(1), re.findall(r"L([bi])(\d+)E", m.group(2))
-        n = int(targs[0][1]) if targs[0][0] == "i" else 0
-        flags = "".join(v for _, v in (targs[1:] if targs[0][0] == "i" else targs))
+        # the template arguments, if any: a leading integer (head width, tile width), then flags
+        kernel, targs = m.group(1), re.findall(r"L([bi])(\d+)E", m.group(2) or "")
+        lead = bool(targs) and targs[0][0] == "i"
+        n = int(targs[0][1]) if lead else 0
+        flags = "".join(v for _, v in (targs[1:] if lead else targs))
         block = " ".join(x.strip() for x in lines[i + 1:i + 4])
         regs = re.search(r"Used (\d+) registers", block)
         spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
         smem = WGMMA_KERNELS[kernel][1](lib, n, flags)
-        log(f"wgmma kernel {kernel}<{n or ''}{', ' if n and flags else ''}{flags}>: "
+        targ = f"<{n or ''}{', ' if n and flags else ''}{flags}>" if targs else ""
+        log(f"wgmma kernel {kernel}{targ}: "
             f"{regs.group(1) if regs else '?'} registers, spill bytes {spill}, "
             f"dynamic shared memory {smem} bytes")
         found[kernel] += 1
@@ -1683,9 +1686,9 @@ def phase_gemm(dev):
         f"on {smi_line()}")
 
 
-def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile_n, store_h=True):
+def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate):
     """One launch of the FFN backward's two-product kernel alone
-    (``smm_ffn_bwd_mm``): (h or None, dhp, part, db1)."""
+    (``smm_ffn_bwd_mm``): (h, dhp, part, db1)."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
@@ -1693,7 +1696,7 @@ def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile_n, store_h=True):
 
     (M, E), Fd = a.shape, w1t.shape[0]
     dev, p = a.device, _build.ptr
-    h = torch.empty(M, Fd, dtype=torch.bfloat16, device=dev) if store_h else None
+    h = torch.empty(M, Fd, dtype=torch.bfloat16, device=dev)
     dhp = torch.empty(M, Fd, dtype=torch.bfloat16, device=dev)
     part = torch.empty(-(-M // 128), Fd, device=dev)
     db1 = torch.empty(Fd, device=dev)
@@ -1701,14 +1704,14 @@ def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile_n, store_h=True):
     lib = _build.library()
     err = lib.smm_ffn_bwd_mm(p(a), p(dy0), p(w1t), p(b1), p(w2t), M, E, Fd, S, p(seed),
                              threshold(rate), 1.0 / (1.0 - rate), p(h), p(dhp), p(part), p(db1),
-                             tile_n, _build.stream_ptr(a))
+                             _build.stream_ptr(a))
     _build.check(lib, err, "ffn_bwd_mm")
     return h, dhp, part, db1
 
 
 def phase_ffn_bwd_kernels(dev):
-    """The FFN backward's two-product kernel alone, both tiles, with and
-    without the mid dropout, against a plain f32 expression on the same bf16
+    """The FFN backward's two-product kernel alone, with and without the
+    mid dropout, against a plain f32 expression on the same bf16
     inputs (h and dh_pre bf16: atol=rtol=3e-2; db1, the fold of the kernel's
     per-strip partials, bit-equal to ``ffn_block.fold_columns`` of those
     partials and within 1e-3 of the f32 sum of the kernel's own dh_pre; the
@@ -1737,7 +1740,6 @@ def phase_ffn_bwd_kernels(dev):
         a, dy0 = rn(M, E).to(bf16), rn(M, E).to(bf16)
         hpre = a.float() @ w1t.float().t() + b1.float()
         dh = dy0.float() @ w2t.float()
-        rule = lib.smm_ffn_bwd_tile_n(Fd)
         text = ""
         for rate in (DROP_RATE, 0.0):
             keep = (ffn_keep(DROP_SEED, SALT_MID, -(-M // S), S, Fd, rate,
@@ -1747,35 +1749,33 @@ def phase_ffn_bwd_kernels(dev):
             want_d = dh * gelu_grad(hpre, True)
             if rate:
                 want_h, want_d = want_h * keep * sc, want_d * keep * sc
-            for tile in (64, 128):
-                h, dhp, part, db1 = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile)
-                again = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile)
-                sync()
-                err_h = float((h.float() - want_h).abs().max())
-                err_d = float((dhp.float() - want_d).abs().max())
-                ok = bool(torch.allclose(h.float(), want_h, atol=ATOL_BF16, rtol=ATOL_BF16)
-                          and torch.allclose(dhp.float(), want_d, atol=ATOL_BF16, rtol=ATOL_BF16))
-                folded = torch.equal(db1, fb.fold_columns(part))
-                plain_sum = dhp.float().sum(0)
-                err_b = float((db1 - plain_sum).abs().max()) / float(plain_sum.abs().max())
-                same = all(bool(torch.equal(x, y)) for x, y in zip((h, dhp, part, db1), again))
-                wrong = 0
-                if rate:  # dropped: exactly zero; kept: zero only by chance
-                    wrong = int(((h != 0) & ~keep).sum() + ((dhp != 0) & ~keep).sum())
-                    zero = int(((h == 0) & keep & (want_h.abs() > 1e-3)).sum())
-                    ok = ok and zero <= 1 + M * Fd // 10 ** 6
-                ok = ok and folded and err_b <= 1e-3 and same and not wrong
-                ms = _back_to_back_ms(lambda: _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate, tile))
-                text += (f" | rate={rate} tile_n={tile}: err h={err_h:.2e} dhp={err_d:.2e} "
-                         f"db1 rel={err_b:.1e} fold_bit_equal={folded} bit_equal={same} "
-                         f"wrongly_kept={wrong} ms={ms:.4f} "
-                         f"{4.0 * M * E * Fd / ms / 1e9:.0f} TFLOP/s")
-                if not ok:
-                    raise AssertionError(f"ffn_bwd two-product [{M},{E},{Fd}] rate={rate} "
-                                         f"tile_n={tile}: {text.split(' | ')[-1]}")
-                del h, dhp, part, db1, again
-            del want_h, want_d, keep
-        log(f"ffn_bwd two-product [{M},{E},{Fd}] rule tile_n={rule}{text}")
+            h, dhp, part, db1 = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate)
+            again = _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate)
+            sync()
+            err_h = float((h.float() - want_h).abs().max())
+            err_d = float((dhp.float() - want_d).abs().max())
+            ok = bool(torch.allclose(h.float(), want_h, atol=ATOL_BF16, rtol=ATOL_BF16)
+                      and torch.allclose(dhp.float(), want_d, atol=ATOL_BF16, rtol=ATOL_BF16))
+            folded = torch.equal(db1, fb.fold_columns(part))
+            plain_sum = dhp.float().sum(0)
+            err_b = float((db1 - plain_sum).abs().max()) / float(plain_sum.abs().max())
+            same = all(bool(torch.equal(x, y)) for x, y in zip((h, dhp, part, db1), again))
+            wrong = 0
+            if rate:  # dropped: exactly zero; kept: zero only by chance
+                wrong = int(((h != 0) & ~keep).sum() + ((dhp != 0) & ~keep).sum())
+                zero = int(((h == 0) & keep & (want_h.abs() > 1e-3)).sum())
+                ok = ok and zero <= 1 + M * Fd // 10 ** 6
+            ok = ok and folded and err_b <= 1e-3 and same and not wrong
+            ms = _back_to_back_ms(lambda: _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate))
+            text += (f" | rate={rate}: err h={err_h:.2e} dhp={err_d:.2e} "
+                     f"db1 rel={err_b:.1e} fold_bit_equal={folded} bit_equal={same} "
+                     f"wrongly_kept={wrong} ms={ms:.4f} "
+                     f"{4.0 * M * E * Fd / ms / 1e9:.0f} TFLOP/s")
+            if not ok:
+                raise AssertionError(f"ffn_bwd two-product [{M},{E},{Fd}] rate={rate}: "
+                                     f"{text.split(' | ')[-1]}")
+            del h, dhp, part, db1, again, want_h, want_d, keep
+        log(f"ffn_bwd two-product [{M},{E},{Fd}]{text}")
         del a, dy0, hpre, dh
         torch.cuda.empty_cache()
     log(f"ffn_bwd times above: device time per call in a run of 10 back-to-back calls, bf16, "

@@ -54,14 +54,13 @@ constexpr int kAttnThreads = 128;
 // rel = false; deberta_attention's: rel = true): true = the wgmma kernels
 // (the backwards: attention_core_bwd_wgmma.cu, deberta_attention_bwd_{dq,
 // dkv}_wgmma.cu; deberta_attention's forward: deberta_attention_fwd_wgmma.cu),
-// false = attention_bwd.cuh's backwards and
-// this file's forward. One rule, from the element type and the head width
-// alone: bf16 at D = 64, and at 128 without the position tables. (At these
+// false = attention_bwd.cuh's backwards and this file's forward. One rule,
+// forward and backward, from the element type and the head width alone: bf16 at D = 64, and at 128 without the position tables. (At these
 // widths a token's row is a multiple of 64 elements, so the tensor maps'
 // 16-byte strides hold; the wrappers see to 16-byte aligned bases.) The bf16
 // bodies of attention_bwd.cuh, and this file's bf16 body with the position
 // tables at D = 64, are therefore not instantiated at those widths.
-constexpr bool attention_bwd_wgmma_takes(bool is_bf16, int D, bool rel) {
+constexpr bool attention_wgmma_takes(bool is_bf16, int D, bool rel) {
   return is_bf16 && (D == 64 || (D == 128 && !rel));
 }
 
@@ -541,7 +540,7 @@ static inline int launch_attention(const AttnArgs& a, int B, int D, cudaStream_t
     case 16: return launch_attention_d<T, 16, REL>(a, B, st);
     case 32: return launch_attention_d<T, 32, REL>(a, B, st);
     case 64:  // deberta_attention's bf16 core at 64 is deberta_attention_fwd_wgmma.cu
-      if constexpr (attention_bwd_wgmma_takes(std::is_same<T, bf16>::value, 64, REL) && REL)
+      if constexpr (attention_wgmma_takes(std::is_same<T, bf16>::value, 64, REL) && REL)
         return (int)cudaErrorInvalidValue;
       else return launch_attention_d<T, 64, REL>(a, B, st);
     case 128:  // the two staged position tables do not fit next to D = 128

@@ -15,7 +15,7 @@
 // What bounds it on this card: operations (the five GEMMs, 3 projections +
 // da + dxn = 16 rows E^2 FLOP, and the core's nine S S D products per
 // head). What the design does about it, in bf16 at head widths 64 and 128
-// (`attention_bwd_wgmma_takes`, attention_bwd.cuh): the GEMMs are the
+// (`attention_wgmma_takes`, attention.cuh): the GEMMs are the
 // wgmma/TMA GEMM (gemm_wgmma.cu); the re-run of the forward core is the
 // wgmma forward kernel itself (attention_core_wgmma.cu), asked for the row
 // maximum and sum beside the context; delta = rowsum(da . ctx) per head is
@@ -63,7 +63,7 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
   float* m = stats;
   float* l = stats + BHS;
   float* delta = stats + 2 * BHS;
-  if (attention_bwd_wgmma_takes(sizeof(T) == 2, D, false)) {
+  if (attention_wgmma_takes(sizeof(T) == 2, D, false)) {
     // q, k, v and dq, dk, dv as [B, S, H, D] views of the packed buffers
     // (token stride 3E), the context and da with token stride E
     const RowStrides packed{(long long)S * 3 * E, 3 * E}, rows{(long long)S * E, E};
@@ -157,10 +157,11 @@ extern "C" int smm_attention_block_bwd(int dtype, const void* x, const void* gy,
                     E, H, drop, xn, qkv, da, a, stats, dqkv, dxn, dx, part, dln, st);
 }
 
-// The body the attention backward of a call takes: 1 = the wgmma kernels,
-// 0 = attention_bwd.cuh's (dtype: 0 = f32, 1 = bf16; D the head width; rel:
-// 1 for deberta_attention, 0 for attention_block). The rule the chains
-// apply, for checks.
-extern "C" int smm_attention_bwd_route(int dtype, int D, int rel) {
-  return attention_bwd_wgmma_takes(dtype == 1, D, rel != 0) ? 1 : 0;
+// The body an attention core of a call takes: 1 = the wgmma kernels, 0 =
+// attention_bwd.cuh's backwards and attention.cuh's forward (dtype: 0 = f32,
+// 1 = bf16; D the head width; rel: 1 for deberta_attention, whose forward
+// and backward both follow it, 0 for attention_block's backward). The rule
+// the chains apply, for checks.
+extern "C" int smm_attention_wgmma_route(int dtype, int D, int rel) {
+  return attention_wgmma_takes(dtype == 1, D, rel != 0) ? 1 : 0;
 }

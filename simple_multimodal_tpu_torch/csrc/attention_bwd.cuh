@@ -1192,11 +1192,11 @@ static inline int launch_attention_bwd(const AttnBwdArgs& a, int B, int D, cudaS
     case 16: return launch_attention_bwd_d<T, 16, REL>(a, B, st);
     case 32: return launch_attention_bwd_d<T, 32, REL>(a, B, st);
     case 64:
-      if constexpr (attention_bwd_wgmma_takes(is_bf16, 64, REL))
+      if constexpr (attention_wgmma_takes(is_bf16, 64, REL))
         return (int)cudaErrorInvalidValue;
       else return launch_attention_bwd_d<T, 64, REL>(a, B, st);
     case 128:  // the two staged position tables do not fit next to D = 128
-      if constexpr (REL || attention_bwd_wgmma_takes(is_bf16, 128, REL))
+      if constexpr (REL || attention_wgmma_takes(is_bf16, 128, REL))
         return (int)cudaErrorInvalidValue;
       else return launch_attention_bwd_d<T, 128, false>(a, B, st);
     default: return (int)cudaErrorInvalidValue;

@@ -13,7 +13,7 @@
 // What bounds it here: operations, per (query tile, key tile) four small
 // products (QK^T, P.V, and the query/key rows against the <=127 staged table
 // rows). No [S, S] tensor and no [S, 2*span] table product reaches device
-// memory. In bf16 at head width 64 (attention_bwd_wgmma_takes, the rule that
+// memory. In bf16 at head width 64 (attention_wgmma_takes, the rule that
 // picks the backward's body, attention.cuh) the forward is the wgmma kernel
 // of deberta_attention_fwd_wgmma.cu, which in training also stores each
 // row's maximum and sum for the backward, so the backward re-runs nothing.
@@ -32,7 +32,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k,
         const void* pos_q, int ldp, const int* idx_c, const int* idx_p, const int* mask, int B,
         int S, int H, int D, Drop drop, void* out, float* stats, cudaStream_t st) {
   const float scale = 1.0f / sqrtf(3.0f * (float)D);
-  if (attention_bwd_wgmma_takes(sizeof(T) == 2, D, true)) {
+  if (attention_wgmma_takes(sizeof(T) == 2, D, true)) {
     const size_t BHS = (size_t)B * H * S;
     const debw::RelFwdArgs fa{(const bf16*)pos_k, (const bf16*)pos_q, ldp, idx_c, idx_p, mask, S,
                               H, scale, drop, out, ld, stats, stats ? stats + BHS : nullptr};
@@ -64,8 +64,8 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k,
 // token; pos_k/pos_q [2*span, ldp]; idx_c/idx_p int32 [2S - 1];
 // mask int32 [B, S]; seed device int32 [1] or null (no dropout). stats: f32
 // [2, B*H*S] that receives each row's maximum and sum (the backward's
-// saved statistics), or null; only the wgmma body (smm_deberta_fwd_route)
-// stores them. Returns the first CUDA error, or 0.
+// saved statistics), or null; only the wgmma body (smm_attention_wgmma_route
+// with rel = 1) stores them. Returns the first CUDA error, or 0.
 extern "C" int smm_deberta_attention(int dtype, const void* q, const void* k, const void* v,
                                      int ld, const void* pos_k, const void* pos_q, int ldp,
                                      const int* idx_c, const int* idx_p, const int* mask, int B,
@@ -78,10 +78,4 @@ extern "C" int smm_deberta_attention(int dtype, const void* q, const void* k, co
                      stats, st);
   return run<float>(q, k, v, ld, pos_k, pos_q, ldp, idx_c, idx_p, mask, B, S, H, D, drop, out,
                     stats, st);
-}
-
-// The forward body of a call (dtype: 0 = f32, 1 = bf16; D the head width):
-// 1 = deberta_attention_fwd_wgmma.cu, 0 = attention.cuh's kernel.
-extern "C" int smm_deberta_fwd_route(int dtype, int D) {
-  return attention_bwd_wgmma_takes(dtype == 1, D, true) ? 1 : 0;
 }

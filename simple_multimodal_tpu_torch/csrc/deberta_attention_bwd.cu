@@ -22,7 +22,7 @@
 //
 // The softmax row statistics and delta = dout . ctx come first. What bounds
 // it on this card: operations, per element four length-D dot products and
-// the accumulations. In bf16 at head width 64 (`attention_bwd_wgmma_takes`,
+// the accumulations. In bf16 at head width 64 (`attention_wgmma_takes`,
 // attention.cuh) the whole backward is on wgmma: the forward
 // (deberta_attention_fwd_wgmma.cu), then flash_attention's delta kernel, and
 // two kernels for the rest (deberta_attention_bwd_dq_wgmma.cu,
@@ -119,7 +119,7 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
   at.dout = gy;
   at.lddo = ld;
   const int n = rows * H * D;
-  if (attention_bwd_wgmma_takes(sizeof(T) == 2, D, true)) {
+  if (attention_wgmma_takes(sizeof(T) == 2, D, true)) {
     const int tiles = (S + 63) / 64;
     debw::RelBwdArgs ra{};
     ra.pos_k = (const bf16*)pos_k;
@@ -191,11 +191,11 @@ int run(const void* q, const void* k, const void* v, int ld, const void* pos_k, 
 // idx_c/idx_p int32 [2S - 1]; mask int32 [B, S]; seed device int32 [1] or
 // null. ord_*/off_* are the fold CSRs of idx_c/idx_p. Outputs dpos_k/dpos_q
 // f32 [rows, H*D]. ctx [B, S, H, D] and stats f32 [2, B*H*S] (row maximum,
-// row sum): where the forward is the wgmma kernel (smm_deberta_fwd_route),
+// row sum): where the forward is the wgmma kernel (smm_attention_wgmma_route),
 // its output and statistics; else scratch the forward is re-run into.
 // Scratch: delta f32 [B*H*S], g_rel
 // f32 [2, B, H, 2S - 1, D] or, where the wgmma kernels run (bf16, D = 64:
-// `smm_attention_bwd_route`), [2, B, H, T, T + 1, 64, 64] with T = ceil(S / 64).
+// `smm_attention_wgmma_route`), [2, B, H, T, T + 1, 64, 64] with T = ceil(S / 64).
 // Returns the first CUDA error, or 0.
 extern "C" int smm_deberta_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                          int ld, const void* pos_k, const void* pos_q, int ldp,

@@ -3,7 +3,7 @@
 // [hash dropout] v and, where asked for, each row's maximum and sum.
 //
 // Replaces simple_multimodal_tpu/ops/pallas/deberta_attention.py, `_kernel`
-// via `_fused_call` (forward), where attention_bwd_wgmma_takes (attention.cuh)
+// via `_fused_call` (forward), where attention_wgmma_takes (attention.cuh)
 // says so: deberta_attention.cu launches it, with the row statistics stored
 // where a backward can follow (the backward takes them and the output as
 // they are) and not in eval (null m and l). The conventions are attention.cuh's WMMA kernel's, which keeps f32 and the other

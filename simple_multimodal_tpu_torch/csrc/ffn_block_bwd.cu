@@ -15,7 +15,7 @@
 // each (two recomputing the forward, dh and dxn), and around them the
 // [rows, F] intermediates' bytes. The route is chosen from the type and the
 // widths before anything is launched (ffn_bwd_wgmma_takes):
-// - bf16, E and F in multiples of 64 (every base-width site): the wgmma
+// - bf16, E in multiples of 64, F of 128 (every base-width site): the wgmma
 //   chain. The pre-activation never reaches device memory: one kernel
 //   (ffn_block_bwd_wgmma.cu) computes xn W1 and dy0 W2^T over the same
 //   [M, F] tile and leaves h, dh_pre and db1's per-strip partials; dy0 and
@@ -127,7 +127,7 @@ int run_wgmma(const bf16* x, const bf16* gy, const bf16* w1t, const bf16* b1, co
     return e;
   }
   if (int e = ffn_bwd_wgmma_launch(a, dy0, w1t, b1, w2t, M, E, F, S, mid,
-                                   ln_mode == 2 ? nullptr : h, dhp, part_b1, 0, st))
+                                   ln_mode == 2 ? nullptr : h, dhp, part_b1, st))
     return e;
   if (int e = launch_fold_columns(part_b1, (M + 127) / 128, F, db1, st)) return e;
   // dxn = dh_pre . W1^T; flax W1 [E, F] is K-major

@@ -27,9 +27,9 @@
 // [F, E], K-major, one [BN][64] box; W2 as w2t [E, F], MN-major (the
 // contraction runs down its rows), BN/64 boxes of [64][64] read with the
 // trans-b descriptor. Each K step chains both products in one committed
-// group. Two tiles: 128 x 64 (two 32-register accumulators, two blocks an SM
-// at 128 registers, two 48 KB stages each) and 128 x 128 (two 64-register
-// accumulators, one block an SM, three 64 KB stages); ffn_bwd_tile_n picks.
+// group. The tile is 128 x 128: two 64-register accumulators, one block an
+// SM, three 64 KB stages. (A 128 x 64 tile at two blocks an SM was 9-20%
+// slower at every M measured, and F is a multiple of 128 at every site.)
 // Rows past M arrive from TMA as zeros and are masked at the stores and in
 // the column sums. The column sums go by shuffles over a warp's rows and
 // through shared memory over the eight warps, in a fixed order, and the fold
@@ -50,17 +50,13 @@ constexpr int kSw = 128;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kABytes = kBM * kBK * 2;  // one [128][64] box
-
-template <int BN>
-struct Plan {
-  static constexpr int blocks_per_sm = BN == 64 ? 2 : 1;
-  static constexpr int w_bytes = BN * kBK * 2;                   // one weight's boxes
-  static constexpr int stage_bytes = 2 * kABytes + 2 * w_bytes;  // 48 KB at 64 columns, 64 at 128
-  static constexpr int stages = BN == 64 ? 2 : 3;
-  static constexpr int red = stages * stage_bytes;  // [8 warps][BN] f32 column sums
-  static constexpr int bars = red + kWarps * BN * 4;
-  static constexpr int bytes = bars + 16 * stages + 1024;
-};
+constexpr int kBN = 128;                // columns of a block tile
+constexpr int kWBytes = kBN * kBK * 2;  // one weight's boxes
+constexpr int kStageBytes = 2 * kABytes + 2 * kWBytes;  // 64 KB
+constexpr int kStages = 3;
+constexpr int kRed = kStages * kStageBytes;  // [8 warps][kBN] f32 column sums
+constexpr int kBars = kRed + kWarps * kBN * 4;
+constexpr int kSmemBytes = kBars + 16 * kStages + 1024;
 
 struct Maps {
   CUtensorMap a, d, w1, w2;
@@ -83,31 +79,28 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads, Plan<BN>::blocks_per_sm)
+__global__ void __launch_bounds__(kThreads, 1)
     ffn_bwd_wgmma_kernel(const __grid_constant__ Maps maps, const Args g) {
-  using P = Plan<BN>;
-  constexpr int kStages = P::stages;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hp::align_1024(smem_raw);
   const uint32_t tiles = hp::smem_u32(smem);
-  const uint32_t full = tiles + P::bars, empty = full + 8 * kStages;
-  float* red = reinterpret_cast<float*>(smem + P::red);
+  const uint32_t full = tiles + kBars, empty = full + 8 * kStages;
+  float* red = reinterpret_cast<float*>(smem + kRed);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int nk = g.K / kBK;
 
   // thread 0: K step kt's four operands into its stage
   auto load_step = [&](int kt) {
     const int s = kt % kStages;
-    const uint32_t dst = tiles + s * P::stage_bytes, bar = full + 8 * s;
-    hp::mbar_arrive_expect_tx(bar, P::stage_bytes);
+    const uint32_t dst = tiles + s * kStageBytes, bar = full + 8 * s;
+    hp::mbar_arrive_expect_tx(bar, kStageBytes);
     hp::tma_load_2d(dst, &maps.a, bar, kt * kBK, m0);
     hp::tma_load_2d(dst + kABytes, &maps.d, bar, kt * kBK, m0);
     hp::tma_load_2d(dst + 2 * kABytes, &maps.w1, bar, kt * kBK, n0);
 #pragma unroll
-    for (int a = 0; a < BN / 64; ++a)
-      hp::tma_load_2d(dst + 2 * kABytes + P::w_bytes + a * 64 * kSw, &maps.w2, bar, n0 + 64 * a,
+    for (int a = 0; a < kBN / 64; ++a)
+      hp::tma_load_2d(dst + 2 * kABytes + kWBytes + a * 64 * kSw, &maps.w2, bar, n0 + 64 * a,
                       kt * kBK);
   };
   if (threadIdx.x == 0) {
@@ -120,21 +113,21 @@ __global__ void __launch_bounds__(kThreads, Plan<BN>::blocks_per_sm)
   }
   __syncthreads();
 
-  float acc_h[BN / 2], acc_d[BN / 2];
+  float acc_h[kBN / 2], acc_d[kBN / 2];
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt % kStages;
     hp::mbar_wait(full + 8 * s, (kt / kStages) & 1);
-    const uint32_t st = tiles + s * P::stage_bytes;
+    const uint32_t st = tiles + s * kStageBytes;
     const uint32_t As = st + wg * 64 * kSw, Ds = st + kABytes + wg * 64 * kSw;
-    const uint32_t W1s = st + 2 * kABytes, W2s = W1s + P::w_bytes;
+    const uint32_t W1s = st + 2 * kABytes, W2s = W1s + kWBytes;
     hp::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      hp::wgmma_ss<BN, 0>(acc_h, hp::desc_k_major<kSw>(As + kk * 32),
+      hp::wgmma_ss<kBN, 0>(acc_h, hp::desc_k_major<kSw>(As + kk * 32),
                           hp::desc_k_major<kSw>(W1s + kk * 32), (kt | kk) != 0);
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      hp::wgmma_ss<BN, 1>(acc_d, hp::desc_k_major<kSw>(Ds + kk * 32),
+      hp::wgmma_ss<kBN, 1>(acc_d, hp::desc_k_major<kSw>(Ds + kk * 32),
                           hp::desc_mn_major<kSw>(W2s + kk * 16 * kSw, 64 * kSw), (kt | kk) != 0);
     hp::wgmma_commit();
     if (kt > 0) {  // the previous step's products are done: its stage is free
@@ -167,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, Plan<BN>::blocks_per_sm)
   }
   const size_t o0 = (size_t)r0 * g.F, o1 = (size_t)r1 * g.F;
 #pragma unroll
-  for (int jb = 0; jb < BN / 8; ++jb) {
+  for (int jb = 0; jb < kBN / 8; ++jb) {
     const int c = n0 + 8 * jb + lc;
     const float2 b = bf16_pair(g.b1 + c);
     float hv[4], dv[4];
@@ -201,15 +194,15 @@ __global__ void __launch_bounds__(kThreads, Plan<BN>::blocks_per_sm)
       s1 += __shfl_xor_sync(0xffffffffu, s1, o);
     }
     if (lane < 4) {
-      red[warp * BN + 8 * jb + lc] = s0;
-      red[warp * BN + 8 * jb + lc + 1] = s1;
+      red[warp * kBN + 8 * jb + lc] = s0;
+      red[warp * kBN + 8 * jb + lc + 1] = s1;
     }
   }
   __syncthreads();
-  if (threadIdx.x < BN) {
+  if (threadIdx.x < kBN) {
     float s = red[threadIdx.x];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) s += red[w * BN + threadIdx.x];
+    for (int w = 1; w < kWarps; ++w) s += red[w * kBN + threadIdx.x];
     g.part[(size_t)blockIdx.y * g.F + n0 + threadIdx.x] = s;
   }
 }
@@ -223,42 +216,26 @@ int make_map(CUtensorMap* map, const void* base, int rows, int cols, int ld, int
   return hp::make_tensor_map_bf16<kSw>(map, base, 2, dims, strides, box);
 }
 
-template <int BN>
-int launch(const bf16* a, const bf16* dy0, const bf16* w1t, const bf16* w2t, const Args& g,
-           cudaStream_t st) {
-  constexpr int bytes = Plan<BN>::bytes;
-  static const int allowed = (int)cudaFuncSetAttribute(
-      ffn_bwd_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (allowed != 0) return allowed;
-  Maps maps;
-  if (int e = make_map(&maps.a, a, g.M, g.K, g.K, kBM)) return e;
-  if (int e = make_map(&maps.d, dy0, g.M, g.K, g.K, kBM)) return e;
-  if (int e = make_map(&maps.w1, w1t, g.F, g.K, g.K, BN)) return e;  // [F, E]: K-major
-  if (int e = make_map(&maps.w2, w2t, g.K, g.F, g.F, 64)) return e;  // [E, F]: MN-major
-  const dim3 grid(g.F / BN, (g.M + kBM - 1) / kBM);
-  ffn_bwd_wgmma_kernel<BN><<<grid, kThreads, bytes, st>>>(maps, g);
-  SMM_CHECK_LAUNCH();
-  return 0;
-}
-
 }  // namespace
-
-int ffn_bwd_tile_n(int F) { return F % 128 ? 64 : 128; }
 
 int ffn_bwd_wgmma_launch(const bf16* a, const bf16* dy0, const bf16* w1t, const bf16* b1,
                          const bf16* w2t, int M, int E, int F, int S, Drop mid, bf16* h,
-                         bf16* dhp, float* part, int tile_n, cudaStream_t st) {
+                         bf16* dhp, float* part, cudaStream_t st) {
   if (M <= 0) return 0;
   if (!ffn_bwd_wgmma_takes(true, E, F)) return (int)cudaErrorInvalidValue;
+  static const int allowed = (int)cudaFuncSetAttribute(
+      ffn_bwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (allowed != 0) return allowed;
+  Maps maps;
+  if (int e = make_map(&maps.a, a, M, E, E, kBM)) return e;
+  if (int e = make_map(&maps.d, dy0, M, E, E, kBM)) return e;
+  if (int e = make_map(&maps.w1, w1t, F, E, E, kBN)) return e;  // [F, E]: K-major
+  if (int e = make_map(&maps.w2, w2t, E, F, F, 64)) return e;   // [E, F]: MN-major
   const Args g{M, E, F, S, b1, mid, h, dhp, part};
-  if (tile_n == 0) tile_n = ffn_bwd_tile_n(F);
-  if (tile_n == 128 && F % 128 == 0) return launch<128>(a, dy0, w1t, w2t, g, st);
-  if (tile_n == 64) return launch<64>(a, dy0, w1t, w2t, g, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-int ffn_bwd_wgmma_smem(int tile_n) {
-  return tile_n == 128 ? Plan<128>::bytes : tile_n == 64 ? Plan<64>::bytes : 0;
+  const dim3 grid(F / kBN, (M + kBM - 1) / kBM);
+  ffn_bwd_wgmma_kernel<<<grid, kThreads, kSmemBytes, st>>>(maps, g);
+  SMM_CHECK_LAUNCH();
+  return 0;
 }
 
 }  // namespace smm
@@ -268,27 +245,25 @@ using namespace smm;
 // The two-product kernel alone (ffn_bwd_wgmma_launch; bf16): a, dy0 [M, E],
 // w1t [F, E], b1 [F], w2t [E, F]; seed a device int32 [1] or null (no
 // dropout) with thresh and scale; h [M, F] or null, dhp [M, F]; part f32
-// [ceil(M / 128), F]; db1 f32 [F], the fold of part; tile_n 0, 64 or 128.
-// Returns the first CUDA error, or 0.
+// [ceil(M / 128), F]; db1 f32 [F], the fold of part. Returns the first CUDA
+// error, or 0.
 extern "C" int smm_ffn_bwd_mm(const void* a, const void* dy0, const void* w1t, const void* b1,
                               const void* w2t, int M, int E, int F, int S, const int* seed,
                               unsigned thresh, float scale, void* h, void* dhp, float* part,
-                              float* db1, int tile_n, void* stream) {
+                              float* db1, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (int e = ffn_bwd_wgmma_launch((const bf16*)a, (const bf16*)dy0, (const bf16*)w1t,
                                    (const bf16*)b1, (const bf16*)w2t, M, E, F, S,
-                                   Drop{seed, thresh, scale}, (bf16*)h, (bf16*)dhp, part, tile_n,
-                                   st))
+                                   Drop{seed, thresh, scale}, (bf16*)h, (bf16*)dhp, part, st))
     return e;
   return launch_fold_columns(part, (M + 127) / 128, F, db1, st);
 }
 
 // The route of an FFN backward (dtype: 0 = f32, 1 = bf16): 1 = the wgmma
-// chain, 0 = gemm.cuh's. And the tile the wgmma kernel takes at F columns.
+// chain, 0 = gemm.cuh's.
 extern "C" int smm_ffn_bwd_route(int dtype, int E, int F) {
   return ffn_bwd_wgmma_takes(dtype == 1, E, F) ? 1 : 0;
 }
 
-extern "C" int smm_ffn_bwd_tile_n(int F) { return ffn_bwd_tile_n(F); }
-
-extern "C" int smm_ffn_bwd_wgmma_smem(int tile_n) { return ffn_bwd_wgmma_smem(tile_n); }
+// The two-product kernel's dynamic shared memory, in bytes.
+extern "C" int smm_ffn_bwd_wgmma_smem() { return kSmemBytes; }

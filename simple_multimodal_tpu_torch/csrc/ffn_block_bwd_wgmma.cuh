@@ -6,18 +6,15 @@
 
 namespace smm {
 
-// Which FFN backwards take the wgmma chain: bf16 at E and F in multiples of
-// 64 (every base-width site; E at most 1024 is the wrapper's own limit),
-// with 16-byte aligned operands, which the wrapper sees to. f32 and the tiny
-// preset's widths keep the chain of gemm.cuh's kernels. The rule
-// `ffn_bwd_route` in ops/hopper/ffn_block.py states in Python.
+// Which FFN backwards take the wgmma chain: bf16 at E in multiples of 64 and
+// F in multiples of 128, the kernel's tile (every base-width site; E at most
+// 1024 is the wrapper's own limit), with 16-byte aligned operands, which the
+// wrapper sees to. f32, the tiny preset's widths and other F keep the chain
+// of gemm.cuh's kernels. The rule `ffn_bwd_route` in ops/hopper/ffn_block.py
+// states in Python.
 inline bool ffn_bwd_wgmma_takes(bool is_bf16, int E, int F) {
-  return is_bf16 && E > 0 && F > 0 && E % 64 == 0 && F % 64 == 0 && E <= 1024;
+  return is_bf16 && E > 0 && F > 0 && E % 64 == 0 && F % 128 == 0 && E <= 1024;
 }
-
-// Columns of the kernel's block tile for an [M, F] output: 128 where F
-// allows (faster at every M measured), else 64.
-int ffn_bwd_tile_n(int F);
 
 // Over [M, F], with K = E:
 //   hpre = a . w1t^T + b1               (a [M, E]: xn or x; w1t [F, E], torch layout)
@@ -26,13 +23,10 @@ int ffn_bwd_tile_n(int F);
 //                                       -> dhp [M, F] bf16
 //   part[i, c] = sum of the bf16-rounded dhp over rows 128 i .. 128 i + 127
 //                                       -> part [ceil(M / 128), F] f32
-// mid: the intermediate's FFN dropout (salt kSaltMid, rows of S tokens);
-// tile_n 0 takes ffn_bwd_tile_n's. Returns the first CUDA error, or 0.
+// mid: the intermediate's FFN dropout (salt kSaltMid, rows of S tokens).
+// Returns the first CUDA error, or 0.
 int ffn_bwd_wgmma_launch(const bf16* a, const bf16* dy0, const bf16* w1t, const bf16* b1,
                          const bf16* w2t, int M, int E, int F, int S, Drop mid, bf16* h,
-                         bf16* dhp, float* part, int tile_n, cudaStream_t st);
-
-// Dynamic shared memory (bytes) of the kernel with a tile of `tile_n` columns.
-int ffn_bwd_wgmma_smem(int tile_n);
+                         bf16* dhp, float* part, cudaStream_t st);
 
 }  // namespace smm

@@ -47,8 +47,6 @@ SIGNATURES = {
     # stream
     "smm_deberta_attention_bwd": [_I, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I]
                                  + _DROP + [_P] * 12 + [_I] + [_P] * 3,
-    # dtype, head width -> 1 (deberta_attention_fwd_wgmma.cu) or 0 (attention.cuh)
-    "smm_deberta_fwd_route": [_I, _I],
     # q, k, v, out, stats [2, B, H, Sq], bias, host strides; B, Sq, Sk, H, D; stream
     "smm_flash_attention": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, out, dout, stats [2, B, H, Sq], bias, delta, dq, dk, dv, ds, host strides
@@ -66,18 +64,17 @@ SIGNATURES = {
     "smm_gemm_route": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I],
     # tile width -> bytes of dynamic shared memory
     "smm_gemm_wgmma_smem": [_I],
-    # a, dy0, w1t, b1, w2t; M, E, F, S; seed, thresh, scale; h, dhp, part, db1; tile_n; stream
-    "smm_ffn_bwd_mm": [_P] * 5 + [_I] * 4 + _DROP + [_P] * 4 + [_I, _P],
+    # a, dy0, w1t, b1, w2t; M, E, F, S; seed, thresh, scale; h, dhp, part, db1; stream
+    "smm_ffn_bwd_mm": [_P] * 5 + [_I] * 4 + _DROP + [_P] * 5,
     # dtype, E, F -> 1 (the wgmma chain) or 0 (gemm.cuh's chain)
     "smm_ffn_bwd_route": [_I, _I, _I],
-    # F -> the two-product kernel's tile width; tile width -> its dynamic shared memory
-    "smm_ffn_bwd_tile_n": [_I],
-    "smm_ffn_bwd_wgmma_smem": [_I],
+    # -> the two-product kernel's dynamic shared memory
+    "smm_ffn_bwd_wgmma_smem": [],
     # dy (f32), x, g; eps; M, E; add, dx, part, dln; stream
     "smm_ln_bwd": [_P] * 3 + [_F] + [_I] * 2 + [_P] * 5,
-    # dtype, head width, rel (0 attention_block, 1 deberta_attention) ->
-    # 1 (the wgmma backward kernels) or 0 (attention_bwd.cuh)
-    "smm_attention_bwd_route": [_I, _I, _I],
+    # dtype, head width, rel (0 attention_block's backward, 1 deberta_attention both ways) ->
+    # 1 (the wgmma kernels) or 0 (attention_bwd.cuh, attention.cuh)
+    "smm_attention_wgmma_route": [_I, _I, _I],
     # which (0 dq, 1 dk/dv, 2 the re-run forward) -> bytes of dynamic shared memory of
     # deberta_attention's wgmma backward kernels
     "smm_deberta_bwd_wgmma_smem": [_I],

@@ -153,12 +153,13 @@ class AttentionBlockFn(torch.autograd.Function):
                 dwo, dbo, dln_g, dln_b, None, None, None, None, None)
 
 
-def attention_bwd_route(dtype: torch.dtype, head_width: int, rel: bool) -> int:
-    """Which body the backward of an attention core runs, as
-    ``attention_bwd_wgmma_takes`` (``csrc/attention_bwd.cuh``) decides it
-    and ``smm_attention_bwd_route`` reports it: 1 for the wgmma kernels (bf16,
-    head width 64, or 128 without position tables), 0 for the WMMA / f32
-    kernels of ``csrc/attention_bwd.cuh``. ``rel``: deberta_attention's core."""
+def attention_wgmma_route(dtype: torch.dtype, head_width: int, rel: bool) -> int:
+    """Which body an attention core runs, as ``attention_wgmma_takes``
+    (``csrc/attention.cuh``) decides it and ``smm_attention_wgmma_route``
+    reports it: 1 for the wgmma kernels (bf16, head width 64, or 128 without
+    position tables), 0 for the WMMA / f32 kernels of ``csrc/attention.cuh``
+    and ``csrc/attention_bwd.cuh``. ``rel``: deberta_attention's core, whose
+    forward and backward both follow it; else attention_block's backward."""
     wide = head_width == 64 or (head_width == 128 and not rel)
     return int(dtype == torch.bfloat16 and wide)
 

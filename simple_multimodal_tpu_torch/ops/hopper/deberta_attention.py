@@ -12,7 +12,7 @@ the forward (``_kernel`` via ``_fused_call``) and the backward
 (``_bwd_kernel`` via ``_bwd_call``). On a CUDA tensor the wrapper runs
 ``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``,
 its backward ``csrc/deberta_attention_bwd.cu``. In bf16 at head width 64
-(``deberta_fwd_route``) the forward is the wgmma kernel of
+(``attention_wgmma_route``) the forward is the wgmma kernel of
 ``csrc/deberta_attention_fwd_wgmma.cu``, which in training also keeps each
 row's maximum and sum, and the backward takes those and the output instead of
 re-running the forward; its other kernels are ``csrc/deberta_attention_bwd_dq_wgmma.cu``
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention_block import _drop_scale, _seed_tensor, attention_bwd_route
+from .attention_block import _drop_scale, _seed_tensor, attention_wgmma_route
 from .dropout import apply_keep, attention_keep, threshold
 from .gemm import aligned16
 
@@ -152,10 +152,13 @@ class DebertaAttentionFn(torch.autograd.Function):
         span, max_position, rate = ctx.cfg
         B, S, H, D = q.shape
         dev, f32 = q.device, torch.float32
+        wgmma = attention_wgmma_route(q.dtype, D, True)
+        if wgmma and stats is None:  # the wgmma backward re-runs nothing: it needs the kept ones
+            raise RuntimeError("deberta_attention_bwd: the forward kept no row statistics")
         gy = aligned16(gy.to(q.dtype).contiguous())
         lib = _build.library()
         idx_c, idx_p, ord_c, off_c, ord_p, off_p = _device_maps(S, span, max_position, dev)
-        if stats is None:  # attention.cuh's forward: scratch the backward re-runs it into
+        if not wgmma:  # attention.cuh's forward: scratch the backward re-runs it into
             out = torch.empty_like(q)
             stats = torch.empty((2, B * H * S), dtype=f32, device=dev)
         delta = torch.empty((B * H * S,), dtype=f32, device=dev)
@@ -176,20 +179,13 @@ class DebertaAttentionFn(torch.autograd.Function):
                 None, None, None)
 
 
-def deberta_fwd_route(dtype: torch.dtype, head_width: int) -> int:
-    """Which body the forward runs, as ``smm_deberta_fwd_route`` reports it:
-    1 for the wgmma kernel (bf16 at head width 64, the rule that picks the
-    backward's body, ``attention_bwd_route``), 0 for ``csrc/attention.cuh``'s."""
-    return attention_bwd_route(dtype, head_width, True)
-
-
 def rel_scratch_shape(dtype, B: int, S: int, H: int, D: int) -> tuple:
     """Shape of the backward's f32 scratch for the per-offset table sums:
     one row per offset and (batch, head) for the kernels of
     ``csrc/attention_bwd.cuh``; where the wgmma kernels run
-    (``attention_bwd_route``), one partial per 64-row tile, in ``T + 1``
+    (``attention_wgmma_route``), one partial per 64-row tile, in ``T + 1``
     blocks of 64 offsets (``T`` tiles along the sequence)."""
-    if attention_bwd_route(dtype, D, True):
+    if attention_wgmma_route(dtype, D, True):
         T = -(-S // 64)
         return (2, B, H, T, T + 1, 64, D)
     return (2, B, H, 2 * S - 1, D)
@@ -252,7 +248,7 @@ def deberta_attention(q, k, v, pos_k, pos_q,
         mask = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
     seed = _seed_tensor(dropout_seed, q.device) if rate else None
     # the forward keeps its output and row statistics where the backward takes them
-    keep = bool(deberta_fwd_route(dt, D) and torch.is_grad_enabled()
+    keep = bool(attention_wgmma_route(dt, D, True) and torch.is_grad_enabled()
                 and any(t.requires_grad for t in (q, k, v, pk, pq)))
     return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate, keep)
 

@@ -69,11 +69,11 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
 def ffn_bwd_route(dtype: torch.dtype, E: int, Fd: int) -> int:
     """Which chain ``FFNBlockFn.backward`` runs, as ``ffn_bwd_wgmma_takes``
     (``csrc/ffn_block_bwd_wgmma.cuh``) decides it and ``smm_ffn_bwd_route``
-    reports it: 1 for the wgmma chain (bf16, E and F multiples of 64: every
-    base-width site), 0 for the chain of ``csrc/gemm.cuh``'s kernels (f32,
-    the tiny preset's widths)."""
+    reports it: 1 for the wgmma chain (bf16, E a multiple of 64 and F of 128,
+    the two-product kernel's tile: every base-width site), 0 for the chain of
+    ``csrc/gemm.cuh``'s kernels (f32, the tiny preset's widths, other F)."""
     return int(dtype == torch.bfloat16 and 0 < E <= 1024 and Fd > 0
-               and E % 64 == 0 and Fd % 64 == 0)
+               and E % 64 == 0 and Fd % 128 == 0)
 
 
 def ffn_bwd_part_floats(route: int, M: int, E: int, Fd: int) -> int:

@@ -5,9 +5,12 @@ LayerNorm modes with both dropouts, all gradients at 1e-4 in f32; and, torch
 only, the host side the CUDA chain stands on: which body a call takes (the
 FFN backward's and DeBERTa's forward's), the row partition of the row
 kernels, where each tile and row block leaves its db1, db2 and LayerNorm
-partials, and the fixed fold order. The kernels themselves run on the card
-only (chip_smoke.py).
+partials, the fixed fold order, and DeBERTa's wgmma backward refusing to run
+without the forward's kept statistics. The kernels themselves run on the
+card only (chip_smoke.py).
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -17,7 +20,8 @@ import torch.nn.functional as F
 from simple_multimodal_tpu.ops.pallas import ffn_block as jfb
 from simple_multimodal_tpu_torch.ops.hopper import _build
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
-from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import deberta_fwd_route
+from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
+from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import DebertaAttentionFn
 
 GTOL = dict(atol=1e-4, rtol=1e-4)
 RATE, SEED = 0.1, 20260516
@@ -93,18 +97,33 @@ def test_plain_chain_without_dropout_matches_autograd(residual):
 
 def test_ffn_bwd_route_takes_wgmma_at_the_base_widths_only():
     bf16, f32 = torch.bfloat16, torch.float32
-    for E, Fd in ((768, 3072), (64, 128), (1024, 4096), (768, 192)):
+    for E, Fd in ((768, 3072), (64, 128), (1024, 4096), (128, 256)):
         assert fb.ffn_bwd_route(bf16, E, Fd) == 1
         assert fb.ffn_bwd_route(f32, E, Fd) == 0
-    for E, Fd in ((32, 64), (96, 160), (768, 3000), (800, 3072), (2048, 8192)):
-        assert fb.ffn_bwd_route(bf16, E, Fd) == 0  # the tiny preset, odd widths, E past 1024
+    for E, Fd in ((32, 64), (96, 160), (768, 192), (768, 3000), (800, 3072), (2048, 8192)):
+        # the tiny preset, F off the kernel's 128-column tile, odd widths, E past 1024
+        assert fb.ffn_bwd_route(bf16, E, Fd) == 0
 
 
 def test_deberta_forward_route_takes_wgmma_in_bf16_at_head_width_64():
-    assert deberta_fwd_route(torch.bfloat16, 64) == 1
-    assert deberta_fwd_route(torch.float32, 64) == 0
+    """DeBERTa's forward follows the rule of the attention backwards with the
+    position tables (``rel``): the wgmma kernel in bf16 at head width 64."""
+    assert attention_wgmma_route(torch.bfloat16, 64, True) == 1
+    assert attention_wgmma_route(torch.float32, 64, True) == 0
     for D in (16, 32):
-        assert deberta_fwd_route(torch.bfloat16, D) == 0 and deberta_fwd_route(torch.float32, D) == 0
+        assert attention_wgmma_route(torch.bfloat16, D, True) == 0
+        assert attention_wgmma_route(torch.float32, D, True) == 0
+
+
+def test_deberta_wgmma_backward_without_kept_statistics_raises():
+    """On the wgmma route the backward takes the forward's output and row
+    statistics and re-runs nothing; without them it raises before it builds
+    or launches anything, rather than read uninitialised buffers."""
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    ctx = SimpleNamespace(saved_tensors=(q, q, q, None, None, None, None, None, None),
+                          cfg=(4, 16, 0.0))
+    with pytest.raises(RuntimeError, match="kept no row statistics"):
+        DebertaAttentionFn.backward(ctx, q)
 
 
 @pytest.mark.parametrize("M", [1, 26, 130, 3992, 4096, 47280])

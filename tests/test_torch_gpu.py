@@ -176,15 +176,15 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
     gradient of attention_block is zero in exact arithmetic (softmax is
     invariant to a per-row shift) and is left as a sum of rounded terms, so
     it is held to tol * max|query-bias gradient|, its sibling over the same
-    rows. The body each backward takes is the one ``attention_bwd_route``
+    rows. The body each backward takes is the one ``attention_wgmma_route``
     names: wgmma in bf16 at head width 64, ``attention_bwd.cuh`` in f32."""
     from simple_multimodal_tpu_torch.ops.hopper import _build
 
     lib = _build.library()
     for rel in (0, 1):
         want_route = int(dtype == torch.bfloat16)
-        assert ab.attention_bwd_route(dtype, 64, bool(rel)) == want_route
-        assert lib.smm_attention_bwd_route(_build.dtype_code(torch.empty(0, dtype=dtype)), 64,
+        assert ab.attention_wgmma_route(dtype, 64, bool(rel)) == want_route
+        assert lib.smm_attention_wgmma_route(_build.dtype_code(torch.empty(0, dtype=dtype)), 64,
                                            rel) == want_route
     g = torch.Generator(device=cuda).manual_seed(0)
     hopper.reset_launch_counts()
@@ -632,7 +632,7 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
 
 @pytest.mark.parametrize("ln_mode", ["none", "pre", "post"])
 def test_cuda_ffn_backward_matches_its_plain_chain(cuda, ln_mode):
-    """The wgmma chain of the FFN backward (bf16, E and F in multiples of 64)
+    """The wgmma chain of the FFN backward (bf16, E in multiples of 64, F of 128)
     with both dropouts at ragged rows (3 x 45 = 135) against
     ``ffn_block_bwd_plain``, the same chain step by step in PyTorch on the
     same bf16 inputs: every gradient within 5e-2 of its largest magnitude."""

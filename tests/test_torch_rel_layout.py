@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
-from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_bwd_route
+from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
 LENGTHS = (64, 197, 499, 512)
 SPAN, MAX_POSITION = 256, 512  # DeBERTa-v3-base
@@ -17,12 +17,12 @@ SPAN, MAX_POSITION = 256, 512  # DeBERTa-v3-base
 
 def test_backward_route_takes_wgmma_at_the_base_widths_only():
     bf16, f32 = torch.bfloat16, torch.float32
-    assert attention_bwd_route(bf16, 64, False) == 1 and attention_bwd_route(bf16, 128, False) == 1
-    assert attention_bwd_route(bf16, 64, True) == 1
-    assert attention_bwd_route(bf16, 128, True) == 0   # no position tables at 128
-    assert attention_bwd_route(f32, 64, False) == 0 and attention_bwd_route(f32, 64, True) == 0
+    assert attention_wgmma_route(bf16, 64, False) == 1 and attention_wgmma_route(bf16, 128, False) == 1
+    assert attention_wgmma_route(bf16, 64, True) == 1
+    assert attention_wgmma_route(bf16, 128, True) == 0   # no position tables at 128
+    assert attention_wgmma_route(f32, 64, False) == 0 and attention_wgmma_route(f32, 64, True) == 0
     for D in (16, 32, 96):
-        assert attention_bwd_route(bf16, D, False) == 0 and attention_bwd_route(bf16, D, True) == 0
+        assert attention_wgmma_route(bf16, D, False) == 0 and attention_wgmma_route(bf16, D, True) == 0
 
 
 @pytest.mark.parametrize("S", LENGTHS)
