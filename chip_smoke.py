@@ -50,7 +50,9 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
    with dropout and augmentation on, 5 steps on seeded batches (int16
    audio, yuv420 video, labels): finite losses and gradient norms, every
    parameter moved, and each step launching the three backward kernels
-   23/35/12 times; ms/step on the host clock and peak device memory;
+   23/35/12 times; ms/step on the host clock and peak device memory; then,
+   as information, the step with wav2vec2's fused front end off and on, in
+   turns;
 7. full width train step: one B=1 step's loss and gradients in f32 with
    dropout and augmentation off (eval mode), TF32 off, card (kernels)
    against CPU (plain versions): loss within 1e-4 relative, each gradient
@@ -69,8 +71,9 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     drops no probabilities, so that the train step reaches the
     flash_attention backward (with probability dropout in effect the
     attention module takes its plain path, as in the JAX package). Each step
-    must launch flash_attention_bwd once beside the three other backwards
-    23/35/12; finite losses, every parameter that feeds the loss moves.
+    must launch flash_attention_bwd and wav_frontend_bwd once beside the
+    three other backwards 23/35/12; finite losses, every parameter that
+    feeds the loss moves.
 
 Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
@@ -79,8 +82,10 @@ every wgmma kernel (the flash-attention kernels, the attention core's
 dropout variants forward and backward, deberta_attention's forward and
 backward pair, the GEMM's two tile shapes and the FFN backward's two-product
 kernel) and the
-row kernels of the FFN and LayerNorm backwards; a spill or a serialized-wgmma
-warning there fails the run. It prints what encoding one TMA tensor map
+row kernels of the FFN and LayerNorm backwards, and of every instantiation
+of wav_frontend's kernels (its two forward passes, its two backward passes
+and their four folds, with their shared memory); a spill or a
+serialized-wgmma warning there fails the run. It prints what encoding one TMA tensor map
 costs on the host (the wgmma chains build theirs per call).
 
 After phase 1, the GEMM phase holds the wgmma GEMM alone (``smm_gemm``,
@@ -112,8 +117,13 @@ achieved TFLOP/s, the first case's forward+backward also the device time
 by kernel of the port's kernels and of the library call
 (``torch.profiler``), and two backward runs on the same inputs must be
 bit-equal in dq, dk, dv and dbias) and wav_frontend
-(forward at [8,160000] and [8,320000], C=512; its gradients, which are the
-plain version's, once) against their plain versions at the same tolerances,
+(forward at [8,160000], [8,320000] and [8,16013], C=512, whose last tiles
+hold 127, 127 and 1 frames; forward+backward, dwav included, against
+autograd of the plain version and against its closed form
+``wav_frontend_bwd_plain``, each tensor within 1e-3 (f32) or 5e-2 (bf16) of
+its largest magnitude, two backward runs bit-equal, times with and without
+dwav, and the device time by kernel of the first case) against their plain
+versions at the same tolerances,
 and time ``F.scaled_dot_product_attention`` beside flash_attention as a
 yardstick the port never calls.
 
@@ -161,6 +171,8 @@ REPLACES = {
     "flash_attention": "simple_multimodal_tpu/ops/pallas/flash_attention.py:161",
     "flash_attention_bwd": "simple_multimodal_tpu/ops/pallas/flash_attention.py:290",
     "wav_frontend": "simple_multimodal_tpu/ops/pallas/wav_frontend.py:147 and :166",
+    # the custom VJP (jax.vjp of _xla_reference; no Pallas kernel of its own)
+    "wav_frontend_bwd": "simple_multimodal_tpu/ops/pallas/wav_frontend.py:246",
 }
 SOURCES = {name: f"simple_multimodal_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 # the main path's flash_attention is bf16 at head width 96: the wgmma kernels
@@ -199,7 +211,8 @@ BACKWARD_LAUNCHES = {"attention_block_bwd": 23, "ffn_block_bwd": 35, "deberta_at
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, **FORWARD_LAUNCHES}
 TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, **BACKWARD_LAUNCHES}
 LONG_FORWARD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=1, wav_frontend=1)
-LONG_TRAIN_LAUNCHES = dict(LONG_FORWARD_LAUNCHES, **BACKWARD_LAUNCHES, flash_attention_bwd=1)
+LONG_TRAIN_LAUNCHES = dict(LONG_FORWARD_LAUNCHES, **BACKWARD_LAUNCHES, flash_attention_bwd=1,
+                           wav_frontend_bwd=1)
 
 
 def log(*a):
@@ -293,15 +306,16 @@ def work(name, inputs):
     raise KeyError(name)
 
 
-def bound(name, inputs, out, backward=False) -> dict:
+def bound(name, inputs, out, backward=False, no_grad=()) -> dict:
     """The least time the card could take for one call (forward, or forward
     and backward): the larger of operations / 989 TFLOP/s and bytes /
     3.35 TB/s, every input read once and every output written once (the
     backward reads a cotangent like the output and writes a gradient like
-    each input)."""
+    each input, but those of the inputs indexed in ``no_grad``)."""
     flops = work(name, inputs)[1 if backward else 0]
     nbytes = sum(t.numel() * t.element_size() for t in list(inputs) + [out])
     nbytes *= 2 if backward else 1
+    nbytes -= sum(inputs[i].numel() * inputs[i].element_size() for i in no_grad)
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -429,7 +443,9 @@ def _kernel_cases(dev, gen):
             pad[2, ..., :130] = -1e30  # across the first 128-key tile's edge
             ragged, label = ragged + [pad], label + " + key mask"
         cases.append(("flash_attention", label, no_kw, ragged, []))
-    for samples in (160000, LONG_SAMPLES):
+    # 10 s and 20 s of audio (T1 = 31999, 63999: 127 frames in the last tile), and a last
+    # tile of one frame
+    for samples in (160000, LONG_SAMPLES, 16013):
         cases.append(("wav_frontend", f"conv_0+GN+GELU [8,{samples}] C=512",
                       lambda t, g, b: dict(stride=5),
                       [rn(B, samples, std=0.3), rn(10, 1, 512, std=0.1),
@@ -812,15 +828,12 @@ def phase_backward(dev) -> dict:
             "deberta_attention": dict(dropout_rate=DROP_RATE, dropout_seed=DROP_SEED),
             "flash_attention": {}}  # the function has no dropout
     results = {}
-    wav_checked = False
     _check_dropout_positions(dev)
     for name, label, kw_fn, inputs, lnp in cases:
         kern, plain = fns[name]
         n_in = len(inputs)
-        if name == "wav_frontend":  # no backward kernel: the plain version's gradients, once
-            if not wav_checked:
-                _check_wav_gradients(kern, plain, inputs, gen, label)
-                wav_checked = True
+        if name == "wav_frontend":
+            _check_wav_backward(kern, plain, inputs, gen, label, results)
             continue
 
         if kw_fn(None, 1, 1).get("ln") is None:
@@ -1174,25 +1187,99 @@ def _check_flash_backward_is_deterministic(dev, gen):
                                  f"dq, dk, dv, dbias equal = {same}")
 
 
-def _check_wav_gradients(kern, plain, inputs, gen, label):
-    """wav_frontend's backward is autograd of its plain version on the saved
-    inputs: all four gradients against that, f32, atol=rtol=1e-3."""
+def _wav_errors(got, want, tol):
+    """(ok, max abs error, worst error relative to each tensor's largest
+    magnitude) of the output and the four gradients."""
     import torch
 
-    args = [t.clone().requires_grad_() for t in inputs]
-    args2 = [t.clone().requires_grad_() for t in inputs]
-    out = kern(*args, stride=5)
-    gy = torch.randn(out.shape, generator=gen, device=out.device)
-    got = torch.autograd.grad(out, args, gy)
-    want = torch.autograd.grad(plain(*args2, stride=5), args2, gy)
-    sync()
-    for n, a, b in zip(("wav", "kernel", "gn_scale", "gn_bias"), got, want):
-        err = float((a - b).abs().max())
-        log(f"fwd+bwd wav_frontend       {label:56s} float32  d{n}: max_abs_err={err:.3e}")
-        if not torch.allclose(a, b, atol=ATOL_F32, rtol=ATOL_F32):
-            raise AssertionError(f"wav_frontend {label}: gradient of {n} off by {err:.3e}")
-    del out, got, want, args, args2
-    torch.cuda.empty_cache()
+    worst, max_abs, ok = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        err = float((a.float() - b).abs().max())
+        rel = err / max(float(b.abs().max()), 1e-30)
+        ok = ok and bool(torch.isfinite(a).all()) and rel <= tol
+        max_abs, worst = max(max_abs, err), max(worst, rel)
+    return ok, max_abs, worst
+
+
+def _check_wav_backward(kern, plain, inputs, gen, label, results):
+    """wav_frontend's forward and backward kernels (dwav, dkernel, dgamma,
+    dbeta) against autograd of ``wav_frontend_plain`` on the same inputs in
+    the same dtype and against ``wav_frontend_bwd_plain`` (the closed form,
+    from the plain statistics), each tensor within 1e-3 (f32) or 5e-2
+    (bf16) of its largest magnitude: dkernel sums 8 T1 products a tap, so
+    its small entries carry the f32 rounding of that sum; two backward
+    runs bit-equal; CUDA-event medians of kernel fwd+bwd and autograd of
+    the plain version, interleaved, with dwav (checked here) and without
+    (the model's backward: the waveform takes no gradient). The first bf16
+    case's model backward gives the wav_frontend_bwd entry of the kernels
+    line."""
+    import torch
+    import torch.nn.functional as F
+
+    from simple_multimodal_tpu_torch.ops.hopper.wav_frontend import wav_frontend_bwd_plain
+
+    names = ["out", "wav", "kernel", "gn_scale", "gn_bias"]
+    for dtype in (torch.bfloat16, torch.float32):
+        wav, kern_w, gs, gb = inputs[0], inputs[1].to(dtype), inputs[2], inputs[3]
+        args = [t.clone().requires_grad_() for t in (wav, kern_w, gs, gb)]
+        out = kern(*args, stride=5)
+        gy = torch.randn(out.shape, generator=gen, device=out.device).to(dtype)
+        got = [out.detach()] + list(torch.autograd.grad(out, args, gy))
+        again = torch.autograd.grad(kern(*args, stride=5), args, gy)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got[1:], again))
+        ref = [t.detach().clone().requires_grad_() for t in args]
+        out_p = plain(*ref, stride=5)
+        want = [out_p.detach().float()] + [g.float() for g in torch.autograd.grad(out_p, ref, gy)]
+        with torch.no_grad():
+            y = F.conv1d(wav.to(dtype)[:, None], kern_w.permute(2, 1, 0), stride=5).float()
+            var, mean = torch.var_mean(y, dim=-1, unbiased=False)
+            closed = [want[0]] + [g.float() for g in wav_frontend_bwd_plain(
+                gy, wav, kern_w, gs, gb, mean, torch.rsqrt(var + 1e-5), 5)]
+        del y, out, out_p, again
+        sync()
+        tol = GRAD_TOL_BF16 if dtype == torch.bfloat16 else ATOL_F32
+        ok_a, err_a, worst_a = _wav_errors(got, want, tol)
+        ok_c, err_c, worst_c = _wav_errors(got, closed, tol)
+        ok = ok_a and ok_c and same
+        per = " ".join(
+            f"d{n}={float((a.float() - b).abs().max()) / max(float(b.abs().max()), 1e-30):.2e}"
+            for n, a, b in zip(names[1:], got[1:], want[1:]))
+
+        def fwd_bwd(fn, wrt=args):
+            torch.autograd.grad(fn(*args, stride=5), wrt, gy)
+
+        def timed(wrt):
+            t_p1 = time_ms(lambda: fwd_bwd(plain, wrt), 3)
+            t_k1 = time_ms(lambda: fwd_bwd(kern, wrt), 5)
+            t_k2 = time_ms(lambda: fwd_bwd(kern, wrt), 5)
+            t_p2 = time_ms(lambda: fwd_bwd(plain, wrt), 3)
+            return median(t_k1 + t_k2), median(t_p1 + t_p2)
+
+        ms_dx, plain_dx = timed(args)
+        args[0].requires_grad_(False)  # the model's backward: no dwav
+        ms, plain_ms = timed(args[1:])
+        sync()
+        log(f"fwd+bwd wav_frontend       {label:56s} {str(dtype)[6:]:8s} "
+            f"max_abs_err={err_a:.3e} worst_rel={worst_a:.3e} (closed form: {err_c:.3e}, "
+            f"{worst_c:.3e}) ok={ok} bit_equal={same} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"(with dwav: {ms_dx:.4f}, {plain_dx:.4f}); relative to autograd of plain: {per}")
+        if not ok:
+            raise AssertionError(f"wav_frontend {label} {dtype}: the backward disagrees with "
+                                 f"autograd of the plain version ({err_a:.3e}, {worst_a:.3e}) or "
+                                 f"its closed form ({err_c:.3e}, {worst_c:.3e}), or two runs "
+                                 f"differ (bit_equal={same})")
+        r = results.setdefault("wav_frontend_bwd", {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err_a, err_c)
+        if "ms" not in r:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                     **bound("wav_frontend", args, got[0], backward=True, no_grad=(0,)))
+            with_dx = bound("wav_frontend", args, got[0], backward=True)["bound_ms"]
+            log(f"        wav_frontend_bwd: fwd+bwd bound {r['bound_ms']:.4f} ms by "
+                f"{r['bound_by']} ({with_dx:.4f} with dwav), library_ms=None")
+            _log_device_times(f"wav_frontend {label} fwd+bwd", lambda: fwd_bwd(kern, args[1:]),
+                              top=8)
+        del got, want, closed, args, ref
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phases 6, 7
@@ -1285,7 +1372,32 @@ def phase_train(dev, tmp: str, long: bool = False) -> dict:
         f"(host clock, "
         f"batches on the device), peak device memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated); {smi_line()}")
+    if not long:
+        _frontend_train_ab(model, step, state, _train_batch(rng, cfg, dev))
     return counts
+
+
+def _frontend_train_ab(model, step, state, batch):
+    """Information: the B=8 train step at 10 s with wav2vec2's fused front
+    end off (the default) and on, interleaved off, on, on, off, three steps
+    each after one step to warm up, on the same model and batch."""
+    fe = model.audio_encoder.model.feature_extractor
+    off = fe.cfg
+    times = {False: [], True: []}
+    for fused in (False, True, True, False):
+        fe.cfg = dataclasses.replace(off, fused_frontend=fused)
+        state, _ = step(state, batch)  # warm-up
+        sync()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            sync()
+            times[fused].append((time.perf_counter() - t0) * 1e3)
+    fe.cfg = off
+    log(f"train: B={B} step at 10 s, fused front end off {median(times[False]):.2f} ms "
+        f"(min {min(times[False]):.2f}, max {max(times[False]):.2f}), on "
+        f"{median(times[True]):.2f} ms (min {min(times[True]):.2f}, max "
+        f"{max(times[True]):.2f}); 6 steps each, interleaved; {smi_line()}")
 
 
 def phase_full_width_train_f32(demo):
@@ -1417,9 +1529,11 @@ def phase_timings(dev, tmp: str, steps: int = 8):
     """``--timings``: no checks, only the times a parent/change comparison
     needs, each a median: forward+backward of attention_block, ffn_block and
     deberta_attention at the main path's shapes and deberta_attention's
-    forward alone (bf16, dropout 0.1, CUDA events, 10 calls), the B=8
-    forward (host clock, 10 calls) and the B=8
-    train step (``steps`` steps, the first left out). With ``--tree DIR``
+    forward alone (bf16, dropout 0.1, CUDA events, 10 calls), wav_frontend's
+    forward and forward+backward at [8,160000] and [8,320000] (bf16, CUDA
+    events, 10 calls), the B=8 forward (host clock, 10 calls), the B=8
+    train step (``steps`` steps, the first left out) and the 20 s B=8 train
+    step with the fused front end and its peak device memory. With ``--tree DIR``
     the package is imported from DIR (an unpacked other commit), so two
     trees can be timed in turns by the same script on one card."""
     import numpy as np
@@ -1434,6 +1548,20 @@ def phase_timings(dev, tmp: str, steps: int = 8):
     cases, fns = _kernel_cases(dev, gen)
     out = {}
     for name, label, kw_fn, inputs, lnp in cases:
+        if name == "wav_frontend" and "16013" not in label:  # 10 s and 20 s, bf16
+            wav, kw = inputs[0], inputs[1].to(torch.bfloat16).requires_grad_()
+            gs, gb = (t.clone().requires_grad_() for t in inputs[2:])
+            gy = torch.randn(wav.shape[0], (wav.shape[1] - 10) // 5 + 1, 512, generator=gen,
+                             device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                out[f"{name} {label} fwd ms"] = median(time_ms(
+                    lambda: fns[name][0](wav, kw, gs, gb, stride=5), 10))
+            out[f"{name} {label} fwd+bwd ms"] = median(time_ms(
+                lambda: torch.autograd.grad(fns[name][0](wav, kw, gs, gb, stride=5), [kw, gs, gb],
+                                            gy), 10))
+            del kw, gs, gb, gy
+            torch.cuda.empty_cache()
+            continue
         if (name not in ("attention_block", "deberta_attention", "ffn_block")
                 or "WMMA path" in label or (name == "deberta_attention" and "512" not in label)):
             continue
@@ -1484,6 +1612,25 @@ def phase_timings(dev, tmp: str, steps: int = 8):
         times.append((time.perf_counter() - t0) * 1e3)
     out["B=8 train step ms"] = median(times[1:])
     out["train steps ms"] = [round(t, 1) for t in times]
+    del model, step, state
+    torch.cuda.empty_cache()
+    # the long clip with the fused front end (SMM_WAV_FRONTEND=1): 20 s train step, peak memory
+    with fused_frontend():
+        cfg = _long_config(tmp)
+        model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batch = _train_batch(np.random.default_rng(4), cfg, dev)
+    step = make_train_step(model, make_optimizer(cfg, model, total_steps=100), cfg,
+                           augment=True, compute_contrastive_loss=True)
+    state, times = TrainState.create(0), []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["20 s B=8 train step ms (front end fused)"] = median(times[1:])
+    out["20 s peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
     log("timings " + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                                  for k, v in out.items()}) + f" on {smi_line()}")
 
@@ -1536,6 +1683,51 @@ WGMMA_KERNELS = {
 
 # the FFN and LayerNorm backwards' row kernels (csrc/gemm.cuh), checked for spills like the above
 ROW_KERNELS = ("ln_bwd_rows_kernel", "drop_cast_sum_kernel", "fold_columns_kernel")
+# wav_frontend's kernels (csrc/wav_frontend.cu): name -> (instantiations, the pass whose dynamic
+# shared memory smm_wav_frontend_smem reports, or None for a fold with static shared memory)
+WAV_KERNELS = {"wav_stats_kernel": (2, 0), "wav_apply_kernel": (2, 1),
+               "wav_bwd_sums_kernel": (2, 2), "wav_bwd_grads_kernel": (4, 3),
+               "wav_fold_stats_kernel": (1, None), "wav_fold_dz_kernel": (1, None),
+               "wav_fold_rows_kernel": (1, None), "wav_fold_dx_kernel": (1, None)}
+
+
+def _report_wav_kernels(lib, lines):
+    """ptxas' registers and spill bytes and the shared memory of every
+    instantiation of wav_frontend's kernels (dynamic: at stride 5 and
+    C = 512); a spill fails the run."""
+    import re
+
+    found, spilled = dict.fromkeys(WAV_KERNELS, 0), []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\S*?(" + "|".join(WAV_KERNELS)
+                      + r")(I\S*?EEv)?", line)
+        if not m:
+            continue
+        kernel, targs = m.group(1), m.group(2) or ""
+        block = " ".join(x.strip() for x in lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = [int(x) for x in re.findall(r"(\d+) bytes spill", block)]
+        bf16 = "bfloat16" in targs
+        dwav = "Lb1E" in targs
+        which = WAV_KERNELS[kernel][1]
+        if which is None:
+            smem = re.search(r"(\d+) bytes smem", block)
+            shared = f"static shared memory {smem.group(1) if smem else 0} bytes"
+        else:
+            shared = (f"dynamic shared memory "
+                      f"{lib.smm_wav_frontend_smem(int(bf16), which, int(dwav), 5, 512)} bytes")
+        variant = ("" if which is None
+                   else f"<{'bf16' if bf16 else 'f32'}{', dwav' if dwav else ''}>")
+        log(f"wav kernel {kernel}{variant}: {regs.group(1) if regs else '?'} registers, spill "
+            f"bytes {spill}, {shared}")
+        found[kernel] += 1
+        if not regs or len(spill) != 2 or any(spill):
+            spilled.append(f"{kernel}{variant}: {block}")
+    if spilled:
+        raise AssertionError("ptxas reports spills: " + "; ".join(spilled))
+    expected = {k: v[0] for k, v in WAV_KERNELS.items()}
+    if found != expected:
+        raise AssertionError(f"wav kernels in the compiler log: {found}, expected {expected}")
 
 
 def _report_wgmma_kernels(_build):
@@ -1597,6 +1789,7 @@ def _report_wgmma_kernels(_build):
     if rows_found < len(ROW_KERNELS):
         raise AssertionError(f"row kernels in the compiler log: {rows_found}")
     log(f"row kernels: {rows_found} instantiations of {', '.join(ROW_KERNELS)}, none spills")
+    _report_wav_kernels(lib, lines)
     serialized = [x for x in lines if "serializ" in x.lower()]
     if serialized:
         raise AssertionError("ptxas serialized a wgmma pipeline: " + serialized[0])

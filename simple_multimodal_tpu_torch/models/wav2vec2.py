@@ -84,14 +84,10 @@ class FeatureEncoder(nn.Module):
         self.conv_layers = nn.ModuleList(layers)
 
     def forward(self, waveform: torch.Tensor, dtype) -> torch.Tensor:
+        if self.cfg.fused_frontend:
+            return self._fused(waveform, dtype)
         x = waveform.to(dtype)[:, None, :]  # NCW inside, NWC at the boundary
         for i, layer in enumerate(self.conv_layers):
-            if i == 0 and self.cfg.fused_frontend:
-                gn = layer.layer_norm  # the kernel takes the JAX layouts: [K, 1, C], NWC out
-                x = wav_frontend(waveform, layer.conv.weight.to(dtype).permute(2, 1, 0),
-                                 gn.weight, gn.bias, layer.conv.stride[0], gn.eps)
-                x = x.transpose(1, 2)
-                continue
             x = F.conv1d(x, layer.conv.weight.to(dtype), stride=layer.conv.stride)
             if i == 0:
                 gn = layer.layer_norm
@@ -99,6 +95,23 @@ class FeatureEncoder(nn.Module):
                                  gn.bias.float(), gn.eps).to(dtype)
             x = gelu(x, dtype)
         return x.transpose(1, 2)
+
+    def _fused(self, waveform: torch.Tensor, dtype) -> torch.Tensor:
+        """conv_0 → GroupNorm → GELU through ``wav_frontend`` (the JAX weight
+        layout [K, 1, C], NWC frames out), then the other convs as 2-D convs
+        over [B, C, 1, T] in channels-last order: the NWC frames are that
+        tensor without a copy, and cuDNN's convolutions run channels-last
+        (NHWC) on the card, so no layer transposes its input or output."""
+        layer0 = self.conv_layers[0]
+        gn = layer0.layer_norm
+        x = wav_frontend(waveform, layer0.conv.weight.to(dtype).permute(2, 1, 0), gn.weight,
+                         gn.bias, layer0.conv.stride[0], gn.eps)
+        x = x.transpose(1, 2).unsqueeze(2)
+        for layer in self.conv_layers[1:]:
+            w = layer.conv.weight.to(dtype).unsqueeze(2).contiguous(
+                memory_format=torch.channels_last)
+            x = gelu(F.conv2d(x, w, stride=(1, layer.conv.stride[0])), dtype)
+        return x.squeeze(2).transpose(1, 2)
 
 
 class PositionalConvEmbedding(nn.Module):

@@ -6,8 +6,7 @@ Each wrapper (``attention_block.attention_block``, ``ffn_block.ffn_block``,
 for CUDA tensors, a ``torch.autograd.Function`` whose forward and backward
 launch CUDA kernels (built from ``csrc/`` at first use). The forward
 launches count in the wrapper's ``launches`` attribute, the backward ones
-in the ``launches`` of ``*_bwd`` (``wav_frontend`` has no backward kernel:
-its backward is autograd of its plain version). ``gemm`` holds the GEMM
+in the ``launches`` of ``*_bwd``. ``gemm`` holds the GEMM
 with fused epilogues that the two blocks' chains launch, on its own, for
 checks and timings; no model path calls it and it has no counter.
 """
@@ -17,7 +16,7 @@ KERNELS = (attention_block.attention_block, ffn_block.ffn_block,
            deberta_attention.deberta_attention, flash_attention.flash_attention,
            wav_frontend.wav_frontend, attention_block.attention_block_bwd,
            ffn_block.ffn_block_bwd, deberta_attention.deberta_attention_bwd,
-           flash_attention.flash_attention_bwd)
+           flash_attention.flash_attention_bwd, wav_frontend.wav_frontend_bwd)
 
 
 def reset_launch_counts() -> None:

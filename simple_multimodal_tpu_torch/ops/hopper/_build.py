@@ -51,10 +51,14 @@ SIGNATURES = {
     "smm_flash_attention": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, out, dout, stats [2, B, H, Sq], bias, delta, dq, dk, dv, ds, host strides
     "smm_flash_attention_bwd": [_I] + [_P] * 13 + [_I] * 5 + [_P],
-    # wav, w, part; B, T, T1, C, K, stride; stream
-    "smm_wav_frontend_stats": [_I] + [_P] * 3 + [_I] * 6 + [_P],
-    # wav, w, mean, rstd, gamma, beta, out
-    "smm_wav_frontend_apply": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # dtype; wav, w, gamma, beta, part, coef, out; B, T, C, K, stride, nb; eps; stream
+    "smm_wav_frontend_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_F, _P],
+    # dtype; wav, w, gamma, beta, coef, gy, part_a, co, dgb, part_b, dw, dxt, dwav;
+    # B, T, C, K, stride, nb; stream
+    "smm_wav_frontend_bwd": [_I] + [_P] * 13 + [_I] * 6 + [_P],
+    # dtype, pass (0 stats, 1 apply, 2 backward sums, 3 backward gradients), dwav, stride, C ->
+    # bytes of dynamic shared memory
+    "smm_wav_frontend_smem": [_I] * 5,
     # which (0 forward, 1 dq, 2 dk/dv, 3 forward with dropout), D -> bytes of dynamic shared memory
     "smm_flash_wgmma_smem": [_I, _I],
     # a, lda, w, ldw, bias, res, ldr, res_f32, out, ldc, out_f32, act, aux; seed, thresh,

@@ -434,14 +434,17 @@ def test_cuda_flash_attention_reads_strided_rows(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])
 def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
-    """Both passes against the plain version (f32 on the rounded inputs) at
-    lengths whose last block is ragged, at C = 512 and the tiny preset's
-    C = 16; bf16: one rounding of y, of the output, and the tanh GELU. The
-    gradients are autograd of the plain version, so they agree up to the
-    summation order of cuDNN's weight gradient, which varies from run to run:
-    each within 1e-3 of its largest magnitude."""
+    """Both forward passes against the plain version (f32 on the rounded
+    inputs) at lengths whose last tile is ragged, at C = 512 and the tiny
+    preset's C = 16; bf16: one rounding of y, of the output, and the tanh
+    GELU. The backward kernels (dwav, dkernel, dgamma, dbeta) against the
+    closed form wav_frontend_bwd_plain and against autograd of the plain
+    version, on the same inputs in the same dtype,
+    each within 1e-3 of its largest magnitude in f32 and 5e-2 in bf16 (dy
+    and dkernel rounded to bf16), and two backward runs bit-equal."""
     g = torch.Generator(device=cuda).manual_seed(0)
     hopper.reset_launch_counts()
+    gtol = 1e-3 if dtype == torch.float32 else 5e-2
     for B, T, C in ((2, 4003, 512), (3, 645, 512), (2, 16000, 16)):
         wav = torch.randn(B, T, generator=g, device=cuda) * 0.3
         kern = (torch.randn(10, 1, C, generator=g, device=cuda) * 0.1).to(dtype)
@@ -451,13 +454,21 @@ def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
         want = wf.wav_frontend_plain(wav.to(dtype).float(), kern.float(), gs, gb, 5)
         assert got.dtype == dtype and got.shape == (B, (T - 10) // 5 + 1, C)
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
-    ins = [wav, kern.float(), gs, gb]
-    gy = torch.randn(2, 3199, 16, generator=g, device=cuda)
-    got = _with_grads(lambda *a: wf.wav_frontend(*a, 5), ins, gy)
-    want = _with_grads(lambda *a: wf.wav_frontend_plain(*a, 5), ins, gy)
-    for a, b in zip(got[1:], want[1:]):
-        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
-    assert hopper.launch_counts() == _counts(wav_frontend=4)
+        gy = torch.randn(got.shape, generator=g, device=cuda).to(dtype)
+        ins = [wav, kern, gs, gb]
+        runs = [_with_grads(lambda *a: wf.wav_frontend(*a, 5), ins, gy)[1:] for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+        y = torch.nn.functional.conv1d(wav.to(dtype)[:, None], kern.permute(2, 1, 0),
+                                       stride=5).float()
+        var, mean = torch.var_mean(y, dim=-1, unbiased=False)
+        closed = wf.wav_frontend_bwd_plain(gy, wav, kern, gs, gb, mean, torch.rsqrt(var + 1e-5), 5)
+        auto = _with_grads(lambda *a: wf.wav_frontend_plain(*a, 5), ins, gy)[1:]
+        for a, b, c in zip(runs[0], closed, auto):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            for want in (b, c):
+                err = float((a.float() - want.float()).abs().max())
+                assert err <= gtol * float(want.float().abs().max()), err
+    assert hopper.launch_counts() == _counts(wav_frontend=9, wav_frontend_bwd=6)
     with pytest.raises(ValueError, match="stride"):
         wf.wav_frontend(wav, kern, gs, gb, 3)
     with pytest.raises(ValueError, match="C = 24"):
@@ -497,7 +508,8 @@ def test_tiny_long_clip_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     assert runs["cuda"][3] == _counts(
         attention_block=(L - 1) + L, ffn_block=(L - 1) + L + L, deberta_attention=L,
         flash_attention=1, wav_frontend=1, attention_block_bwd=(L - 1) + L,
-        ffn_block_bwd=(L - 1) + L + L, deberta_attention_bwd=L, flash_attention_bwd=1)
+        ffn_block_bwd=(L - 1) + L + L, deberta_attention_bwd=L, flash_attention_bwd=1,
+        wav_frontend_bwd=1)
     assert runs["cpu"][3] == _counts()
     for key in ("text_features", "audio_features", "video_features", "emotion_logits"):
         torch.testing.assert_close(runs["cuda"][0][key].detach().cpu(),

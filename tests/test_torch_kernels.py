@@ -6,7 +6,10 @@ schemes; with hash dropout at rate 0.1, each plain version's output
 (1e-5) and input gradients (1e-4) against ``jax.vjp`` of the reference;
 ``flash_attention`` and ``wav_frontend`` the same way (outputs 1e-5 in f32
 and 2e-2 in bf16, gradients 1e-4 against ``jax.grad`` through the Pallas
-custom VJPs).
+custom VJPs); ``wav_frontend_bwd_plain``, the closed form the backward
+kernels are held to, against autograd of the plain version (1e-5 of each
+gradient's largest magnitude) and ``jax.vjp`` of the JAX ``wav_frontend``
+(1e-4); the fold of pass 1's per-block partials against ``F.group_norm``.
 
 The CUDA kernels themselves run only on a GPU: tests/test_torch_gpu.py
 compares them with the plain versions there.
@@ -526,3 +529,94 @@ def test_wav_frontend_plain_gradients_match_jax():
     (wf.wav_frontend(*ts, 5) * torch.from_numpy(w)).sum().backward()
     for i, (t, gj) in enumerate(zip(ts, want)):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), **GTOL, err_msg=f"grad {i}")
+
+
+def _wav_stats(wav, kern, stride=5):
+    """Per-(b, c) mean and rstd of the conv, two-pass, as the plain version."""
+    y = torch.nn.functional.conv1d(wav[:, None], kern.permute(2, 1, 0), stride=stride)
+    var, mean = torch.var_mean(y.float(), dim=-1, unbiased=False)
+    return mean, torch.rsqrt(var + 1e-5)
+
+
+@pytest.mark.parametrize("T,C", [(4003, 16), (645, 128), (1285, 128)])
+def test_wav_frontend_bwd_plain_matches_autograd_of_plain(T, C):
+    """The backward's closed form against autograd of wav_frontend_plain,
+    all four gradients, f32, within 1e-5 of each gradient's largest
+    magnitude (dkernel sums ~1600 products a tap: both sides lie ~5e-7 of it
+    from an f64 autograd, in another summation order)."""
+    rng, wav, kern, g, b = _wav_args(T, C=C)
+    gy = torch.from_numpy(rng.standard_normal((2, (T - 10) // 5 + 1, C)).astype(np.float32))
+    ts = [t.requires_grad_() for t in _t(wav, kern, g, b)]
+    want = torch.autograd.grad(wf.wav_frontend_plain(*ts, 5), ts, gy)
+    mean, rstd = _wav_stats(*_t(wav, kern))
+    got = wf.wav_frontend_bwd_plain(gy, *_t(wav, kern, g, b), mean, rstd, 5)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-5 * float(w.abs().max()),
+                                   rtol=0, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("T", [4003, 1285])
+def test_wav_frontend_bwd_plain_matches_jax_vjp(T):
+    """The closed form against jax.vjp of the JAX wav_frontend in interpret
+    mode (its custom VJP, wav_frontend.py:246), f32, 1e-4."""
+    rng, wav, kern, g, b = _wav_args(T, C=128)
+    gy = rng.standard_normal((2, (T - 10) // 5 + 1, 128)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jwf.wav_frontend(*a, stride=5, interpret=True),
+                     jnp.asarray(wav), jnp.asarray(kern), jnp.asarray(g), jnp.asarray(b))
+    want = vjp(jnp.asarray(gy))
+    mean, rstd = _wav_stats(*_t(wav, kern))
+    got = wf.wav_frontend_bwd_plain(torch.from_numpy(gy), *_t(wav, kern, g, b), mean, rstd, 5)
+    for i, (a, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GTOL, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("T,nb", [(4003, 1), (4003, 3), (645, 2), (2560, 4)])
+def test_wav_fold_stats_plain_matches_group_norm(T, nb):
+    """Pass 1's partials (block x of a row summing tiles x, x + nb, ...)
+    folded as wav_fold_stats_kernel folds them give F.group_norm's
+    statistics, and scale and shift applied to y give its output."""
+    _, wav, kern, g, b = _wav_args(T, C=16)
+    tw, tk, tg, tb = _t(wav, kern, g, b)
+    y = torch.nn.functional.conv1d(tw[:, None], tk.permute(2, 1, 0), stride=5)  # [B, C, T1]
+    part = wf.stats_partials_plain(y.transpose(1, 2), nb)
+    assert part.shape == (2, nb, 2, 16)
+    coef = wf.fold_stats_plain(part, y.shape[-1], tg, tb)
+    mean, rstd = _wav_stats(tw, tk)
+    np.testing.assert_allclose(coef[0].numpy(), mean.numpy(), atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(coef[1].numpy(), rstd.numpy(), rtol=1e-3)
+    want = torch.nn.functional.group_norm(y, 16, tg, tb, 1e-5)
+    got = y * coef[2][..., None] + coef[3][..., None]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("B,ntiles,sms,want", [(8, 250, 132, 33), (8, 500, 132, 33),
+                                               (2, 32, 132, 32), (1, 1, 132, 1),
+                                               (64, 250, 132, 5), (300, 10, 132, 1)])
+def test_wav_row_blocks(B, ntiles, sms, want):
+    """Blocks per batch row: about two an SM over the batch, at most a row's
+    tiles, at least one."""
+    assert wf.row_blocks(B, ntiles, sms) == want
+
+
+def test_fused_feature_encoder_matches_the_unfused_one():
+    """The fused front end's feature encoder (wav_frontend, then the other
+    convs as channels-last 2-D convs) against the unfused conv1d stack on
+    the same weights, f32, 1e-5; its frames come out as a contiguous NWC
+    tensor."""
+    import dataclasses
+
+    from simple_multimodal_tpu_torch.models.wav2vec2 import FeatureEncoder, Wav2Vec2Config
+
+    cfg = Wav2Vec2Config.tiny()
+    torch.manual_seed(0)
+    enc = FeatureEncoder(cfg)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    wav = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 16000)).astype(np.float32))
+    want = enc(wav, torch.float32)
+    enc.cfg = dataclasses.replace(cfg, fused_frontend=True)
+    got = enc(wav, torch.float32)
+    assert got.shape == want.shape == (2, 49, 16) and got.is_contiguous()
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), **TOL)
