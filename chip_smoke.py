@@ -73,7 +73,50 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     attention module takes its plain path, as in the JAX package). Each step
     must launch flash_attention_bwd and wav_frontend_bwd once beside the
     three other backwards 23/35/12; finite losses, every parameter that
-    feeds the loss moves.
+    feeds the loss moves;
+11. distillation: a base hierarchical teacher and a student with its
+    encoders and the fusion stack halved (hidden 256, 4 heads, half the
+    layers), B=8 bf16, dropout and augmentation on, the teacher frozen
+    (``make_optimizer(frozen=("teacher",))``): after one warm-up step, 3
+    steps each launching both models' forwards (46/70/24) and the student's
+    backwards (23/35/12); a finite distillation loss > 0; every teacher
+    parameter bit-equal with no ``.grad``; every student parameter that
+    feeds the loss moves; ms/step and peak memory;
+12. few-shot episodes: the base hierarchical few-shot model (adapters, a
+    10-row prompt: DeBERTa at S = 522), the trainable-only optimizer,
+    7-way 5-shot (a support of 35 clips ordered by label) and a query of
+    16: after one warm-up episode, 3 episodes each launching the forwards
+    of two passes (46/70/24) and the backwards of DeBERTa alone
+    (deberta_attention_bwd 24, ffn_block_bwd 24, attention_block_bwd 0:
+    ViT and wav2vec2 are frozen and their adapters sit after them); finite
+    losses; only the adapters, the prompt and the prototype network move;
+    ms/episode, peak memory, and the device time by kernel of one episode;
+13. robust: ``make_train_step(logits_key="robust_prediction",
+    missing_modality_rate=0.3, compute_contrastive_loss=False)`` at B=8,
+    3 steps of 23/35/12 forward and backward launches; then
+    ``make_eval_step`` over the seven missing-modality scenarios: finite,
+    predictions in [0, 7);
+14. late serve: a base ``late`` model (no classifier) saved and loaded
+    through MultimodalEmotionDemo; ``predict`` returns three filled
+    ``individual_modalities`` summing to 1 ± 1e-2; a B=8 forward launches
+    23/35/12;
+15. half preset (E 384, 6 layers of 6 heads, F 1536 in all three
+    backbones): a B=8 forward launching 11/17/6 and, after a warm-up, 3
+    train steps launching 11/17/6 both ways; every parameter that feeds the
+    loss moves; ms and peak memory;
+16. f32 in context, card (TF32 off) against CPU: a base-width few-shot
+    episode (2-way 1-shot, a query of 2, dropout off): loss within 1e-4
+    relative, the prompt's, the adapters' and the prototype network's
+    gradients within 1e-3 of their largest magnitude; a half-preset B=1
+    forward at atol=rtol=1e-3.
+
+Phases 2 and 3 also run the half preset's widths: attention_block at
+[240,197,384] and [8,499,384] (6 heads), ffn_block at E 384 / F 1536
+(pre-LN [240,197,384], post-LN [8,512,384]) and deberta_attention at
+[8,512,6,64], bf16 and f32 at the same tolerances; in bf16 the forward's
+GEMM routes (``gemm_route``), the attention core's
+(``attention_wgmma_route``) and a device profile of one call must show the
+wgmma bodies, and the backwards' routes are held as for every case.
 
 Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
@@ -213,6 +256,22 @@ TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, **BACKWARD_LAUNCHES}
 LONG_FORWARD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=1, wav_frontend=1)
 LONG_TRAIN_LAUNCHES = dict(LONG_FORWARD_LAUNCHES, **BACKWARD_LAUNCHES, flash_attention_bwd=1,
                            wav_frontend_bwd=1)
+# a distillation step: the teacher's and the student's forwards (the student has the
+# teacher's encoders), the student's backward
+KD_TRAIN_LAUNCHES = {**NO_LAUNCHES, **{k: 2 * v for k, v in FORWARD_LAUNCHES.items()},
+                     **BACKWARD_LAUNCHES}
+# a few-shot episode: the support's and the query's forwards through one base model; the
+# backward reaches the prompt through DeBERTa alone (ViT and wav2vec2 are frozen and their
+# adapters sit after them), 12 attention and 12 FFN backwards a pass
+FEWSHOT_LAUNCHES = {**NO_LAUNCHES, **{k: 2 * v for k, v in FORWARD_LAUNCHES.items()},
+                    "deberta_attention_bwd": 24, "ffn_block_bwd": 24}
+# the half preset, 6 layers a backbone: attention ViT 5 (its last layer is CLS-only, plain) +
+# wav2vec2 6; FFN ViT 5 + wav2vec2 6 + DeBERTa 6; DeBERTa's attention 6
+HALF_FORWARD_LAUNCHES = {**NO_LAUNCHES, "attention_block": 11, "ffn_block": 17,
+                         "deberta_attention": 6}
+HALF_TRAIN_LAUNCHES = {**HALF_FORWARD_LAUNCHES, "attention_block_bwd": 11, "ffn_block_bwd": 17,
+                       "deberta_attention_bwd": 6}
+FAMILY_STEPS = 3  # measured steps (episodes) of the family phases
 
 
 def log(*a):
@@ -404,6 +463,34 @@ def _kernel_cases(dev, gen):
                   "DeBERTa [8,512,12,64] span 256, padded + all-masked rows",
                   lambda t, g, b: dict(attention_mask=mask, span=span,
                                        max_position=512), d_in, []))
+    # the half preset (the distillation student's scale): E = 384, six heads of 64, F = 1536
+    Eh, Hh, Fh = 384, 6, 1536
+
+    def half_attn(rows, S):
+        ws = []
+        for _ in range(4):
+            ws += [rn(Eh, Eh, std=Eh ** -0.5), rn(Eh, std=0.1)]
+        return [rn(rows, S, Eh)] + ws, [1.0 + rn(Eh, std=0.1), rn(Eh, std=0.1)]
+
+    x, lnp = half_attn(B * 30, 197)
+    cases.append(("attention_block", "half ViT [240,197,384] 6 heads LN+residual",
+                  lambda t, g, b: dict(ln=(g, b, 1e-12), residual=True, num_heads=Hh), x, lnp))
+    x, lnp = half_attn(B, 499)
+    cases.append(("attention_block", "half wav2vec2 [8,499,384] 6 heads",
+                  lambda t, g, b: dict(ln=None, residual=False, num_heads=Hh), x, lnp))
+    for label, rows, S, post, eps in (("half ViT [240,197,384] F=1536 pre-LN", B * 30, 197,
+                                       False, 1e-12),
+                                      ("half DeBERTa [8,512,384] F=1536 post-LN", B, 512,
+                                       True, 1e-7)):
+        cases.append(("ffn_block", label,
+                      lambda t, g, b, post=post, eps=eps: dict(ln=(g, b, eps), ln_post=post),
+                      [rn(rows, S, Eh), rn(Eh, Fh, std=Eh ** -0.5), rn(Fh, std=0.1),
+                       rn(Fh, Eh, std=Fh ** -0.5), rn(Eh, std=0.1)],
+                      [1.0 + rn(Eh, std=0.1), rn(Eh, std=0.1)]))
+    cases.append(("deberta_attention", "half DeBERTa [8,512,6,64] span 256, padded + all-masked",
+                  lambda t, g, b: dict(attention_mask=mask, span=span, max_position=512),
+                  [rn(B, S, Hh, 64), rn(B, S, Hh, 64), rn(B, S, Hh, 64),
+                   rn(2 * span, Eh), rn(2 * span, Eh)], []))
     for Sr in (130, 522):  # lengths off the 64-row tiles (522: a prompt of Queue 1)
         mask_r = torch.ones(B, Sr, dtype=torch.int32, device=dev)
         mask_r[1, Sr // 2:] = 0
@@ -502,6 +589,47 @@ def _forward_route(args, dtype) -> str:
     return "wgmma" if route else "wmma/f32"
 
 
+def _half_forward_body(name, label, args, kw, fn):
+    """The body a half-width (E = 384, head width 64, F = 1536) forward
+    takes in bf16, by the Python rules and the library (``gemm_route`` for
+    every product of the block, ``attention_wgmma_route`` for the core), and
+    by a device profile of one call: the wgmma GEMM and no WMMA GEMM or
+    WMMA attention core."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
+    from simple_multimodal_tpu_torch.ops.hopper.gemm import gemm_route
+
+    if name == "deberta_attention":
+        return  # _forward_route holds its body
+    x = args[0]
+    M, E = x.shape[0] * x.shape[1], x.shape[-1]
+    if name == "attention_block":
+        products = ((3 * E, E), (E, E))
+        D = E // kw["num_heads"]
+        core = (attention_wgmma_route(torch.bfloat16, D, False),
+                _build.library().smm_attention_wgmma_route(1, D, 0))
+    else:
+        Fd = args[1].shape[1]
+        products, core = ((Fd, E), (E, Fd)), (1, 1)
+    routes = [gemm_route(M, n, k) for n, k in products]
+    with torch.no_grad():
+        calls = _log_device_times(f"{name} {label} forward", fn, reps=3, top=6)
+
+    def n(key):
+        return sum(c for k, c in calls.items() if key in k)
+
+    log(f"        {name} {label}: gemm routes {routes} (tile widths), attention core wgmma "
+        f"{core}, gemm_wgmma_kernel={n('gemm_wgmma_kernel'):g} "
+        f"gemm_bf16_kernel={n('gemm_bf16_kernel'):g} "
+        f"attention_wmma_kernel={n('attention_wmma_kernel'):g}")
+    if (not all(routes) or core != (1, 1) or not n("gemm_wgmma_kernel")
+            or n("gemm_bf16_kernel") or n("attention_wmma_kernel")):
+        raise AssertionError(f"{name} {label}: the half-width forward left the wgmma bodies "
+                             f"(routes {routes}, core {core}, kernels {calls})")
+
+
 def phase_kernels(dev) -> dict:
     """Phase 2: every kernel against its plain version. Returns per-kernel
     {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms} (times and
@@ -537,9 +665,12 @@ def phase_kernels(dev) -> dict:
             route = ""
             if name == "deberta_attention":  # eval: no statistics stored
                 route = f" fwd_route={_forward_route(args, dtype)} stats=none"
+            if label.startswith("half") and dtype == torch.bfloat16:
+                _half_forward_body(name, label, args, kw, lambda: kern(*args, **kw))
             log(f"kernel {name:18s} {label:56s} {str(dtype)[6:]:8s} "
                 f"max_abs_err={max_err:.3e} tol={tol:g} ok={ok} "
-                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{route}"
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                f"bound_ms={bound(name, args, got)['bound_ms']:.4f}{route}"
                 + _rate(name, args, ms, lambda: kern(*args, **kw)))
             if not (ok and finite):
                 raise AssertionError(f"{name} {label} {dtype}: kernel disagrees "
@@ -882,6 +1013,7 @@ def phase_backward(dev) -> dict:
                         ok = ok and kept
                         del ev
                     del out, again
+                case_bound = bound(name, args, got[0], backward=True)["bound_ms"]
                 del got, want
 
                 def fwd_bwd(fn, xs=args):
@@ -896,7 +1028,7 @@ def phase_backward(dev) -> dict:
                 sync()
                 log(f"fwd+bwd {name:18s} {label:56s} {str(dtype)[6:]:8s} rate={rate} "
                     f"max_abs_err={max_err:.3e} worst_rel={worst:.3e} ok={ok} "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}"
+                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={case_bound:.4f}{extra}"
                     + _rate(name, args, ms, None, backward=True))
                 if not ok:
                     raise AssertionError(f"{name} {label} {dtype} rate={rate}: the backward "
@@ -1284,24 +1416,31 @@ def _check_wav_backward(kern, plain, inputs, gen, label, results):
 
 # ------------------------------------------------------------ phases 6, 7
 
-def _train_batch(rng, cfg, dev):
+def _train_batch(rng, cfg, dev, n=None, labels=None):
+    """``n`` (default B) seeded clips (text, int16 audio, yuv420 video) and
+    their labels (drawn, or ``labels``), on ``dev``."""
     import numpy as np
     import torch
 
+    n = B if n is None else n
     from simple_multimodal_tpu_torch.data.tokenizer import HashTokenizer
     from simple_multimodal_tpu_torch.data.video_wire import pack_yuv420
 
     words = ["great", "sad", "angry", "afraid", "surprised", "disgusted", "fine", "ok"]
-    texts = [f"clip {i}: feeling {words[int(rng.integers(0, 8))]} today" for i in range(B)]
+    texts = [f"clip {i}: feeling {words[int(rng.integers(0, 8))]} today" for i in range(n)]
     enc = HashTokenizer(model_max_length=cfg.text_max_length)(texts)
-    return {
+    batch = {
         "text": {k: torch.from_numpy(v).to(dev) for k, v in enc.items()},
-        "audio": torch.from_numpy((rng.standard_normal((B, cfg.audio_max_length))
+        "audio": torch.from_numpy((rng.standard_normal((n, cfg.audio_max_length))
                                    * 3000).astype(np.int16)).to(dev),
         "video": torch.from_numpy(pack_yuv420(rng.integers(
-            0, 256, (B, cfg.video_max_frames, 224, 224, 3), dtype=np.uint8))).to(dev),
-        "emotion": torch.from_numpy(rng.integers(0, cfg.num_emotions, B)).to(dev),
+            0, 256, (n, cfg.video_max_frames, *cfg.video_frame_size, 3),
+            dtype=np.uint8))).to(dev),
     }
+    if labels is None:
+        labels = rng.integers(0, cfg.num_emotions, n)
+    batch["emotion"] = torch.from_numpy(np.asarray(labels)).long().to(dev)
+    return batch
 
 
 # heads that do not feed the training loss (the hierarchical sentiment
@@ -1458,6 +1597,400 @@ def phase_full_width_train_f32(demo):
     if worst > 1e-3:
         raise AssertionError(f"f32 train step: gradient {worst_name} off by {worst:.3e} "
                              "of its max magnitude")
+
+# ------------------------------------------------------------ phases 11-16: the model families
+
+def _expect(tag: str, counts: dict, expected: dict):
+    if counts != expected:
+        raise AssertionError(f"{tag}: launch counts {counts} != {expected}")
+
+
+def _still(model, before: dict, names) -> list:
+    """The parameters among ``names`` whose values equal ``before``'s."""
+    import torch
+
+    params = dict(model.named_parameters())
+    return [n for n in names if torch.equal(params[n].detach(), before[n])]
+
+
+def _to(x, dev):
+    """A batch (nested dicts of tensors) on ``dev``."""
+    return {k: _to(v, dev) for k, v in x.items()} if isinstance(x, dict) else x.to(dev)
+
+
+def _half_fusion(cfg):
+    """The distillation student's config: the teacher's encoders, the fusion
+    stack halved (train_advanced.py: hidden 256, 4 heads, half the layers)."""
+    student = dataclasses.replace(cfg)
+    student.fusion_hidden_size = cfg.fusion_hidden_size // 2
+    student.fusion_num_heads = max(cfg.fusion_num_heads // 2, 1)
+    student.fusion_num_layers = max(cfg.fusion_num_layers // 2, 1)
+    return student
+
+
+def _train_steps(tag, step, state, batches, expected, extra=None):
+    """Run ``step`` on each batch with the counters set to 0 just before it
+    and read just after; hold the counts and the metrics' finiteness.
+    Returns (state, host ms per step)."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.ops import hopper
+
+    times = []
+    for i, batch in enumerate(batches):
+        sync()
+        hopper.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, *batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = hopper.launch_counts()
+        if isinstance(metrics, torch.Tensor):
+            metrics = {"loss": metrics}
+        vals = {k: float(v) for k, v in metrics.items()}
+        log(f"{tag}: step {i} {times[-1]:.1f} ms " + " ".join(
+            f"{k}={v:.4f}" for k, v in vals.items()) + f" launches={counts}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{tag} step {i}: non-finite metrics {vals}")
+        if extra is not None:
+            extra(vals)
+        _expect(f"{tag} step {i}", counts, expected)
+    return state, times
+
+
+def phase_distillation(dev, tmp: str):
+    """Phase 11: the distillation train step. A base hierarchical teacher
+    and a student with its encoders and the fusion stack halved, bf16, B=8,
+    dropout and augmentation on, the teacher frozen: one warm-up step, then
+    FAMILY_STEPS steps that each launch both models' forwards (46/70/24)
+    and the student's backwards (23/35/12); a finite distillation loss > 0;
+    every teacher parameter bit-equal with no ``.grad``; every student
+    parameter that feeds the loss moves."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import (
+        KnowledgeDistillationModel, init_weights)
+    from simple_multimodal_tpu_torch.ops.attention import resolve_dtype
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    teacher = _base_config(tmp)
+    student = _half_fusion(teacher)
+    t0 = time.perf_counter()
+    model = KnowledgeDistillationModel(teacher, student, resolve_dtype(teacher, dev))
+    model = init_weights(model, torch.Generator().manual_seed(0)).to(dev)
+    opt = make_optimizer(student, model, total_steps=100, frozen=("teacher",))
+    step = make_train_step(model, opt, student, augment=True, compute_contrastive_loss=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    log(f"distillation: teacher base hierarchical (fusion {teacher.fusion_hidden_size}, "
+        f"{teacher.fusion_num_heads} heads), student fusion {student.fusion_hidden_size}, "
+        f"{student.fusion_num_heads} heads, {student.fusion_num_layers} layers, "
+        f"{model.dtype}; built in {time.perf_counter() - t0:.1f} s; {len(opt.names)} "
+        f"trainable tensors of {len(before)}")
+    rng = np.random.default_rng(5)
+    state, _ = step(TrainState.create(0), _train_batch(rng, student, dev))  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+
+    def positive(vals):
+        if not vals["distillation_loss"] > 0:
+            raise AssertionError(f"distillation: loss {vals['distillation_loss']} is not > 0")
+
+    batches = [(_train_batch(rng, student, dev),) for _ in range(FAMILY_STEPS)]
+    state, times = _train_steps("distillation", step, state, batches, KD_TRAIN_LAUNCHES,
+                                positive)
+    peak = torch.cuda.max_memory_allocated()
+    for n, p in model.teacher.named_parameters():
+        if p.grad is not None or not torch.equal(p.detach(), before["teacher." + n]):
+            raise AssertionError(f"distillation: teacher parameter {n} moved or has a gradient")
+    feeds = [n for n in opt.names if not n[len("student."):].startswith(UNUSED)]
+    still = _still(model, before, feeds)
+    if still:
+        raise AssertionError(f"distillation: {len(still)} student parameters did not move, "
+                             f"e.g. {still[:5]}")
+    log(f"distillation: B={B} {model.dtype}, dropout and augmentation on: median "
+        f"{median(times):.1f} ms/step over {FAMILY_STEPS} steps after one to warm up (host "
+        f"clock, batches on the device), peak device memory {peak / 2**30:.2f} GiB; teacher "
+        f"bit-equal ({len(before) - len(opt.names)} tensors), {len(feeds)} student tensors "
+        f"moved; {smi_line()}")
+
+
+def phase_fewshot(dev, tmp: str):
+    """Phase 12: few-shot episodes. The base hierarchical few-shot model
+    (adapters after each backbone, a 10-row prompt: DeBERTa at S = 522),
+    the trainable-only optimizer, n_way 7, n_shot 5: a support of 35 clips
+    ordered by label and a query of 16. One warm-up episode, then
+    FAMILY_STEPS episodes that each launch FEWSHOT_LAUNCHES; finite losses;
+    the adapters, the prompt and the prototype network move and every other
+    parameter stays bit-equal; the device time by kernel of one episode."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.optim import make_trainable_only_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_fewshot_step
+
+    cfg = _base_config(tmp)
+    n_way, n_shot, n_query = cfg.num_emotions, 5, 16
+    t0 = time.perf_counter()
+    model = create_model(cfg, "few_shot", device=dev, generator=torch.Generator().manual_seed(0))
+    opt = make_trainable_only_optimizer(cfg, model)
+    step = make_fewshot_step(model, opt, n_way, n_shot)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    log(f"few-shot: base hierarchical {model.dtype}, adapters + prompt of "
+        f"{cfg.prompt_length} (DeBERTa S = {cfg.text_max_length + cfg.prompt_length}); built in "
+        f"{time.perf_counter() - t0:.1f} s; {len(opt.names)} trainable tensors of {len(before)}")
+    rng = np.random.default_rng(6)
+
+    def episode():
+        support = _train_batch(rng, cfg, dev, n_way * n_shot,
+                               labels=np.repeat(np.arange(n_way), n_shot))
+        return support, _train_batch(rng, cfg, dev, n_query)
+
+    state, _ = step(TrainState.create(0), *episode())  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    episodes = [episode() for _ in range(FAMILY_STEPS)]
+    state, times = _train_steps("few-shot", step, state, episodes, FEWSHOT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    frozen = [n for n in before if n not in opt.names]
+    moved = sorted(set(frozen) - set(_still(model, before, frozen)))
+    still = _still(model, before, opt.names)
+    if moved or still:
+        raise AssertionError(f"few-shot: frozen parameters moved {moved[:5]} or trainable ones "
+                             f"did not {still[:5]}")
+    log(f"few-shot: {n_way}-way {n_shot}-shot, query {n_query}: median {median(times):.1f} ms/"
+        f"episode over {FAMILY_STEPS} after one to warm up (host clock, batches on the device), "
+        f"peak device memory {peak / 2**30:.2f} GiB; {len(opt.names)} tensors moved, "
+        f"{len(frozen)} bit-equal; {smi_line()}")
+    s, q = episodes[0]
+    _log_device_times("few-shot episode (in-model deberta_attention at [35,522,12,64] and "
+                      "[16,522,12,64])", lambda: step(state, s, q), reps=1, top=14)
+
+
+def phase_robust(dev, tmp: str):
+    """Phase 13: the robust family. ``make_train_step`` with
+    ``logits_key="robust_prediction"``, ``missing_modality_rate=0.3`` and no
+    contrastive loss at B=8 bf16, FAMILY_STEPS steps of 23/35/12 forward and
+    backward launches, finite metrics; then ``make_eval_step`` over the
+    seven missing-modality scenarios: finite logits and probabilities,
+    predictions in [0, 7)."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    cfg = _base_config(tmp)
+    model = create_model(cfg, "robust", device=dev, generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, make_optimizer(cfg, model, total_steps=100), cfg,
+                           compute_contrastive_loss=False, logits_key="robust_prediction",
+                           missing_modality_rate=0.3)
+    rng = np.random.default_rng(7)
+    torch.cuda.reset_peak_memory_stats()
+    batches = [(_train_batch(rng, cfg, dev),) for _ in range(FAMILY_STEPS)]
+    _, times = _train_steps("robust", step, TrainState.create(0), batches, TRAIN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"robust: B={B} {model.dtype}, missing_modality_rate 0.3: median "
+        f"{median(times[1:]):.1f} ms/step over the {FAMILY_STEPS - 1} steps after the first, "
+        f"peak device memory {peak / 2**30:.2f} GiB; {smi_line()}")
+    batch = _train_batch(rng, cfg, dev)
+    for missing in ((), ("text",), ("audio",), ("video",), ("text", "audio"),
+                    ("text", "video"), ("audio", "video")):
+        out = make_eval_step(model, compute_loss=False, logits_key="robust_prediction",
+                             missing_modalities=missing or None)(batch)
+        sync()
+        pred = out["predictions"]
+        ok = (bool(torch.isfinite(out["logits"].float()).all())
+              and bool(torch.isfinite(out["probs"].float()).all())
+              and bool(((pred >= 0) & (pred < cfg.num_emotions)).all()))
+        log(f"robust eval, missing {missing or 'none'}: predictions {pred.tolist()} finite={ok}")
+        if not ok:
+            raise AssertionError(f"robust eval with {missing} missing: {out}")
+        _check_probs(out["probs"], f"robust eval {missing}")
+
+
+def phase_late_serve(dev, tmp: str):
+    """Phase 14: late fusion served. A base ``late`` bf16 model (no
+    classifier) saved and loaded through MultimodalEmotionDemo; one
+    ``predict`` returns three ``individual_modalities`` whose distributions
+    sum to 1 ± 1e-2; one B=8 forward launches 23/35/12."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.ops import hopper
+    from simple_multimodal_tpu_torch.serving.demo import MultimodalEmotionDemo, save_checkpoint
+
+    cfg = _base_config(tmp)
+    cfg.fusion_type = "late"
+    model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    if model.classifier is not None or any(k.startswith("classifier.")
+                                           for k in model.state_dict()):
+        raise AssertionError("late: the model should have no classifier")
+    ckpt = os.path.join(tmp, "model_late_fusion.pt")
+    save_checkpoint(ckpt, model, cfg)
+    del model
+    demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device=dev)
+    rng = np.random.default_rng(9)
+    text, audio, video = _requests(rng)[2]
+    analysis = demo.predict(text, audio, video)
+    ind = analysis["individual_modalities"]
+    if set(ind) != {"text", "audio", "video"}:
+        raise AssertionError(f"late: individual_modalities {sorted(ind)}")
+    for m, entry in ind.items():
+        _check_probs(torch.tensor(list(entry["distribution"].values()))[None], f"late {m}")
+        log(f"late serve: {m} -> {entry['predicted_emotion']} conf={entry['confidence']:.3f}")
+    log(f"late serve: fused -> {analysis['predicted_emotion']} conf={analysis['confidence']:.3f}")
+    b = _train_batch(rng, cfg, dev)
+    batch = (b["text"], b["audio"], b["video"])
+    with torch.inference_mode():
+        demo.model(*batch)  # warm-up
+        sync()
+        hopper.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = demo.model(*batch)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = hopper.launch_counts()
+    _check_probs(out["emotion_probs"], "late B=8 forward")
+    log(f"late serve: one B={B} forward {ms:.1f} ms launched {counts}; fusion weights "
+        f"{out['fusion_weights'].tolist()}")
+    _expect("late serve", counts, EXPECTED_LAUNCHES)
+
+
+def phase_half(dev, tmp: str):
+    """Phase 15: the half preset (E = 384, 6 layers of 6 heads, F = 1536 in
+    all three backbones). One B=8 bf16 forward, which must launch 11/17/6,
+    then a warm-up and FAMILY_STEPS train steps with dropout and
+    augmentation on, each launching 11/17/6 forward and backward; every
+    parameter that feeds the loss moves."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.ops import hopper
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    cfg = _base_config(tmp)
+    cfg.encoder_preset = "half"
+    model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    widths = (model.text_encoder.text_cfg.hidden_size, model.audio_encoder.model.cfg.hidden_size,
+              model.video_encoder.vit.cfg.hidden_size)
+    if widths != (384, 384, 384) or (dev.type == "cuda" and model.dtype != torch.bfloat16):
+        raise AssertionError(f"half: widths {widths}, dtype {model.dtype}")
+    rng = np.random.default_rng(10)
+    b = _train_batch(rng, cfg, dev)
+    with torch.inference_mode():
+        model(b["text"], b["audio"], b["video"])  # warm-up
+        sync()
+        hopper.reset_launch_counts()
+        out = model(b["text"], b["audio"], b["video"])
+        sync()
+        counts = hopper.launch_counts()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model(b["text"], b["audio"], b["video"])
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+    _check_probs(out["emotion_probs"], "half B=8 forward")
+    log(f"half: one B={B} forward launched {counts}; median {median(times):.1f} ms = "
+        f"{B / median(times) * 1e3:.2f} clips/s (host clock, inputs on the device; {smi_line()})")
+    _expect("half forward", counts, HALF_FORWARD_LAUNCHES)
+    opt = make_optimizer(cfg, model, total_steps=100)
+    step = make_train_step(model, opt, cfg, augment=True, compute_contrastive_loss=True)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state, _ = step(TrainState.create(0), _train_batch(rng, cfg, dev))  # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    batches = [(_train_batch(rng, cfg, dev),) for _ in range(FAMILY_STEPS)]
+    state, times = _train_steps("half train", step, state, batches, HALF_TRAIN_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    still = _still(model, before, [n for n in before if not n.startswith(UNUSED)])
+    if still:
+        raise AssertionError(f"half train: {len(still)} parameters did not move, e.g. {still[:5]}")
+    log(f"half train: B={B} {model.dtype}, dropout and augmentation on: median "
+        f"{median(times):.1f} ms/step over {FAMILY_STEPS} steps after one to warm up (host "
+        f"clock, batches on the device), peak device memory {peak / 2**30:.2f} GiB; "
+        f"{smi_line()}")
+
+
+def phase_families_f32(dev, tmp: str):
+    """Phase 16: f32 in context, card (kernels, TF32 off) against CPU (plain
+    versions), same weights: a base-width few-shot episode's loss (n_way 2,
+    n_shot 1, a query of 2; dropout off) within 1e-4 relative and the
+    gradients of the prompt, the adapters and the prototype network each
+    within 1e-3 of its largest magnitude; a half-preset B=1 forward at
+    atol=rtol=1e-3."""
+    import numpy as np
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.losses import cross_entropy
+    from simple_multimodal_tpu_torch.train.optim import make_trainable_only_optimizer
+
+    set_tf32(False)
+    f32, cpu = torch.float32, torch.device("cpu")
+    cfg = _base_config(tmp)
+    rng = np.random.default_rng(11)
+    support = _train_batch(rng, cfg, cpu, 2, labels=[0, 1])
+    query = _train_batch(rng, cfg, cpu, 2, labels=[1, 0])
+    res = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else cpu
+        m = create_model(cfg, "few_shot", device=d, dtype=f32,
+                         generator=torch.Generator().manual_seed(1))
+        make_trainable_only_optimizer(cfg, m)  # the episode's freeze
+        t0 = time.perf_counter()
+        out = m(_to(support, d), _to(query, d), 2, 1)
+        loss = cross_entropy(out["predictions"], query["emotion"].to(d))
+        loss.backward()
+        sync()
+        res[where] = (float(loss.detach()), {n: p.grad.detach().cpu()
+                                             for n, p in m.named_parameters() if p.requires_grad})
+        log(f"f32 few-shot episode: {where} forward+backward {time.perf_counter() - t0:.2f} s, "
+            f"loss {res[where][0]:.6f}")
+        del m, out, loss
+    (l_card, g_card), (l_cpu, g_cpu) = res["card"], res["cpu"]
+    rows = sorted(((float((g_card[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30), n)
+                   for n, w in g_cpu.items()), reverse=True)
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"f32 few-shot episode: loss rel err {rel:.3e}; worst gradients "
+        + ", ".join(f"{n} {r:.3e}" for r, n in rows[:3]) + f" of their max magnitude, "
+        f"{len(g_cpu)} tensors")
+    if rel > 1e-4 or rows[0][0] > 1e-3 or not any("prompt" in n for n in g_cpu):
+        raise AssertionError(f"f32 few-shot episode: loss {l_card} vs {l_cpu}, worst gradient "
+                             f"{rows[0]}")
+
+    cfg.encoder_preset = "half"
+    b = _train_batch(rng, cfg, cpu, 1)
+    outs = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else cpu
+        m = create_model(cfg, device=d, dtype=f32, generator=torch.Generator().manual_seed(2))
+        with torch.inference_mode():
+            o = m(_to(b["text"], d), b["audio"].to(d), b["video"].to(d))
+            outs[where] = {k: v.float().cpu() for k, v in o.items()
+                           if isinstance(v, torch.Tensor)}
+        sync()
+        del m
+    for k in ("emotion_logits", "valence", "arousal", "text_features", "audio_features",
+              "video_features"):
+        a, w = outs["card"][k], outs["cpu"][k]
+        err = float((a - w).abs().max())
+        log(f"f32 half B=1: {k:16s} max_abs_err={err:.3e} (atol=rtol={ATOL_F32:g})")
+        if not torch.allclose(a, w, atol=ATOL_F32, rtol=ATOL_F32):
+            raise AssertionError(f"f32 half B=1: {k} card vs CPU differ by {err:.3e}")
+
 
 def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
     """Device time by kernel (self time of the device-side rows), per
@@ -2062,6 +2595,12 @@ def main() -> int:
                 torch.cuda.empty_cache()
                 counts.update({k: v for k, v in phase_train(dev, tmp, long=True).items()
                                if k.endswith("_bwd")})
+            for phase in (phase_distillation, phase_fewshot, phase_robust, phase_late_serve,
+                          phase_half, phase_families_f32):
+                t0 = time.perf_counter()
+                phase(dev, tmp)
+                torch.cuda.empty_cache()
+                log(f"{phase.__name__} in {time.perf_counter() - t0:.1f} s")
         log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     except Exception:
         traceback.print_exc()

@@ -54,6 +54,12 @@ class DebertaConfig:
                              num_heads=2, intermediate_size=64,
                              max_position_embeddings=64, position_buckets=16)
 
+    @staticmethod
+    def half() -> "DebertaConfig":
+        """The distillation student's scale: half the width and depth."""
+        return DebertaConfig(hidden_size=384, num_layers=6, num_heads=6,
+                             intermediate_size=1536)
+
 
 class DebertaLayer(nn.Module):
     def __init__(self, cfg: DebertaConfig):
@@ -97,7 +103,10 @@ class DebertaLayer(nn.Module):
 
 
 class DebertaModel(nn.Module):
-    """input_ids [B, S], attention_mask [B, S] → last_hidden_state [B, S, E]."""
+    """input_ids [B, S], attention_mask [B, S] → last_hidden_state [B, S, E];
+    with ``prompt_embeds`` ([P, E] or [B, P, E], prompt tuning) those
+    embeddings go ahead of the word embeddings and the mask gains P ones, so
+    the output is [B, P + S, E]."""
 
     def __init__(self, cfg: DebertaConfig):
         super().__init__()
@@ -112,11 +121,19 @@ class DebertaModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                dtype=torch.float32, gen=None) -> torch.Tensor:
+                dtype=torch.float32, gen=None,
+                prompt_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((B, S), dtype=torch.int32, device=input_ids.device)
         emb = self.embeddings.word_embeddings.weight.to(dtype)[input_ids.long()]
+        if prompt_embeds is not None:
+            P = prompt_embeds.shape[-2]
+            if prompt_embeds.dim() == 2:
+                prompt_embeds = prompt_embeds[None].expand(B, P, emb.shape[-1])
+            emb = torch.cat([prompt_embeds.to(emb.dtype), emb], dim=1)
+            attention_mask = torch.cat(
+                [attention_mask.new_ones((B, P)), attention_mask], dim=1)
         emb = layer_norm(emb, self.embeddings.LayerNorm, dtype)
         hidden = emb * attention_mask[..., None].to(dtype)
         hidden = dropout(hidden, self.cfg.hidden_dropout, gen, self.training)

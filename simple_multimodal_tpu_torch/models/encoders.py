@@ -6,7 +6,16 @@ space.
 Behaviour kept from the reference: text pools the CLS token because 'bert'
 is a substring of the backbone's model_type; audio arrives as int16 and is
 dequantized on the device; video arrives in any wire format and is decoded
-on the device. Adapters and prompt tuning are not ported yet.
+on the device.
+
+Adapters and prompt tuning (the few-shot family's) are built only when the
+encoder is constructed with ``adapter=True`` / ``prompt=True``, as the JAX
+parameters exist only where a model was initialised with them; a forward
+with ``use_adapter`` or ``use_prompt`` then runs them. The adapter sits
+where the JAX package places it: after DeBERTa, after wav2vec2, and on the
+ViT CLS features before the biLSTM. The prompt (``prompt_length`` rows of
+the text width, N(0, 1) at init) goes ahead of the word embeddings and the
+pooling mask gains as many ones.
 
 In training mode each projection takes dropout at ``fusion_dropout``, as do
 the temporal and facial attention probabilities and the output of the
@@ -20,20 +29,17 @@ import torch
 import torch.nn as nn
 
 from ..data.video_wire import decode_video_wire
+from ..ops.adapters import AdapterLayer
 from ..ops.attention import MultiHeadAttention, dropout, linear
 from ..ops.lstm import LSTM
 from .deberta import DebertaConfig, DebertaModel
 from .vit import ViTConfig, ViTModel
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 
-_NOT_PORTED = ("adapters and prompt tuning are not ported yet "
-               "(ROADMAP Queue 1, 'Adapters and prompt tuning')")
-
-
 def resolve_backbone_configs(config):
-    """Backbone dimension presets from a ModelConfig: 'tiny', else 'base'
-    (any other name resolves to 'base', as in the JAX package; 'half', the
-    distillation student's scale, is not ported yet and raises).
+    """Backbone dimension presets from a ModelConfig: 'tiny', 'half' (the
+    distillation student's scale: width 384, 6 layers of 6 heads), else
+    'base' (any other name resolves to 'base', as in the JAX package).
     ``SMM_WAV_FRONTEND=1`` in the environment turns on wav2vec2's fused
     front end (off by default), the JAX package's own switch."""
     preset = getattr(config, "encoder_preset", "base")
@@ -42,8 +48,9 @@ def resolve_backbone_configs(config):
         audio = Wav2Vec2Config.tiny()
         vit = dataclasses.replace(ViTConfig.tiny(), image_size=config.video_frame_size[0])
     elif preset == "half":
-        raise NotImplementedError("encoder preset 'half' is not ported yet (ROADMAP Queue 1, "
-                                  "'The other model families'; the port has 'tiny' and 'base')")
+        text = DebertaConfig.half()
+        audio = Wav2Vec2Config.half()
+        vit = dataclasses.replace(ViTConfig.half(), image_size=config.video_frame_size[0])
     else:
         text = DebertaConfig.base()
         audio = Wav2Vec2Config.base()
@@ -53,25 +60,42 @@ def resolve_backbone_configs(config):
     return text, audio, vit
 
 
-def _check_unported(use_adapter: bool, use_prompt: bool = False):
-    if use_adapter or use_prompt:
-        raise NotImplementedError(_NOT_PORTED)
+def _run_adapter(encoder, x, dtype, gen):
+    if encoder.adapter is None:
+        raise ValueError(f"{type(encoder).__name__} was built without an adapter "
+                         "(construct the model with use_adapter=True)")
+    return encoder.adapter(x, dtype, gen)
 
 
 class TextEncoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, adapter: bool = False, prompt: bool = False):
         super().__init__()
         text_cfg, _, _ = resolve_backbone_configs(config)
+        E = text_cfg.hidden_size
         self.text_cfg = text_cfg
         self.model = DebertaModel(text_cfg)
-        self.projection = nn.Linear(text_cfg.hidden_size, config.fusion_hidden_size)
+        self.prompt_embeddings = (nn.Parameter(torch.zeros(config.prompt_length, E))
+                                  if prompt else None)
+        self.adapter = AdapterLayer(E, config.adapter_size) if adapter else None
+        self.projection = nn.Linear(E, config.fusion_hidden_size)
         self.drop = config.fusion_dropout
 
     def forward(self, input_ids, attention_mask, dtype=torch.float32,
                 use_adapter: bool = False, use_prompt: bool = False,
                 gen=None) -> Dict[str, torch.Tensor]:
-        _check_unported(use_adapter, use_prompt)
-        seq = self.model(input_ids, attention_mask, dtype, gen)
+        prompt = None
+        if use_prompt:
+            if self.prompt_embeddings is None:
+                raise ValueError("TextEncoder was built without prompt embeddings "
+                                 "(construct the model with use_prompt=True)")
+            prompt = self.prompt_embeddings
+        seq = self.model(input_ids, attention_mask, dtype, gen, prompt_embeds=prompt)
+        if prompt is not None:  # the pooling mask covers the prompt rows too
+            attention_mask = torch.cat(
+                [attention_mask.new_ones((input_ids.shape[0], prompt.shape[0])),
+                 attention_mask], dim=1)
+        if use_adapter:
+            seq = _run_adapter(self, seq, dtype, gen)
         if "bert" in self.text_cfg.model_type:  # reference substring rule
             pooled = seq[:, 0]
         else:
@@ -82,22 +106,24 @@ class TextEncoder(nn.Module):
 
 
 class AudioEncoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, adapter: bool = False):
         super().__init__()
         _, audio_cfg, _ = resolve_backbone_configs(config)
         self.model = Wav2Vec2Model(audio_cfg)
+        E = audio_cfg.hidden_size
+        self.adapter = AdapterLayer(E, config.adapter_size) if adapter else None
         # the temporal attention's weights are never read downstream
-        self.temporal_attention = MultiHeadAttention(audio_cfg.hidden_size, 8,
-                                                     config.fusion_dropout)
-        self.projection = nn.Linear(audio_cfg.hidden_size, config.fusion_hidden_size)
+        self.temporal_attention = MultiHeadAttention(E, 8, config.fusion_dropout)
+        self.projection = nn.Linear(E, config.fusion_hidden_size)
         self.drop = config.fusion_dropout
 
     def forward(self, waveform, dtype=torch.float32, use_adapter: bool = False,
                 gen=None) -> Dict[str, torch.Tensor]:
-        _check_unported(use_adapter)
         if waveform.dtype == torch.int16:  # the wire format: dequantize here
             waveform = waveform.to(dtype) / 32768.0
         seq = self.model(waveform, dtype, gen)
+        if use_adapter:
+            seq = _run_adapter(self, seq, dtype, gen)
         attended, weights = self.temporal_attention(seq, seq, seq, dtype, need_weights=False,
                                                     gen=gen)
         features = linear(attended.mean(dim=1), self.projection, dtype)
@@ -106,11 +132,12 @@ class AudioEncoder(nn.Module):
 
 
 class VideoEncoder(nn.Module):
-    def __init__(self, config):
+    def __init__(self, config, adapter: bool = False):
         super().__init__()
         _, _, vit_cfg = resolve_backbone_configs(config)
         E = vit_cfg.hidden_size
         self.vit = ViTModel(vit_cfg)
+        self.adapter = AdapterLayer(E, config.adapter_size) if adapter else None
         self.temporal_lstm = LSTM(E, E // 2, num_layers=2, bidirectional=True,
                                   dropout=config.fusion_dropout)
         self.facial_attention = MultiHeadAttention(E, 8, config.fusion_dropout)
@@ -120,12 +147,13 @@ class VideoEncoder(nn.Module):
     def forward(self, video_frames, dtype=torch.float32, use_adapter: bool = False,
                 gen=None) -> Dict[str, torch.Tensor]:
         """video_frames: [B, T, H, W, 3] uint8/float or packed yuv420."""
-        _check_unported(use_adapter)
         frames = decode_video_wire(video_frames, dtype)
         B, T = frames.shape[:2]
         cls = self.vit(frames.reshape((B * T,) + frames.shape[2:]), dtype, cls_only=True,
-                       gen=gen)
-        lstm_out = self.temporal_lstm(cls.reshape(B, T, -1), gen)
+                       gen=gen).reshape(B, T, -1)
+        if use_adapter:
+            cls = _run_adapter(self, cls, dtype, gen)
+        lstm_out = self.temporal_lstm(cls, gen)
         attended, weights = self.facial_attention(lstm_out, lstm_out, lstm_out, dtype,
                                                   need_weights=False, gen=gen)
         features = linear(attended.mean(dim=1), self.projection, dtype)

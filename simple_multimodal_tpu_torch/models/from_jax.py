@@ -1,7 +1,9 @@
 """JAX parameters → the port's ``state_dict``: the inverse of
-simple_multimodal_tpu/models/convert_full.py ``convert_multimodal_model``.
+simple_multimodal_tpu/models/convert_full.py (``convert_multimodal_model``,
+and ``convert_robust_model``, ``convert_distillation_model`` and
+``convert_fewshot_model`` for the three families).
 
-Takes the JAX ``MultimodalEmotionModel`` param tree as numpy arrays (with or
+Takes a JAX model's param tree as numpy arrays (with or
 without the top-level "params" key) and returns torch tensors under the
 port's (= the reference's) names: Dense kernels transposed, MHA q/k/v
 re-packed into ``in_proj_*``, ``[L, ...]`` layer stacks un-stacked, conv
@@ -145,10 +147,20 @@ def _cross_modal(sd, pre, p):
     _dense(sd, f"{pre}.ffn.3", p["ffn_3"])
 
 
+def _adapter(sd, pre, tree):
+    if "adapter" in tree:
+        for n in ("down_project", "up_project"):
+            _dense(sd, f"{pre}.adapter.{n}", tree["adapter"][n])
+
+
 def _fusion(sd, pre, p, fusion_type, config):
     if fusion_type == "early":
         _dense(sd, f"{pre}.fusion_layers.0", p["0"])
         _dense(sd, f"{pre}.fusion_layers.3", p["3"])
+    elif fusion_type == "late":
+        for m in ("text", "audio", "video"):
+            _dense(sd, f"{pre}.{m}_classifier", p[f"{m}_classifier"])
+        sd[f"{pre}.fusion_weights"] = np.asarray(p["fusion_weights"])
     elif fusion_type == "mult":
         for name in ("text_to_audio", "text_to_video", "audio_to_text",
                      "audio_to_video", "video_to_text", "video_to_audio"):
@@ -180,30 +192,62 @@ def _fusion(sd, pre, p, fusion_type, config):
         _dense(sd, f"{pre}.meta_fusion.0", p["meta_fusion_0"])
         _dense(sd, f"{pre}.meta_fusion.3", p["meta_fusion_3"])
     else:
-        raise NotImplementedError(f"fusion type {fusion_type!r} is not ported yet")
+        raise ValueError(f"Unknown fusion type: {fusion_type}")
 
 
-def state_dict_from_jax(params: Dict, config) -> Dict[str, torch.Tensor]:
-    """JAX ``MultimodalEmotionModel`` params (numpy) → the port's state_dict."""
+def _multimodal(sd, pre, p, config):
+    """One ``MultimodalEmotionModel`` subtree, adapters and prompt included
+    where the tree has them; no classifier under late fusion."""
+    te, ae, ve = p["text_encoder"], p["audio_encoder"], p["video_encoder"]
+    _deberta(sd, f"{pre}text_encoder.model", te["model"])
+    if "prompt_embeddings" in te:
+        sd[f"{pre}text_encoder.prompt_embeddings"] = np.asarray(te["prompt_embeddings"])
+    _adapter(sd, f"{pre}text_encoder", te)
+    _dense(sd, f"{pre}text_encoder.projection", te["projection"])
+    _wav2vec2(sd, f"{pre}audio_encoder.model", ae["model"])
+    _adapter(sd, f"{pre}audio_encoder", ae)
+    _mha(sd, f"{pre}audio_encoder.temporal_attention", ae["temporal_attention"])
+    _dense(sd, f"{pre}audio_encoder.projection", ae["projection"])
+    _vit(sd, f"{pre}video_encoder.vit", ve["vit"])
+    _adapter(sd, f"{pre}video_encoder", ve)
+    _lstm(sd, f"{pre}video_encoder.temporal_lstm", ve["temporal_lstm"])
+    _mha(sd, f"{pre}video_encoder.facial_attention", ve["facial_attention"])
+    _dense(sd, f"{pre}video_encoder.projection", ve["projection"])
+    fusion_type = getattr(config, "fusion_type", "hierarchical")
+    _fusion(sd, f"{pre}fusion_layer", p["fusion_layer"], fusion_type, config)
+    if fusion_type != "late":
+        cl = p["classifier"]
+        _dense(sd, f"{pre}classifier.classifier.0", cl["classifier_0"])
+        _dense(sd, f"{pre}classifier.classifier.3", cl["classifier_3"])
+        for n in ("sentiment_classifier", "positive_classifier", "negative_classifier"):
+            _dense(sd, f"{pre}classifier.{n}", cl[n])
+    for n in ("valence_regressor", "arousal_regressor", "uncertainty_head"):
+        _dense(sd, f"{pre}{n}", p[n])
+
+
+def state_dict_from_jax(params: Dict, config, model_type: str = "standard",
+                        student_config=None) -> Dict[str, torch.Tensor]:
+    """JAX params (numpy) of a model of the family ``model_type`` (as in
+    ``create_model``) → the port's state_dict. 'distillation' reads
+    ``config`` as the teacher's and ``student_config`` (default: the same)
+    as the student's."""
     p = params.get("params", params)
     sd: Dict[str, np.ndarray] = {}
-    te, ae, ve = p["text_encoder"], p["audio_encoder"], p["video_encoder"]
-    _deberta(sd, "text_encoder.model", te["model"])
-    _dense(sd, "text_encoder.projection", te["projection"])
-    _wav2vec2(sd, "audio_encoder.model", ae["model"])
-    _mha(sd, "audio_encoder.temporal_attention", ae["temporal_attention"])
-    _dense(sd, "audio_encoder.projection", ae["projection"])
-    _vit(sd, "video_encoder.vit", ve["vit"])
-    _lstm(sd, "video_encoder.temporal_lstm", ve["temporal_lstm"])
-    _mha(sd, "video_encoder.facial_attention", ve["facial_attention"])
-    _dense(sd, "video_encoder.projection", ve["projection"])
-    _fusion(sd, "fusion_layer", p["fusion_layer"],
-            getattr(config, "fusion_type", "hierarchical"), config)
-    cl = p["classifier"]
-    _dense(sd, "classifier.classifier.0", cl["classifier_0"])
-    _dense(sd, "classifier.classifier.3", cl["classifier_3"])
-    for n in ("sentiment_classifier", "positive_classifier", "negative_classifier"):
-        _dense(sd, f"classifier.{n}", cl[n])
-    for n in ("valence_regressor", "arousal_regressor", "uncertainty_head"):
-        _dense(sd, n, p[n])
+    if model_type == "standard":
+        _multimodal(sd, "", p, config)
+    elif model_type == "distillation":
+        _multimodal(sd, "teacher.", p["teacher"], config)
+        _multimodal(sd, "student.", p["student"], student_config or config)
+    elif model_type == "few_shot":
+        _multimodal(sd, "base_model.", p["base_model"], config)
+        _dense(sd, "prototype_network.0", p["prototype_network_0"])
+        _dense(sd, "prototype_network.2", p["prototype_network_2"])
+    elif model_type == "robust":
+        _multimodal(sd, "base_model.", p["base_model"], config)
+        _dense(sd, "modality_predictor.0", p["modality_predictor_0"])
+        _dense(sd, "modality_predictor.2", p["modality_predictor_2"])
+        for m in ("text", "audio", "video"):
+            _dense(sd, f"{m}_only_classifier", p[f"{m}_only_classifier"])
+    else:
+        raise ValueError(f"Unknown model type: {model_type}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}

@@ -1,12 +1,13 @@
-"""Multimodal fusion (port of simple_multimodal_tpu/models/fusion.py):
-``HierarchicalFusion`` and the five strategies it runs (early, MulT, dense
-3-node GAT, contrastive, adaptive), with the reference's state-dict names
-(Sequential indices such as ``fusion_layers.0``).
+"""Multimodal fusion (port of simple_multimodal_tpu/models/fusion.py): the
+seven strategies (early, late, MulT, dense 3-node GAT, contrastive,
+adaptive, and ``HierarchicalFusion`` over five of them), with the
+reference's state-dict names (Sequential indices such as
+``fusion_layers.0``).
 
 As in the JAX package, GraphFusion is a dense graph-attention network over
 the three fully connected modality nodes, and the GAT stack maps
 fusion_hidden → graph_hidden in its first layer and graph_hidden →
-graph_hidden after it. ``LateFusion`` is not ported yet.
+graph_hidden after it.
 
 In training mode every ``fusion_dropout`` site of the JAX modules runs
 (the ``nn.Dropout`` entries of the Sequentials hold that rate, so the
@@ -38,6 +39,30 @@ class EarlyFusion(nn.Module):
         x = torch.cat([text, audio, video], dim=-1)
         x = dropout(torch.relu(linear(x, layers[0], dtype)), layers[2].p, gen, train)
         return dropout(torch.relu(linear(x, layers[3], dtype)), layers[5].p, gen, train)
+
+
+class LateFusion(nn.Module):
+    """One classifier per modality, their logits mixed by the softmax of a
+    learned 3-vector (initialised to 1/3 each). As in the JAX module the
+    softmax runs on the f32 parameter and the mix is f32: JAX promotes the
+    compute-dtype logits against the f32 weights."""
+
+    def __init__(self, config):
+        super().__init__()
+        Fh, n = config.fusion_hidden_size, config.num_emotions
+        self.text_classifier = nn.Linear(Fh, n)
+        self.audio_classifier = nn.Linear(Fh, n)
+        self.video_classifier = nn.Linear(Fh, n)
+        self.fusion_weights = nn.Parameter(torch.ones(3) / 3.0)
+
+    def forward(self, text, audio, video, dtype, gen=None) -> Dict[str, torch.Tensor]:
+        logits = [linear(x, c, dtype) for x, c in ((text, self.text_classifier),
+                                                    (audio, self.audio_classifier),
+                                                    (video, self.video_classifier))]
+        w = torch.softmax(self.fusion_weights.float(), dim=0)
+        fused = sum(w[i] * lg.float() for i, lg in enumerate(logits))
+        return {"fused_logits": fused, "text_logits": logits[0], "audio_logits": logits[1],
+                "video_logits": logits[2], "fusion_weights": w}
 
 
 class CrossModalTransformer(nn.Module):

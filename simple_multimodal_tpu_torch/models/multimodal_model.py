@@ -1,6 +1,7 @@
 """Model assembly (port of simple_multimodal_tpu/models/multimodal_model.py):
 three encoders → [modality dropout] → fusion → classifier and auxiliary
-heads.
+heads, and the three model families built around it (knowledge
+distillation, prototypical few-shot, robust to missing modalities).
 
 Every module keeps f32 parameters and computes in the ``dtype`` it is given
 (weights cast at use, no autocast), so each kernel wrapper sees bf16
@@ -10,9 +11,13 @@ any modality zeroing: a zeroed packed yuv420 plane would decode to green.
 Train mode is ``nn.Module.train()`` (no ``deterministic`` argument): the
 forward then takes a ``torch.Generator`` on the model's device, from which
 every dropout mask, kernel dropout seed, SpecAugment span and the modality
-dropout are drawn. Only the ``standard`` family with the five fusion types
-the hierarchical model runs is ported; ``late`` fusion and the
-KD/few-shot/robust families are not ported yet.
+dropout are drawn.
+
+All seven fusion types are ported. ``late`` fusion has no ``classifier``
+(its logits are the fused per-modality logits) and feeds the auxiliary
+heads the mean of the three features, as in the JAX model. Loading an
+orbax checkpoint (JAX ``load_pretrained_model``) waits for the port's
+checkpoints (ROADMAP Queue 1, 'Checkpoints, trainers and CLIs').
 """
 import math
 from typing import Dict, Optional, Sequence
@@ -21,13 +26,15 @@ import torch
 import torch.nn as nn
 
 from ..data.video_wire import decode_video_wire
+from ..ops.adapters import AdapterLayer
 from ..ops.attention import dropout, linear, require_device, resolve_dtype
 from .encoders import AudioEncoder, TextEncoder, VideoEncoder
 from .fusion import (AdaptiveFusion, ContrastiveFusion, EarlyFusion, GraphFusion,
-                     HierarchicalFusion, MultimodalTransformer)
+                     HierarchicalFusion, LateFusion, MultimodalTransformer)
 
 FUSIONS = {
     "early": EarlyFusion,
+    "late": LateFusion,
     "mult": MultimodalTransformer,
     "graph": GraphFusion,
     "contrastive": ContrastiveFusion,
@@ -71,22 +78,27 @@ def modality_dropout(text, audio, video, rate: float, gen: torch.Generator):
 
 
 class MultimodalEmotionModel(nn.Module):
-    """Three encoders → fusion → heads, with the reference's output keys."""
+    """Three encoders → fusion → heads, with the reference's output keys.
+    ``use_adapter`` / ``use_prompt`` build the encoders' adapters and the
+    text prompt (the few-shot family's), which a forward with the same
+    flags then runs."""
 
-    def __init__(self, config, dtype: torch.dtype = torch.float32):
+    def __init__(self, config, dtype: torch.dtype = torch.float32,
+                 use_adapter: bool = False, use_prompt: bool = False):
         super().__init__()
         fusion_type = getattr(config, "fusion_type", "hierarchical")
         if fusion_type not in FUSIONS:
-            raise NotImplementedError(f"fusion type {fusion_type!r} is not ported yet")
+            raise ValueError(f"Unknown fusion type: {fusion_type}")
         Fh = config.fusion_hidden_size
         self.config = config
         self.fusion_type = fusion_type
         self.dtype = dtype
-        self.text_encoder = TextEncoder(config)
-        self.audio_encoder = AudioEncoder(config)
-        self.video_encoder = VideoEncoder(config)
+        self.text_encoder = TextEncoder(config, adapter=use_adapter, prompt=use_prompt)
+        self.audio_encoder = AudioEncoder(config, adapter=use_adapter)
+        self.video_encoder = VideoEncoder(config, adapter=use_adapter)
         self.fusion_layer = FUSIONS[fusion_type](config)
-        self.classifier = EmotionClassifier(config)
+        # late fusion's logits are its own: no classifier, as in JAX
+        self.classifier = None if fusion_type == "late" else EmotionClassifier(config)
         self.valence_regressor = nn.Linear(Fh, 1)
         self.arousal_regressor = nn.Linear(Fh, 1)
         self.uncertainty_head = nn.Linear(Fh, config.num_emotions)
@@ -124,20 +136,28 @@ class MultimodalEmotionModel(nn.Module):
                                               gen)
         else:
             fusion_output = self.fusion_layer(text, audio, video, dt, gen)
-        fused = (fusion_output["fused_features"] if isinstance(fusion_output, dict)
-                 else fusion_output)
-        logits = self.classifier(fused, dt, gen)
+        if self.fusion_type == "late":
+            logits = fusion_output["fused_logits"]
+            aux_in = (text + audio + video) / 3.0
+        else:
+            aux_in = (fusion_output["fused_features"] if isinstance(fusion_output, dict)
+                      else fusion_output)
+            logits = self.classifier(aux_in, dt, gen)
         output = {
             "emotion_logits": logits,
-            # both softmaxes in the compute dtype, as the JAX model's
+            # both softmaxes in the logits' dtype, as the JAX model's
             "emotion_probs": torch.softmax(logits, dim=-1),
-            "valence": linear(fused, self.valence_regressor, dt),
-            "arousal": linear(fused, self.arousal_regressor, dt),
-            "uncertainty": torch.softmax(linear(fused, self.uncertainty_head, dt), dim=-1),
+            "valence": linear(aux_in, self.valence_regressor, dt),
+            "arousal": linear(aux_in, self.arousal_regressor, dt),
+            "uncertainty": torch.softmax(linear(aux_in, self.uncertainty_head, dt), dim=-1),
             "text_features": text,
             "audio_features": audio,
             "video_features": video,
         }
+        if self.fusion_type == "late":
+            output["individual_logits"] = {m: fusion_output[f"{m}_logits"]
+                                           for m in ("text", "audio", "video")}
+            output["fusion_weights"] = fusion_output["fusion_weights"]
         if isinstance(fusion_output, dict):
             for key, value in fusion_output.items():
                 if key != "fused_features":
@@ -145,13 +165,133 @@ class MultimodalEmotionModel(nn.Module):
         return output
 
 
+class KnowledgeDistillationModel(nn.Module):
+    """A student trained against a frozen teacher's softened logits (JAX
+    ``KnowledgeDistillationModel``). The teacher runs in eval mode under
+    ``torch.no_grad()`` whatever ``train()`` set; the trainer leaves its
+    parameters out of the optimizer (``make_optimizer(..., frozen=("teacher",))``). Outputs are
+    the student's, plus ``distillation_loss`` (KL(teacher ‖ student) at
+    ``distill_temperature`` T, batch mean, times T²) and ``teacher_logits``."""
+
+    def __init__(self, teacher_config, student_config, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.student = MultimodalEmotionModel(student_config, dtype)
+        self.teacher = MultimodalEmotionModel(teacher_config, dtype)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.teacher.eval()
+        return self
+
+    def forward(self, text_input, audio_input, video_input, gen=None, **kwargs) -> Dict:
+        out = self.student(text_input, audio_input, video_input, gen=gen, **kwargs)
+        with torch.no_grad():
+            teacher_logits = self.teacher(text_input, audio_input, video_input)["emotion_logits"]
+        T = self.student.config.distill_temperature
+        soft_targets = torch.softmax(teacher_logits / T, dim=-1)
+        soft_student = torch.log_softmax(out["emotion_logits"] / T, dim=-1)
+        kl = soft_targets * (torch.log(soft_targets.clamp_min(1e-10)) - soft_student)
+        out["distillation_loss"] = kl.sum(dim=-1).mean() * (T ** 2)
+        out["teacher_logits"] = teacher_logits
+        return out
+
+
+class FewShotModel(nn.Module):
+    """Prototypical network over the summed modality features of one base
+    model run with its adapters and prompt (JAX ``FewShotModel``): the
+    support's per-class mean through ``prototype_network``, f32 Euclidean
+    distances of each query to each prototype, and ``softmax(−d)``. The
+    support is [n_way · n_shot] clips ordered by class."""
+
+    def __init__(self, config, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        Fh = config.fusion_hidden_size
+        self.config = config
+        self.dtype = dtype
+        self.base_model = MultimodalEmotionModel(config, dtype, use_adapter=True, use_prompt=True)
+        self.prototype_network = nn.Sequential(nn.Linear(Fh, Fh), nn.ReLU(), nn.Linear(Fh, Fh))
+
+    def _features(self, data: Dict, gen):
+        out = self.base_model(data["text"], data["audio"], data["video"], use_adapter=True,
+                              use_prompt=True, gen=gen)
+        return out["text_features"] + out["audio_features"] + out["video_features"]
+
+    def forward(self, support_data: Dict, query_data: Dict, n_way: int, n_shot: int,
+                gen: Optional[torch.Generator] = None) -> Dict:
+        dt = self.dtype
+        support = self._features(support_data, gen)
+        query = self._features(query_data, gen)
+        protos = support.reshape(n_way, n_shot, -1).mean(dim=1)
+        h = torch.relu(linear(protos, self.prototype_network[0], dt))
+        prototypes = linear(h, self.prototype_network[2], dt)
+        diffs = query[:, None, :] - prototypes[None, :, :]
+        distances = torch.sqrt((diffs.float() ** 2).sum(dim=-1).clamp_min(1e-12))
+        return {"predictions": torch.softmax(-distances, dim=-1), "distances": distances,
+                "prototypes": prototypes, "support_features": support,
+                "query_features": query}
+
+
+class RobustMultimodalModel(nn.Module):
+    """The base model plus one backup classifier per modality, mixed by a
+    predicted availability (sigmoid of ``modality_predictor``) or, with
+    ``available_modalities``, by the given ones (JAX
+    ``RobustMultimodalModel``); the weights are normalised by their sum
+    + 1e-8. ``missing_modalities`` zeroes inputs as the base model does."""
+
+    MODALITIES = ("text", "audio", "video")
+
+    def __init__(self, config, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        Fh, n = config.fusion_hidden_size, config.num_emotions
+        self.config = config
+        self.dtype = dtype
+        self.base_model = MultimodalEmotionModel(config, dtype)
+        self.modality_predictor = nn.Sequential(nn.Linear(3 * Fh, Fh), nn.ReLU(),
+                                                nn.Linear(Fh, 3))
+        self.text_only_classifier = nn.Linear(Fh, n)
+        self.audio_only_classifier = nn.Linear(Fh, n)
+        self.video_only_classifier = nn.Linear(Fh, n)
+
+    def forward(self, text_input, audio_input, video_input,
+                available_modalities: Optional[Sequence[str]] = None,
+                missing_modalities: Optional[Sequence[str]] = None,
+                compute_contrastive_loss: bool = False,
+                gen: Optional[torch.Generator] = None) -> Dict:
+        dt = self.dtype
+        output = self.base_model(text_input, audio_input, video_input,
+                                 compute_contrastive_loss=compute_contrastive_loss,
+                                 missing_modalities=missing_modalities, gen=gen)
+        feats = [output[f"{m}_features"] for m in self.MODALITIES]
+        h = torch.relu(linear(torch.cat(feats, dim=-1), self.modality_predictor[0], dt))
+        availability = torch.sigmoid(linear(h, self.modality_predictor[2], dt))
+        preds = [linear(x, getattr(self, f"{m}_only_classifier"), dt)
+                 for x, m in zip(feats, self.MODALITIES)]
+        if available_modalities is None:
+            weights = availability
+        else:
+            given = torch.tensor([float(m in available_modalities) for m in self.MODALITIES],
+                                 dtype=availability.dtype, device=availability.device)
+            weights = given.expand_as(availability)
+        weights = weights / (weights.sum(dim=1, keepdim=True) + 1e-8)
+        output.update({
+            "robust_prediction": (weights[:, 0:1] * preds[0] + weights[:, 1:2] * preds[1]
+                                  + weights[:, 2:3] * preds[2]),
+            "modality_availability": availability,
+            "individual_predictions": dict(zip(self.MODALITIES, preds)),
+            "modality_weights": weights,
+        })
+        return output
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Deterministic random init from ``generator``, following the JAX
-    package's initialisers: Linear/conv weights lecun-normal and biases 0,
-    LayerNorm/GroupNorm 1 and 0, embeddings, positions and rel embeddings
-    N(0, 0.02), LSTM U(±1/√H), GAT attention glorot-uniform,
-    masked_spec_embed U[0, 1), positional-conv direction N(0, 0.02) with
-    scale 1."""
+    package's initialisers: Linear/conv weights lecun-normal and biases 0
+    (adapter kernels N(0, 0.02)), LayerNorm/GroupNorm 1 and 0, embeddings,
+    positions and rel embeddings N(0, 0.02), prompt embeddings N(0, 1), LSTM
+    U(±1/√H), GAT attention glorot-uniform, masked_spec_embed U[0, 1),
+    positional-conv direction N(0, 0.02) with scale 1; late fusion's weights
+    keep their 1/3."""
     from .fusion import DenseGATLayer
     from .wav2vec2 import PositionalConvEmbedding
 
@@ -163,10 +303,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         with torch.no_grad():
             t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
+    adapter_linears = {id(lin) for mod in model.modules() if isinstance(mod, AdapterLayer)
+                       for lin in (mod.down_project, mod.up_project)}
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
-            normal_(mod.weight, 1.0 / math.sqrt(fan_in))
+            std = 0.02 if id(mod) in adapter_linears else 1.0 / math.sqrt(fan_in)
+            normal_(mod.weight, std)
             if mod.bias is not None:
                 nn.init.zeros_(mod.bias)
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
@@ -194,22 +337,39 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             normal_(p, 0.02)
         elif name.endswith("masked_spec_embed"):
             uniform_(p, 0.0, 1.0)
+        elif name.endswith("prompt_embeddings"):
+            normal_(p, 1.0)
     return model
 
 
 def create_model(config, model_type: str = "standard", device="cuda",
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None) -> MultimodalEmotionModel:
-    """An eval-mode model on ``device`` (the card unless the caller passes
-    ``device="cpu"``; raises without a CUDA device), initialised from
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """An eval-mode model of the family ``model_type`` ('standard',
+    'few_shot', 'robust' or 'distillation', the last pairing ``config`` with
+    itself as in the JAX factory) on ``device`` (the card unless the caller
+    passes ``device="cpu"``; raises without a CUDA device), initialised from
     ``generator`` (seed 0 if None). ``dtype`` defaults to ``resolve_dtype``."""
-    if model_type != "standard":
-        raise NotImplementedError(f"model family {model_type!r} is not ported yet")
+    families = {
+        "standard": lambda dt: MultimodalEmotionModel(config, dtype=dt),
+        "few_shot": lambda dt: FewShotModel(config, dtype=dt),
+        "robust": lambda dt: RobustMultimodalModel(config, dtype=dt),
+        "distillation": lambda dt: KnowledgeDistillationModel(config, config, dtype=dt),
+    }
+    if model_type not in families:
+        raise ValueError(f"Unknown model type: {model_type}")
     device = require_device(device, "create_model")
     if dtype is None:
         dtype = resolve_dtype(config, device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = MultimodalEmotionModel(config, dtype=dtype)
-    init_weights(model, generator)
+    model = init_weights(families[model_type](dtype), generator)
     return model.to(device).eval()
+
+
+def load_pretrained_model(checkpoint_path: str, config, dtype: torch.dtype = torch.float32):
+    """JAX ``load_pretrained_model`` restores an orbax checkpoint; the port's
+    own checkpoints with optimizer state are not ported yet (a serving
+    checkpoint loads through ``serving.demo.load_checkpoint``)."""
+    raise NotImplementedError("load_pretrained_model waits for the port's checkpoints "
+                              "(ROADMAP Queue 1, 'Checkpoints, trainers and CLIs')")

@@ -53,6 +53,10 @@ class ViTConfig:
         return ViTConfig(image_size=32, patch_size=16, hidden_size=32,
                          num_layers=2, num_heads=2, intermediate_size=64)
 
+    @staticmethod
+    def half() -> "ViTConfig":
+        return ViTConfig(hidden_size=384, num_layers=6, num_heads=6, intermediate_size=1536)
+
     @property
     def num_patches(self) -> int:
         return (self.image_size // self.patch_size) ** 2

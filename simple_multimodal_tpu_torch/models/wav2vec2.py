@@ -60,6 +60,11 @@ class Wav2Vec2Config:
                               num_heads=2, intermediate_size=64,
                               pos_conv_kernel=8, pos_conv_groups=2)
 
+    @staticmethod
+    def half() -> "Wav2Vec2Config":
+        return Wav2Vec2Config(hidden_size=384, num_layers=6, num_heads=6,
+                              intermediate_size=1536)
+
     def num_frames(self, num_samples: int) -> int:
         n = num_samples
         for k, s in zip(self.conv_kernels, self.conv_strides):

@@ -276,11 +276,19 @@ class MultimodalEmotionDemo:
         probs = outputs["emotion_probs"][0].float().cpu().numpy()
         labels = self.config.emotion_labels
         predicted = labels[int(np.argmax(probs))]
+        individual = {}  # late fusion's per-modality view: a softmax of each one's logits
+        for modality, logits in outputs.get("individual_logits", {}).items():
+            p = torch.softmax(logits, dim=-1)[0].float().cpu().numpy()
+            individual[modality] = {
+                "predicted_emotion": labels[int(np.argmax(p))],
+                "confidence": float(np.max(p)),
+                "distribution": {e: float(v) for e, v in zip(labels, p)},
+            }
         return {
             "predicted_emotion": predicted,
             "confidence": float(np.max(probs)),
             "emotion_distribution": {e: float(p) for e, p in zip(labels, probs)},
-            "individual_modalities": {},
+            "individual_modalities": individual,
             "valence": float(outputs["valence"][0, 0]),
             "arousal": float(outputs["arousal"][0, 0]),
         }

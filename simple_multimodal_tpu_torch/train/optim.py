@@ -8,22 +8,34 @@ parameter, a 0.1× scale for the pretrained backbones (decay included), and
 the OneCycle schedule evaluated at the step count before the update. It is
 not ``torch.optim.AdamW`` + ``clip_grad_norm_`` + ``OneCycleLR``: those clip
 by max/(‖g‖ + 1e-6), decay by lr·wd outside the backbone scale and
-schedule differently. Frozen subtrees (the distillation and few-shot
-families) are not ported.
+schedule differently.
+
+A frozen subtree (the distillation teacher: JAX ``freeze_mask``) is
+``requires_grad_(False)`` and left out of the chain: no moments, no decay,
+no update, and the gradient norm and clip see what JAX sees, whose frozen
+gradients are exact zeros. ``make_trainable_only_optimizer`` is the
+few-shot episodes' plain AdamW over the adapters, the prompt and the
+prototype network, everything else frozen.
 """
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-# The JAX markers (text_encoder/model, audio_encoder/model, video_encoder/vit)
-# under the port's state-dict names, which models/from_jax.py maps them to.
-BACKBONE_PREFIXES = ("text_encoder.model.", "audio_encoder.model.", "video_encoder.vit.")
+# The JAX markers: a pair of consecutive names anywhere in a parameter's
+# path (under ``student.``, ``teacher.`` or ``base_model.`` too), in the
+# port's state-dict names, which models/from_jax.py maps the JAX paths to.
+BACKBONE_MARKERS = (("text_encoder", "model"), ("audio_encoder", "model"),
+                    ("video_encoder", "vit"))
+# What the few-shot trainer trains (JAX ``FewShotTrainer.TRAINABLE_MARKERS``):
+# a parameter whose name contains one of these.
+TRAINABLE_MARKERS = ("adapter", "prompt_embeddings", "prototype_network")
 
 
 def is_backbone_name(name: str) -> bool:
     """True for a parameter of a pretrained backbone (the 0.1× group)."""
-    return name.startswith(BACKBONE_PREFIXES)
+    keys = name.split(".")
+    return any((a, b) in BACKBONE_MARKERS for a, b in zip(keys, keys[1:]))
 
 
 def make_schedule(learning_rate: float, total_steps: int,
@@ -104,9 +116,25 @@ class AdamWChain:
 
 
 def make_optimizer(config, model: torch.nn.Module, total_steps: int,
-                   backbone_lr_scale: float = 0.1) -> AdamWChain:
+                   backbone_lr_scale: float = 0.1, frozen: Sequence[str] = ()) -> AdamWChain:
     """AdamW + OneCycle + clip with the 0.1× backbone group, from the
-    config's learning_rate, weight_decay and gradient_clip_norm."""
+    config's learning_rate, weight_decay and gradient_clip_norm. The
+    submodules named in ``frozen`` (``("teacher",)`` for distillation) are
+    frozen first."""
+    for name in frozen:
+        model.get_submodule(name).requires_grad_(False)
     return AdamWChain(model.named_parameters(),
                       make_schedule(config.learning_rate, total_steps),
                       config.gradient_clip_norm, config.weight_decay, backbone_lr_scale)
+
+
+def make_trainable_only_optimizer(config, model: torch.nn.Module) -> AdamWChain:
+    """Plain AdamW (optax ``adamw``'s defaults: b1 0.9, b2 0.999, ε 1e-8
+    outside the square root, weight decay 1e-4, no clip) at the config's
+    constant learning_rate over the parameters whose name contains one of
+    ``TRAINABLE_MARKERS``; every other parameter is frozen."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(any(m in name for m in TRAINABLE_MARKERS))
+    lr = config.learning_rate
+    return AdamWChain(model.named_parameters(), lambda count: lr, clip_norm=math.inf,
+                      weight_decay=1e-4, backbone_lr_scale=1.0)

@@ -7,6 +7,7 @@ compute dtype, augment, zero missing modalities, forward in train mode
 the step's generator), the composite loss, backward (through the Hopper
 kernels' backwards on CUDA), the gradient norm before clipping, and the
 optimizer update. Nothing syncs with the host: the metrics stay tensors.
+``make_fewshot_step`` is the prototypical episode's step.
 """
 from typing import Callable, Dict, Optional, Sequence
 
@@ -32,13 +33,15 @@ def _device_generators(state: TrainState, device, n: int):
 def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
                     compute_contrastive_loss: bool = True,
                     logits_key: str = "emotion_logits",
-                    missing_modality_rate: float = 0.0) -> Callable:
+                    missing_modality_rate: float = 0.0,
+                    model_kwargs: Optional[Dict] = None) -> Callable:
     """(state, batch) → (state, metrics) over ``model`` (on its device) and
     ``optimizer`` (made over the model's parameters). ``missing_modality_rate``
     > 0 zeroes each modality of the whole batch with that probability, the
-    robustness trainer's scenario draw."""
+    robustness trainer's scenario draw. ``model_kwargs`` go to every forward."""
     del config  # the JAX step reads only the compute dtype from it; the model holds it
     compute_dtype = model.dtype
+    model_kwargs = dict(model_kwargs or {})
 
     def step(state: TrainState, batch: Dict):
         device = next(model.parameters()).device
@@ -57,33 +60,65 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
             video = torch.where(drop[2], torch.zeros_like(video), video)
         model.train()
         outputs = model(text, audio, video, compute_contrastive_loss=compute_contrastive_loss,
-                        gen=g_drop)
+                        gen=g_drop, **model_kwargs)
         loss, parts = total_loss(outputs, batch["emotion"], label_smoothing=0.1,
                                  logits_key=logits_key)
-        for p in optimizer.params:
-            p.grad = None
-        loss.backward()
-        grads = [p.grad for p in optimizer.params]
+        grads = _backward(loss, optimizer)
         parts = {k: v.detach() for k, v in parts.items()}
         parts["grad_norm"] = global_norm([g for g in grads if g is not None])
         optimizer.update(grads)
-        for p in optimizer.params:
-            p.grad = None
         return TrainState(step=state.step + 1, generator=state.generator), parts
 
     return step
 
 
+def _backward(loss: torch.Tensor, optimizer: AdamWChain) -> list:
+    """The gradients of ``loss`` for the optimizer's parameters (None where
+    none reaches one), leaving no ``.grad`` behind."""
+    for p in optimizer.params:
+        p.grad = None
+    loss.backward()
+    grads = [p.grad for p in optimizer.params]
+    for p in optimizer.params:
+        p.grad = None
+    return grads
+
+
+def make_fewshot_step(model, optimizer: AdamWChain, n_way: int, n_shot: int) -> Callable:
+    """(state, support, query) → (state, loss) for a ``FewShotModel``: one
+    episode in train mode, its dropouts drawn from a generator split from
+    the state's. The loss is cross-entropy over the prototype
+    probabilities, not logits, without label smoothing (the reference's
+    quirk, kept as the JAX step keeps it). ``support`` holds n_way · n_shot
+    clips ordered by class; both batches are dicts with text, audio, video
+    and (query) emotion."""
+
+    def step(state: TrainState, support: Dict, query: Dict):
+        device = next(model.parameters()).device
+        (g_drop,) = _device_generators(state, device, 1)
+        model.train()
+        out = model(support, query, n_way, n_shot, gen=g_drop)
+        loss = cross_entropy(out["predictions"], query["emotion"])
+        optimizer.update(_backward(loss, optimizer))
+        return TrainState(step=state.step + 1, generator=state.generator), loss.detach()
+
+    return step
+
+
 def make_eval_step(model, compute_loss: bool = True, logits_key: str = "emotion_logits",
-                   missing_modalities: Optional[Sequence[str]] = None) -> Callable:
-    """batch → outputs dict (logits, probs, predictions, mean features
-    [, loss]) in eval mode."""
-    mm = tuple(missing_modalities) if missing_modalities else None
+                   missing_modalities: Optional[Sequence[str]] = None,
+                   model_kwargs: Optional[Dict] = None) -> Callable:
+    """batch → outputs dict (logits, probs, predictions, mean features,
+    late fusion's individual_logits [, loss]) in eval mode. ``model_kwargs``
+    go to every forward."""
+    kwargs = dict(model_kwargs or {})
+    if missing_modalities:
+        kwargs["missing_modalities"] = tuple(missing_modalities)
 
     @torch.no_grad()
     def step(batch: Dict) -> Dict:
         model.eval()
-        outputs = model(batch["text"], batch["audio"], batch["video"], missing_modalities=mm)
+        outputs = model(batch["text"], batch["audio"], batch["video"], **kwargs)
         logits = outputs[logits_key]
         result = {
             "logits": logits,
@@ -92,6 +127,8 @@ def make_eval_step(model, compute_loss: bool = True, logits_key: str = "emotion_
             "features": (outputs["text_features"] + outputs["audio_features"]
                          + outputs["video_features"]) / 3.0,
         }
+        if "individual_logits" in outputs:
+            result["individual_logits"] = outputs["individual_logits"]
         if compute_loss:
             result["loss"] = cross_entropy(logits, batch["emotion"], 0.1)
         return result

@@ -161,15 +161,28 @@ def test_demo_refuses_files_until_the_data_path_is_ported(slice_):
 
 
 def test_unported_options_raise(slice_, tmp_path):
+    """What the port still refuses, each naming its ROADMAP item: an spm
+    tokenizer, media files in ``predict``, and ``load_pretrained_model``
+    (the orbax checkpoints). Late fusion, adapters, prompts and the three
+    model families, refused before, are ported (tests/test_torch_families.py);
+    a forward asking for adapters a model was built without is a ValueError."""
+    from simple_multimodal_tpu_torch.data.tokenizer import get_tokenizer
+    from simple_multimodal_tpu_torch.models.multimodal_model import load_pretrained_model
+
     cfg, pcfg, model, params, port, inputs = slice_
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_tokenizer(pcfg.text_model_name, pcfg.text_max_length, spm_path="model.spm")
+    demo = MultimodalEmotionDemo(model=port, config=pcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        demo.predict("hello", video="clip.mp4")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_pretrained_model(str(tmp_path / "ckpt"), pcfg)
+    with pytest.raises(ValueError, match="use_adapter=True"):
         port(*_port_inputs(*inputs), use_adapter=True)
-    late = pconfig.config_from_dict(pconfig.ModelConfig, config_to_dict(pcfg))
-    late.fusion_type = "late"
-    with pytest.raises(NotImplementedError, match="late"):
-        PortModel(late)
-    with pytest.raises(NotImplementedError):
-        create_model(pcfg, model_type="robust", device="cpu")
+    with pytest.raises(ValueError, match="use_prompt=True"):
+        port(*_port_inputs(*inputs), use_prompt=True)
+    with pytest.raises(ValueError, match="Unknown model type"):
+        create_model(pcfg, model_type="no-such-family", device="cpu")
 
 
 def test_create_model_is_seeded_and_f32_on_cpu(slice_):
@@ -187,6 +200,7 @@ def test_importing_the_port_loads_no_jax():
             "import simple_multimodal_tpu_torch.serving.demo\n"
             "import simple_multimodal_tpu_torch.models.from_jax\n"
             "import simple_multimodal_tpu_torch.ops.hopper\n"
+            "import simple_multimodal_tpu_torch.ops.adapters\n"
             "import simple_multimodal_tpu_torch.data.augment\n"
             "import simple_multimodal_tpu_torch.train.losses\n"
             "import simple_multimodal_tpu_torch.train.optim\n"

@@ -142,7 +142,8 @@ def test_vit_drops_attention_output_and_probabilities_in_training(bundle, monkey
 
 def test_unknown_encoder_preset_resolves_to_base_and_half_raises():
     """As the JAX ``resolve_backbone_configs``: any unknown preset name is
-    'base'; 'half' alone is refused until the distillation student lands."""
+    'base', and 'half' (the distillation student's scale, once refused by
+    the port) resolves to the JAX package's half configs, field by field."""
     def resolve(preset):
         return pencoders.resolve_backbone_configs(
             SimpleNamespace(encoder_preset=preset, video_frame_size=(224, 224)))
@@ -153,8 +154,15 @@ def test_unknown_encoder_preset_resolves_to_base_and_half_raises():
     jt, ja, jv = resolve_backbone_configs(
         SimpleNamespace(encoder_preset="no-such-preset", video_frame_size=(224, 224)))
     assert (jt.hidden_size, ja.hidden_size, jv.hidden_size) == (768, 768, 768)
-    with pytest.raises(NotImplementedError, match="half"):
-        resolve("half")
+    half = resolve("half")
+    jhalf = resolve_backbone_configs(
+        SimpleNamespace(encoder_preset="half", video_frame_size=(224, 224)))
+    for got, want in zip(half, jhalf):
+        fields = {f.name for f in dataclasses.fields(got)} & {f.name for f in
+                                                              dataclasses.fields(want)}
+        assert {f: getattr(got, f) for f in fields} == {f: getattr(want, f) for f in fields}
+        assert (got.hidden_size, got.num_layers, got.num_heads,
+                got.intermediate_size) == (384, 6, 6, 1536)
 
 
 def test_deberta_matches_jax_on_valid_rows(bundle):
