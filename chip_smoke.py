@@ -76,14 +76,15 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     feeds the loss moves;
 11. distillation: a base hierarchical teacher and a student with its
     encoders and the fusion stack halved (hidden 256, 4 heads, half the
-    layers), B=8 bf16, dropout and augmentation on, the teacher frozen
-    (``make_optimizer(frozen=("teacher",))``): after one warm-up step, 3
+    layers), B=8 bf16, dropout and augmentation on, the teacher frozen by
+    the model (``requires_grad`` off): after one warm-up step, 3
     steps each launching both models' forwards (46/70/24) and the student's
     backwards (23/35/12); a finite distillation loss > 0; every teacher
     parameter bit-equal with no ``.grad``; every student parameter that
     feeds the loss moves; ms/step and peak memory;
 12. few-shot episodes: the base hierarchical few-shot model (adapters, a
-    10-row prompt: DeBERTa at S = 522), the trainable-only optimizer,
+    10-row prompt: DeBERTa at S = 522), all but the adapters, the prompt
+    and the prototype network frozen, the trainable-only optimizer,
     7-way 5-shot (a support of 35 clips ordered by label) and a query of
     16: after one warm-up episode, 3 episodes each launching the forwards
     of two passes (46/70/24) and the backwards of DeBERTa alone
@@ -247,6 +248,8 @@ SOURCES["deberta_attention_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/deberta_attention_fwd_wgmma.cu, "
     "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd_dq_wgmma.cu and "
     "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd_dkv_wgmma.cu")
+# the front end's backward kernels live beside its forward
+SOURCES["wav_frontend_bwd"] = "simple_multimodal_tpu_torch/csrc/wav_frontend.cu"
 NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
 # one B=8 forward (serve) and one B=8 train step, at 10 s and at 20 s of audio
 FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12}
@@ -1682,7 +1685,7 @@ def phase_distillation(dev, tmp: str):
     t0 = time.perf_counter()
     model = KnowledgeDistillationModel(teacher, student, resolve_dtype(teacher, dev))
     model = init_weights(model, torch.Generator().manual_seed(0)).to(dev)
-    opt = make_optimizer(student, model, total_steps=100, frozen=("teacher",))
+    opt = make_optimizer(student, model, total_steps=100)
     step = make_train_step(model, opt, student, augment=True, compute_contrastive_loss=True)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     log(f"distillation: teacher base hierarchical (fusion {teacher.fusion_hidden_size}, "
@@ -1730,7 +1733,8 @@ def phase_fewshot(dev, tmp: str):
     import torch
 
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
-    from simple_multimodal_tpu_torch.train.optim import make_trainable_only_optimizer
+    from simple_multimodal_tpu_torch.train.optim import (freeze, is_trainable_name,
+                                                         make_trainable_only_optimizer)
     from simple_multimodal_tpu_torch.train.state import TrainState
     from simple_multimodal_tpu_torch.train.steps import make_fewshot_step
 
@@ -1738,6 +1742,7 @@ def phase_fewshot(dev, tmp: str):
     n_way, n_shot, n_query = cfg.num_emotions, 5, 16
     t0 = time.perf_counter()
     model = create_model(cfg, "few_shot", device=dev, generator=torch.Generator().manual_seed(0))
+    freeze(model, lambda n: not is_trainable_name(n))
     opt = make_trainable_only_optimizer(cfg, model)
     step = make_fewshot_step(model, opt, n_way, n_shot)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1936,7 +1941,7 @@ def phase_families_f32(dev, tmp: str):
 
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
     from simple_multimodal_tpu_torch.train.losses import cross_entropy
-    from simple_multimodal_tpu_torch.train.optim import make_trainable_only_optimizer
+    from simple_multimodal_tpu_torch.train.optim import freeze, is_trainable_name
 
     set_tf32(False)
     f32, cpu = torch.float32, torch.device("cpu")
@@ -1949,7 +1954,7 @@ def phase_families_f32(dev, tmp: str):
         d = dev if where == "card" else cpu
         m = create_model(cfg, "few_shot", device=d, dtype=f32,
                          generator=torch.Generator().manual_seed(1))
-        make_trainable_only_optimizer(cfg, m)  # the episode's freeze
+        freeze(m, lambda n: not is_trainable_name(n))  # the episode's freeze
         t0 = time.perf_counter()
         out = m(_to(support, d), _to(query, d), 2, 1)
         loss = cross_entropy(out["predictions"], query["emotion"].to(d))

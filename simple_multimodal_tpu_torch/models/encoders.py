@@ -10,8 +10,9 @@ on the device.
 
 Adapters and prompt tuning (the few-shot family's) are built only when the
 encoder is constructed with ``adapter=True`` / ``prompt=True``, as the JAX
-parameters exist only where a model was initialised with them; a forward
-with ``use_adapter`` or ``use_prompt`` then runs them. The adapter sits
+parameters exist only where a model was initialised with them; an encoder
+built with them always runs them (JAX's forward flags ``use_adapter`` /
+``use_prompt`` are what was built, one decision). The adapter sits
 where the JAX package places it: after DeBERTa, after wav2vec2, and on the
 ViT CLS features before the biLSTM. The prompt (``prompt_length`` rows of
 the text width, N(0, 1) at init) goes ahead of the word embeddings and the
@@ -60,13 +61,6 @@ def resolve_backbone_configs(config):
     return text, audio, vit
 
 
-def _run_adapter(encoder, x, dtype, gen):
-    if encoder.adapter is None:
-        raise ValueError(f"{type(encoder).__name__} was built without an adapter "
-                         "(construct the model with use_adapter=True)")
-    return encoder.adapter(x, dtype, gen)
-
-
 class TextEncoder(nn.Module):
     def __init__(self, config, adapter: bool = False, prompt: bool = False):
         super().__init__()
@@ -81,21 +75,15 @@ class TextEncoder(nn.Module):
         self.drop = config.fusion_dropout
 
     def forward(self, input_ids, attention_mask, dtype=torch.float32,
-                use_adapter: bool = False, use_prompt: bool = False,
                 gen=None) -> Dict[str, torch.Tensor]:
-        prompt = None
-        if use_prompt:
-            if self.prompt_embeddings is None:
-                raise ValueError("TextEncoder was built without prompt embeddings "
-                                 "(construct the model with use_prompt=True)")
-            prompt = self.prompt_embeddings
+        prompt = self.prompt_embeddings
         seq = self.model(input_ids, attention_mask, dtype, gen, prompt_embeds=prompt)
         if prompt is not None:  # the pooling mask covers the prompt rows too
             attention_mask = torch.cat(
                 [attention_mask.new_ones((input_ids.shape[0], prompt.shape[0])),
                  attention_mask], dim=1)
-        if use_adapter:
-            seq = _run_adapter(self, seq, dtype, gen)
+        if self.adapter is not None:
+            seq = self.adapter(seq, dtype, gen)
         if "bert" in self.text_cfg.model_type:  # reference substring rule
             pooled = seq[:, 0]
         else:
@@ -117,13 +105,13 @@ class AudioEncoder(nn.Module):
         self.projection = nn.Linear(E, config.fusion_hidden_size)
         self.drop = config.fusion_dropout
 
-    def forward(self, waveform, dtype=torch.float32, use_adapter: bool = False,
+    def forward(self, waveform, dtype=torch.float32,
                 gen=None) -> Dict[str, torch.Tensor]:
         if waveform.dtype == torch.int16:  # the wire format: dequantize here
             waveform = waveform.to(dtype) / 32768.0
         seq = self.model(waveform, dtype, gen)
-        if use_adapter:
-            seq = _run_adapter(self, seq, dtype, gen)
+        if self.adapter is not None:
+            seq = self.adapter(seq, dtype, gen)
         attended, weights = self.temporal_attention(seq, seq, seq, dtype, need_weights=False,
                                                     gen=gen)
         features = linear(attended.mean(dim=1), self.projection, dtype)
@@ -144,15 +132,15 @@ class VideoEncoder(nn.Module):
         self.projection = nn.Linear(E, config.fusion_hidden_size)
         self.drop = config.fusion_dropout
 
-    def forward(self, video_frames, dtype=torch.float32, use_adapter: bool = False,
+    def forward(self, video_frames, dtype=torch.float32,
                 gen=None) -> Dict[str, torch.Tensor]:
         """video_frames: [B, T, H, W, 3] uint8/float or packed yuv420."""
         frames = decode_video_wire(video_frames, dtype)
         B, T = frames.shape[:2]
         cls = self.vit(frames.reshape((B * T,) + frames.shape[2:]), dtype, cls_only=True,
                        gen=gen).reshape(B, T, -1)
-        if use_adapter:
-            cls = _run_adapter(self, cls, dtype, gen)
+        if self.adapter is not None:
+            cls = self.adapter(cls, dtype, gen)
         lstm_out = self.temporal_lstm(cls, gen)
         attended, weights = self.facial_attention(lstm_out, lstm_out, lstm_out, dtype,
                                                   need_weights=False, gen=gen)

@@ -15,9 +15,7 @@ dropout are drawn.
 
 All seven fusion types are ported. ``late`` fusion has no ``classifier``
 (its logits are the fused per-modality logits) and feeds the auxiliary
-heads the mean of the three features, as in the JAX model. Loading an
-orbax checkpoint (JAX ``load_pretrained_model``) waits for the port's
-checkpoints (ROADMAP Queue 1, 'Checkpoints, trainers and CLIs').
+heads the mean of the three features, as in the JAX model.
 """
 import math
 from typing import Dict, Optional, Sequence
@@ -80,8 +78,7 @@ def modality_dropout(text, audio, video, rate: float, gen: torch.Generator):
 class MultimodalEmotionModel(nn.Module):
     """Three encoders → fusion → heads, with the reference's output keys.
     ``use_adapter`` / ``use_prompt`` build the encoders' adapters and the
-    text prompt (the few-shot family's), which a forward with the same
-    flags then runs."""
+    text prompt (the few-shot family's), which every forward then runs."""
 
     def __init__(self, config, dtype: torch.dtype = torch.float32,
                  use_adapter: bool = False, use_prompt: bool = False):
@@ -104,8 +101,7 @@ class MultimodalEmotionModel(nn.Module):
         self.uncertainty_head = nn.Linear(Fh, config.num_emotions)
 
     def forward(self, text_input: Dict[str, torch.Tensor], audio_input: torch.Tensor,
-                video_input: torch.Tensor, use_adapter: bool = False,
-                use_prompt: bool = False, compute_contrastive_loss: bool = False,
+                video_input: torch.Tensor, compute_contrastive_loss: bool = False,
                 missing_modalities: Optional[Sequence[str]] = None,
                 gen: Optional[torch.Generator] = None) -> Dict:
         """text_input {input_ids, attention_mask} [B, S]; audio [B, T] float
@@ -124,10 +120,9 @@ class MultimodalEmotionModel(nn.Module):
             if "video" in missing_modalities:
                 video_input = torch.zeros_like(video_input)
 
-        text = self.text_encoder(input_ids, attention_mask, dt, use_adapter,
-                                 use_prompt, gen)["features"]
-        audio = self.audio_encoder(audio_input, dt, use_adapter, gen)["features"]
-        video = self.video_encoder(video_input, dt, use_adapter, gen)["features"]
+        text = self.text_encoder(input_ids, attention_mask, dt, gen)["features"]
+        audio = self.audio_encoder(audio_input, dt, gen)["features"]
+        video = self.video_encoder(video_input, dt, gen)["features"]
         if self.training:
             text, audio, video = modality_dropout(text, audio, video, 0.1, gen)
 
@@ -168,9 +163,9 @@ class MultimodalEmotionModel(nn.Module):
 class KnowledgeDistillationModel(nn.Module):
     """A student trained against a frozen teacher's softened logits (JAX
     ``KnowledgeDistillationModel``). The teacher runs in eval mode under
-    ``torch.no_grad()`` whatever ``train()`` set; the trainer leaves its
-    parameters out of the optimizer (``make_optimizer(..., frozen=("teacher",))``). Outputs are
-    the student's, plus ``distillation_loss`` (KL(teacher ‖ student) at
+    ``torch.no_grad()`` whatever ``train()`` set, and its parameters are
+    frozen (``requires_grad`` off, JAX's ``freeze_mask``), so no optimizer
+    takes them. Outputs are the student's, plus ``distillation_loss`` (KL(teacher ‖ student) at
     ``distill_temperature`` T, batch mean, times T²) and ``teacher_logits``."""
 
     def __init__(self, teacher_config, student_config, dtype: torch.dtype = torch.float32):
@@ -178,6 +173,7 @@ class KnowledgeDistillationModel(nn.Module):
         self.dtype = dtype
         self.student = MultimodalEmotionModel(student_config, dtype)
         self.teacher = MultimodalEmotionModel(teacher_config, dtype)
+        self.teacher.requires_grad_(False)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -213,8 +209,7 @@ class FewShotModel(nn.Module):
         self.prototype_network = nn.Sequential(nn.Linear(Fh, Fh), nn.ReLU(), nn.Linear(Fh, Fh))
 
     def _features(self, data: Dict, gen):
-        out = self.base_model(data["text"], data["audio"], data["video"], use_adapter=True,
-                              use_prompt=True, gen=gen)
+        out = self.base_model(data["text"], data["audio"], data["video"], gen=gen)
         return out["text_features"] + out["audio_features"] + out["video_features"]
 
     def forward(self, support_data: Dict, query_data: Dict, n_way: int, n_shot: int,
@@ -366,10 +361,3 @@ def create_model(config, model_type: str = "standard", device="cuda",
     model = init_weights(families[model_type](dtype), generator)
     return model.to(device).eval()
 
-
-def load_pretrained_model(checkpoint_path: str, config, dtype: torch.dtype = torch.float32):
-    """JAX ``load_pretrained_model`` restores an orbax checkpoint; the port's
-    own checkpoints with optimizer state are not ported yet (a serving
-    checkpoint loads through ``serving.demo.load_checkpoint``)."""
-    raise NotImplementedError("load_pretrained_model waits for the port's checkpoints "
-                              "(ROADMAP Queue 1, 'Checkpoints, trainers and CLIs')")

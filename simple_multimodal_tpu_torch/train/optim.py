@@ -10,15 +10,17 @@ not ``torch.optim.AdamW`` + ``clip_grad_norm_`` + ``OneCycleLR``: those clip
 by max/(‖g‖ + 1e-6), decay by lr·wd outside the backbone scale and
 schedule differently.
 
-A frozen subtree (the distillation teacher: JAX ``freeze_mask``) is
-``requires_grad_(False)`` and left out of the chain: no moments, no decay,
-no update, and the gradient norm and clip see what JAX sees, whose frozen
-gradients are exact zeros. ``make_trainable_only_optimizer`` is the
-few-shot episodes' plain AdamW over the adapters, the prompt and the
-prototype network, everything else frozen.
+A frozen parameter (JAX ``freeze_mask``) is one with ``requires_grad``
+off, which the model decides: the distillation model freezes its teacher
+when it is built, and ``freeze`` does it by name (the few-shot episodes
+freeze all but ``TRAINABLE_MARKERS``). The chain takes only the parameters
+that require a gradient: no moments, no decay and no update for the rest,
+and the gradient norm and clip see what JAX sees, whose frozen gradients
+are exact zeros. ``make_trainable_only_optimizer`` is the few-shot
+episodes' plain AdamW.
 """
 import math
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -30,6 +32,19 @@ BACKBONE_MARKERS = (("text_encoder", "model"), ("audio_encoder", "model"),
 # What the few-shot trainer trains (JAX ``FewShotTrainer.TRAINABLE_MARKERS``):
 # a parameter whose name contains one of these.
 TRAINABLE_MARKERS = ("adapter", "prompt_embeddings", "prototype_network")
+
+
+def freeze(model: torch.nn.Module, predicate: Callable[[str], bool]) -> None:
+    """Turn ``requires_grad`` off for every parameter whose name satisfies
+    ``predicate``."""
+    for name, p in model.named_parameters():
+        if predicate(name):
+            p.requires_grad_(False)
+
+
+def is_trainable_name(name: str) -> bool:
+    """True for a parameter the few-shot episodes train."""
+    return any(m in name for m in TRAINABLE_MARKERS)
 
 
 def is_backbone_name(name: str) -> bool:
@@ -116,13 +131,10 @@ class AdamWChain:
 
 
 def make_optimizer(config, model: torch.nn.Module, total_steps: int,
-                   backbone_lr_scale: float = 0.1, frozen: Sequence[str] = ()) -> AdamWChain:
+                   backbone_lr_scale: float = 0.1) -> AdamWChain:
     """AdamW + OneCycle + clip with the 0.1× backbone group, from the
-    config's learning_rate, weight_decay and gradient_clip_norm. The
-    submodules named in ``frozen`` (``("teacher",)`` for distillation) are
-    frozen first."""
-    for name in frozen:
-        model.get_submodule(name).requires_grad_(False)
+    config's learning_rate, weight_decay and gradient_clip_norm, over the
+    parameters that require a gradient."""
     return AdamWChain(model.named_parameters(),
                       make_schedule(config.learning_rate, total_steps),
                       config.gradient_clip_norm, config.weight_decay, backbone_lr_scale)
@@ -131,10 +143,9 @@ def make_optimizer(config, model: torch.nn.Module, total_steps: int,
 def make_trainable_only_optimizer(config, model: torch.nn.Module) -> AdamWChain:
     """Plain AdamW (optax ``adamw``'s defaults: b1 0.9, b2 0.999, ε 1e-8
     outside the square root, weight decay 1e-4, no clip) at the config's
-    constant learning_rate over the parameters whose name contains one of
-    ``TRAINABLE_MARKERS``; every other parameter is frozen."""
-    for name, p in model.named_parameters():
-        p.requires_grad_(any(m in name for m in TRAINABLE_MARKERS))
+    constant learning_rate over the parameters that require a gradient:
+    the few-shot episodes freeze every name but ``TRAINABLE_MARKERS``'
+    first (``freeze(model, lambda n: not is_trainable_name(n))``)."""
     lr = config.learning_rate
     return AdamWChain(model.named_parameters(), lambda count: lr, clip_norm=math.inf,
                       weight_decay=1e-4, backbone_lr_scale=1.0)

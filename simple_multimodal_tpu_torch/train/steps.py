@@ -33,15 +33,13 @@ def _device_generators(state: TrainState, device, n: int):
 def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
                     compute_contrastive_loss: bool = True,
                     logits_key: str = "emotion_logits",
-                    missing_modality_rate: float = 0.0,
-                    model_kwargs: Optional[Dict] = None) -> Callable:
+                    missing_modality_rate: float = 0.0) -> Callable:
     """(state, batch) → (state, metrics) over ``model`` (on its device) and
     ``optimizer`` (made over the model's parameters). ``missing_modality_rate``
     > 0 zeroes each modality of the whole batch with that probability, the
-    robustness trainer's scenario draw. ``model_kwargs`` go to every forward."""
+    robustness trainer's scenario draw."""
     del config  # the JAX step reads only the compute dtype from it; the model holds it
     compute_dtype = model.dtype
-    model_kwargs = dict(model_kwargs or {})
 
     def step(state: TrainState, batch: Dict):
         device = next(model.parameters()).device
@@ -60,7 +58,7 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
             video = torch.where(drop[2], torch.zeros_like(video), video)
         model.train()
         outputs = model(text, audio, video, compute_contrastive_loss=compute_contrastive_loss,
-                        gen=g_drop, **model_kwargs)
+                        gen=g_drop)
         loss, parts = total_loss(outputs, batch["emotion"], label_smoothing=0.1,
                                  logits_key=logits_key)
         grads = _backward(loss, optimizer)
@@ -106,19 +104,15 @@ def make_fewshot_step(model, optimizer: AdamWChain, n_way: int, n_shot: int) -> 
 
 
 def make_eval_step(model, compute_loss: bool = True, logits_key: str = "emotion_logits",
-                   missing_modalities: Optional[Sequence[str]] = None,
-                   model_kwargs: Optional[Dict] = None) -> Callable:
+                   missing_modalities: Optional[Sequence[str]] = None) -> Callable:
     """batch → outputs dict (logits, probs, predictions, mean features,
-    late fusion's individual_logits [, loss]) in eval mode. ``model_kwargs``
-    go to every forward."""
-    kwargs = dict(model_kwargs or {})
-    if missing_modalities:
-        kwargs["missing_modalities"] = tuple(missing_modalities)
+    late fusion's individual_logits [, loss]) in eval mode."""
+    mm = tuple(missing_modalities) if missing_modalities else None
 
     @torch.no_grad()
     def step(batch: Dict) -> Dict:
         model.eval()
-        outputs = model(batch["text"], batch["audio"], batch["video"], **kwargs)
+        outputs = model(batch["text"], batch["audio"], batch["video"], missing_modalities=mm)
         logits = outputs[logits_key]
         result = {
             "logits": logits,

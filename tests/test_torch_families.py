@@ -301,7 +301,8 @@ def test_distillation_update_freezes_the_teacher_and_matches_optax(fam):
     """Gradients of the composite loss (0.5 × the distillation loss in it)
     with dropout off: the port's student gradients against JAX's (1e-3 of
     each leaf's max magnitude + 1e-6), no teacher gradient (JAX's are exact
-    zeros). Then three updates of ``make_optimizer(frozen=("teacher",))``
+    zeros). Then three updates of ``make_optimizer`` (the teacher frozen
+    by the model)
     from JAX's gradients against optax's chain with
     ``freeze_mask={"teacher": True}`` (lr 1e-2, decay 0.1): the student at
     1e-5, the teacher bit-equal on both sides."""
@@ -318,7 +319,7 @@ def test_distillation_update_freezes_the_teacher_and_matches_optax(fam):
     model = PortKD(pt, ps).eval()
     model.load_state_dict(port.state_dict())
     jcfg = dataclasses.replace(s_cfg, learning_rate=1e-2, weight_decay=0.1)
-    opt = optim.make_optimizer(_port_cfg(jcfg), model, total_steps=20, frozen=("teacher",))
+    opt = optim.make_optimizer(_port_cfg(jcfg), model, total_steps=20)
     assert opt.names and all(n.startswith("student.") for n in opt.names)
     out = model(*_torch(*inputs))
     loss, _ = losses.total_loss(out, torch.from_numpy(labels))
@@ -364,7 +365,7 @@ def test_distillation_train_step_leaves_the_teacher_bit_equal(fam):
     model = PortKD(_port_cfg(t_cfg), _port_cfg(s_cfg))
     model.load_state_dict(port.state_dict())
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    opt = optim.make_optimizer(_port_cfg(s_cfg), model, total_steps=10, frozen=("teacher",))
+    opt = optim.make_optimizer(_port_cfg(s_cfg), model, total_steps=10)
     step = make_train_step(model, opt, _port_cfg(s_cfg), augment=True)
     text, audio, video = _torch(*inputs)
     batch = {"text": text, "audio": audio, "video": video,
@@ -388,6 +389,7 @@ def test_teacher_stays_in_eval_mode_and_gets_no_gradient(fam):
     t_cfg, s_cfg, jm, params, port, inputs = fam["distillation"]
     model = PortKD(_port_cfg(t_cfg), _port_cfg(s_cfg))
     model.load_state_dict(port.state_dict())
+    model.teacher.requires_grad_(True)  # unfreeze: no_grad alone must stop it
     model.train()
     assert model.training and model.student.training
     assert not any(m.training for m in model.teacher.modules())
@@ -412,13 +414,12 @@ def test_trainable_only_optimizer_matches_optax_adamw(fam):
     cfg, _, jm, params, port, _ = fam["few_shot"]
     jcfg = dataclasses.replace(cfg, learning_rate=1e-2)
 
-    def trainable(path):
-        return any(m in path for m in optim.TRAINABLE_MARKERS)
-
+    trainable = optim.is_trainable_name
     tx = joptim.make_trainable_only_optimizer(jcfg, params, trainable)
     opt_state, jp = tx.init(params), params
     model = PortFewShot(_port_cfg(cfg))
     model.load_state_dict(port.state_dict())
+    optim.freeze(model, lambda n: not trainable(n))
     opt = optim.make_trainable_only_optimizer(_port_cfg(jcfg), model)
     assert set(opt.names) == {n for n, _ in model.named_parameters() if trainable(n)}
     assert {n for n, p in model.named_parameters() if p.requires_grad} == set(opt.names)
@@ -462,15 +463,13 @@ def test_fewshot_step_matches_jax_with_dropout_off(fam, monkeypatch):
     1e-5, every frozen parameter bit-equal."""
     cfg, _, jm, params, port, (support, query) = fam["few_shot"]
 
-    def trainable(path):
-        return any(m in path for m in optim.TRAINABLE_MARKERS)
-
-    tx = joptim.make_trainable_only_optimizer(cfg, params, trainable)
+    tx = joptim.make_trainable_only_optimizer(cfg, params, optim.is_trainable_name)
     jstep = jax_fewshot_step(_Deterministic(jm), tx, N_WAY, N_SHOT)
     jstate = JaxTrainState.create(params, tx, jax.random.PRNGKey(0))
     model = PortFewShot(_port_cfg(cfg)).eval()
     model.load_state_dict(port.state_dict())
     monkeypatch.setattr(model, "train", lambda mode=True: model)
+    optim.freeze(model, lambda n: not optim.is_trainable_name(n))
     opt = optim.make_trainable_only_optimizer(_port_cfg(cfg), model)
     step = make_fewshot_step(model, opt, N_WAY, N_SHOT)
     state = TrainState.create(0)

@@ -293,15 +293,15 @@ def test_encoder_with_adapter_matches_jax(adapted, which):
         if which == "text":
             want = TextEncoder(cfg).apply({"params": p["text_encoder"]}, ids, mask,
                                           use_adapter=True, use_prompt=True)
-            got = port.text_encoder(t(ids), t(mask), F32, use_adapter=True, use_prompt=True)
+            got = port.text_encoder(t(ids), t(mask), F32)
         elif which == "audio":
             want = AudioEncoder(cfg).apply({"params": p["audio_encoder"]}, audio,
                                            use_adapter=True)
-            got = port.audio_encoder(t(audio), F32, use_adapter=True)
+            got = port.audio_encoder(t(audio), F32)
         else:
             want = VideoEncoder(cfg).apply({"params": p["video_encoder"]}, video,
                                            use_adapter=True)
-            got = port.video_encoder(t(video), F32, use_adapter=True)
+            got = port.video_encoder(t(video), F32)
     np.testing.assert_allclose(_np(got["features"]), np.asarray(want["features"]), **ENC_TOL)
     seq_got, seq_want = _np(got["sequence_output"]), np.asarray(want["sequence_output"])
     if which == "text":
@@ -314,10 +314,15 @@ def test_encoder_with_adapter_matches_jax(adapted, which):
         seq_got, seq_want = seq_got[valid], seq_want[valid]
     np.testing.assert_allclose(seq_got, seq_want, **ENC_TOL)
     # the adapter is on the path: without it the features differ
-    with torch.no_grad():
-        plain = {"text": lambda: port.text_encoder(t(ids), t(mask), F32, use_prompt=True),
-                 "audio": lambda: port.audio_encoder(t(audio), F32),
-                 "video": lambda: port.video_encoder(t(video), F32)}[which]()
+    encoder = getattr(port, f"{which}_encoder")
+    adapter, encoder.adapter = encoder.adapter, None
+    try:
+        with torch.no_grad():
+            plain = {"text": lambda: encoder(t(ids), t(mask), F32),
+                     "audio": lambda: encoder(t(audio), F32),
+                     "video": lambda: encoder(t(video), F32)}[which]()
+    finally:
+        encoder.adapter = adapter
     assert float((plain["features"] - got["features"]).abs().max()) > 1e-3
 
 
@@ -327,7 +332,7 @@ def test_model_with_adapters_and_prompt_matches_jax(adapted):
                                                     use_prompt=True))(
         {"params": p}, *inputs)
     with torch.no_grad():
-        got = port(*_torch(*inputs), use_adapter=True, use_prompt=True)
+        got = port(*_torch(*inputs))
     for key in ("text_features", "audio_features", "video_features", "emotion_logits",
                 "valence", "arousal", "emotion_probs", "uncertainty"):
         np.testing.assert_allclose(_np(got[key]), np.asarray(want[key]), **TOL, err_msg=key)

@@ -160,14 +160,12 @@ def test_demo_refuses_files_until_the_data_path_is_ported(slice_):
     assert analysis == {} and message.startswith("Error processing input")
 
 
-def test_unported_options_raise(slice_, tmp_path):
+def test_unported_options_raise(slice_):
     """What the port still refuses, each naming its ROADMAP item: an spm
-    tokenizer, media files in ``predict``, and ``load_pretrained_model``
-    (the orbax checkpoints). Late fusion, adapters, prompts and the three
-    model families, refused before, are ported (tests/test_torch_families.py);
-    a forward asking for adapters a model was built without is a ValueError."""
+    tokenizer and media files in ``predict``; and an unknown model type.
+    Late fusion, adapters, prompts and the three model families, refused
+    before, are ported (tests/test_torch_families.py)."""
     from simple_multimodal_tpu_torch.data.tokenizer import get_tokenizer
-    from simple_multimodal_tpu_torch.models.multimodal_model import load_pretrained_model
 
     cfg, pcfg, model, params, port, inputs = slice_
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -175,12 +173,6 @@ def test_unported_options_raise(slice_, tmp_path):
     demo = MultimodalEmotionDemo(model=port, config=pcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         demo.predict("hello", video="clip.mp4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_pretrained_model(str(tmp_path / "ckpt"), pcfg)
-    with pytest.raises(ValueError, match="use_adapter=True"):
-        port(*_port_inputs(*inputs), use_adapter=True)
-    with pytest.raises(ValueError, match="use_prompt=True"):
-        port(*_port_inputs(*inputs), use_prompt=True)
     with pytest.raises(ValueError, match="Unknown model type"):
         create_model(pcfg, model_type="no-such-family", device="cpu")
 
