@@ -109,7 +109,22 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     episode (2-way 1-shot, a query of 2, dropout off): loss within 1e-4
     relative, the prompt's, the adapters' and the prototype network's
     gradients within 1e-3 of their largest magnitude; a half-preset B=1
-    forward at atol=rtol=1e-3.
+    forward at atol=rtol=1e-3;
+17. train from files: ``create_sample_data_torch.py`` writes 6 clips per
+    emotion (42: 29 train, 6 val, 7 test; the clip store, mp4 or sidecar,
+    and the audio decoder, native or numpy, printed) and
+    ``train_advanced_torch.main`` runs in-process ``--mode standard
+    --preset base --fusion_type hierarchical --batch_size 8 --epochs 2``:
+    8 train steps each launching 23/35/12 both ways, 2 validations and a
+    test pass whose batches launch 23/35/12 forwards and no backward,
+    every loss finite, ``best_model/`` and ``final_model_hierarchical/``
+    with their ``meta.json``; ``--resume`` with ``--epochs 3`` goes on at
+    epoch 3 from step 8 to 12; ``load_pretrained_model`` →
+    ``MultimodalEmotionDemo.predict`` from a WAV path and the clip,
+    bit-equal to the request from arrays the port's loaders decoded; one
+    epoch with ``device_data_cache_mb=0`` (the prefetcher). Printed: decode
+    seconds cold and warm, seconds per epoch and clips/s on both paths,
+    peak device memory.
 
 Phases 2 and 3 also run the half preset's widths: attention_block at
 [240,197,384] and [8,499,384] (6 heads), ffn_block at E 384 / F 1536
@@ -778,7 +793,7 @@ def phase_serve_and_count(dev, tmp: str, long: bool = False):
     model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     if dev.type == "cuda" and model.dtype != torch.bfloat16:
         raise AssertionError(f"base model on cuda should compute in bf16, got {model.dtype}")
-    ckpt = os.path.join(tmp, "model_long.pt" if long else "model.pt")
+    ckpt = os.path.join(tmp, "model_long" if long else "model")
     save_checkpoint(ckpt, model, cfg)
     del model
     demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device=dev)
@@ -1839,7 +1854,7 @@ def phase_late_serve(dev, tmp: str):
     if model.classifier is not None or any(k.startswith("classifier.")
                                            for k in model.state_dict()):
         raise AssertionError("late: the model should have no classifier")
-    ckpt = os.path.join(tmp, "model_late_fusion.pt")
+    ckpt = os.path.join(tmp, "model_late_fusion")
     save_checkpoint(ckpt, model, cfg)
     del model
     demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device=dev)
@@ -1995,6 +2010,222 @@ def phase_families_f32(dev, tmp: str):
         log(f"f32 half B=1: {k:16s} max_abs_err={err:.3e} (atol=rtol={ATOL_F32:g})")
         if not torch.allclose(a, w, atol=ATOL_F32, rtol=ATOL_F32):
             raise AssertionError(f"f32 half B=1: {k} card vs CPU differ by {err:.3e}")
+
+
+FILES_PER_EMOTION = 6  # 42 clips: 29 train, 6 val, 7 test
+FILES_TEXT = "I am so happy about my new job!"
+
+
+def _count_steps(module, record: dict):
+    """Wrap ``module``'s ``make_train_step`` and ``make_eval_step`` (the
+    names the trainer calls) so that every step's launch counts are read
+    with the counters set to 0 just before it, and its loss is kept (on the
+    device, checked after the run). Returns the patch's undo."""
+    from simple_multimodal_tpu_torch.ops import hopper
+
+    make_train, make_eval = module.make_train_step, module.make_eval_step
+
+    def counted(kind, step):
+        def run(*args):
+            hopper.reset_launch_counts()
+            state_or_out = step(*args)
+            record[kind].append(hopper.launch_counts())
+            if kind == "train":
+                record["losses"].append(state_or_out[1]["total_loss"])
+            return state_or_out
+        return run
+
+    module.make_train_step = lambda *a, **k: counted("train", make_train(*a, **k))
+    module.make_eval_step = lambda *a, **k: counted("eval", make_eval(*a, **k))
+
+    def undo():
+        module.make_train_step, module.make_eval_step = make_train, make_eval
+    return undo
+
+
+def _run_cli(cli, argv, expect_train: int, expect_eval: int, tag: str, **config_kw):
+    """``train_advanced_torch.main(argv)`` in-process (``config_kw`` set on
+    its ModelConfig), holding every train step to 23/35/12 launches both
+    ways and every validation or test batch to 23/35/12 forwards and no
+    backward; every step's loss finite. Returns (result, wall seconds)."""
+    import math
+
+    import torch
+
+    from simple_multimodal_tpu_torch.train import trainer as trainer_module
+
+    record = {"train": [], "eval": [], "losses": []}
+    undo = _count_steps(trainer_module, record)
+    make_config = cli.ModelConfig
+    cli.ModelConfig = lambda **kw: make_config(**kw, **config_kw)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        result = cli.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        cli.ModelConfig = make_config
+        undo()
+    if len(record["train"]) != expect_train or len(record["eval"]) != expect_eval:
+        raise AssertionError(f"{tag}: {len(record['train'])} train steps and "
+                             f"{len(record['eval'])} eval batches, expected {expect_train} "
+                             f"and {expect_eval}")
+    for i, counts in enumerate(record["train"]):
+        _expect(f"{tag} train step {i}", counts, TRAIN_LAUNCHES)
+    for i, counts in enumerate(record["eval"]):
+        _expect(f"{tag} eval batch {i}", counts, EXPECTED_LAUNCHES)
+    losses = torch.stack([v.float() for v in record["losses"]]).cpu().tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag}: non-finite losses {losses}")
+    log(f"{tag}: {expect_train} train steps of {TRAIN_LAUNCHES['attention_block_bwd']}/"
+        f"{TRAIN_LAUNCHES['ffn_block_bwd']}/{TRAIN_LAUNCHES['deberta_attention_bwd']} backward "
+        f"launches, {expect_eval} eval batches of forwards only; losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    return result, wall
+
+
+def _decode_epoch_seconds(ds_module, data, cfg) -> float:
+    """Seconds to read every clip of the three splits once (the sidecar
+    cache cold on the first call, warm after)."""
+    t0 = time.perf_counter()
+    for split in ("train", "val", "test"):
+        ds = ds_module.get_dataset("sample", data, split, cfg)
+        for i in range(len(ds)):
+            ds[i]
+    return time.perf_counter() - t0
+
+
+def phase_train_from_files(dev, tmp: str):
+    """Phase 17: the standard training CLI from files at full width. The
+    port's generator writes 6 clips per emotion (42: 29 train, 6 val, 7
+    test); ``train_advanced_torch.main`` runs ``--mode standard --preset
+    base --fusion_type hierarchical --batch_size 8 --epochs 2`` in-process:
+    8 train steps of 23/35/12 launches both ways, 2 validations and one
+    test pass of 23/35/12 forwards a batch, every loss finite,
+    ``best_model/`` and ``final_model_hierarchical/`` with their
+    ``meta.json``; ``--resume final_model_hierarchical --epochs 3`` goes on
+    at epoch 3 from step 8 to step 12; ``load_pretrained_model`` →
+    ``MultimodalEmotionDemo.predict`` from the paths of a WAV and its moving
+    clip (an empty file beside its sidecars without OpenCV), bit-equal to
+    the same request from the decoded WAV and the clip's frames subsampled
+    here (decoded, or as drawn without OpenCV), probabilities
+    finite and summing to 1 ± 1e-2; one more epoch with
+    ``device_data_cache_mb=0`` through the prefetcher. Printed: the clip
+    store and audio decoder, the cold and warm decode seconds of an epoch,
+    seconds per epoch and clips/s on the cached and the prefetch paths, the
+    peak device memory."""
+    import importlib
+    import json as _json
+
+    import torch
+
+    from simple_multimodal_tpu_torch.config import ModelConfig
+    from simple_multimodal_tpu_torch.data import dataset as ds_module
+    from simple_multimodal_tpu_torch.data import native
+    from simple_multimodal_tpu_torch.data.audio_io import load_audio_fixed
+    from simple_multimodal_tpu_torch.data.sample_data import synth_video
+    from simple_multimodal_tpu_torch.data.video_io import has_opencv, load_video_frames
+    from simple_multimodal_tpu_torch.models.multimodal_model import load_pretrained_model
+    from simple_multimodal_tpu_torch.serving.demo import MultimodalEmotionDemo
+
+    gen_cli = importlib.import_module("create_sample_data_torch")
+    cli = importlib.import_module("train_advanced_torch")
+    root = os.path.join(tmp, "files")
+    os.makedirs(root, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI's ModelConfig makes ./logs for its plots
+    try:
+        t0 = time.perf_counter()
+        data = gen_cli.main(["--output_dir", os.path.join(root, "data"), "--num_samples",
+                             str(FILES_PER_EMOTION)])
+        with open(os.path.join(data, "generation_meta.json")) as f:
+            store = _json.load(f).get("video_store", "mp4")
+        log(f"files: {FILES_PER_EMOTION * 7} clips generated in {time.perf_counter() - t0:.1f} "
+            f"s; clip store {store} (OpenCV {'present' if has_opencv() else 'absent'}), audio "
+            f"decoder {native.decoder()}")
+        cfg = ModelConfig(data_path=data, save_path=os.path.join(root, "ck"),
+                          log_path=os.path.join(root, "logs"))
+        cold = _decode_epoch_seconds(ds_module, data, cfg)
+        warm = _decode_epoch_seconds(ds_module, data, cfg)
+        log(f"files: decode of the 42 clips (text, int16 audio, yuv420 video) cold {cold:.2f} s "
+            f"(sidecars written), warm {warm:.2f} s (sidecars read); {smi_line()}")
+
+        save = os.path.join(root, "ck")
+        argv = ["--mode", "standard", "--preset", "base", "--fusion_type", "hierarchical",
+                "--batch_size", str(B), "--data_path", data, "--save_path", save]
+        torch.cuda.reset_peak_memory_stats()
+        out, wall = _run_cli(cli, argv + ["--epochs", "2"], 8, 3, "files standard")
+        trainer = out["trainer"]
+        if not trainer.device_cached or trainer.state.step != 8:
+            raise AssertionError(f"files: cached={trainer.device_cached} "
+                                 f"step={trainer.state.step}")
+        final = os.path.join(save, "final_model_hierarchical")
+        for d in (os.path.join(save, "best_model"), final):
+            if not os.path.exists(os.path.join(d, "meta.json")):
+                raise AssertionError(f"files: {d}/meta.json missing")
+        n_train = len(trainer.train_loader.dataset)
+        cached_times = list(trainer.epoch_times)
+        log(f"files standard (device-cached): epochs {' '.join(f'{t:.2f}' for t in cached_times)} "
+            f"s (train + validation), {n_train / cached_times[-1]:.1f} train clips/s in the last; "
+            f"run {wall:.1f} s; losses {trainer.train_losses}; val F1 {trainer.val_f1_scores}; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{smi_line()}")
+        del out, trainer
+        torch.cuda.empty_cache()
+
+        out, _ = _run_cli(cli, argv + ["--epochs", "3", "--resume", final], 4, 2,
+                          "files resume")
+        resumed = out["trainer"]
+        if (resumed.start_epoch, resumed.current_epoch, resumed.state.step) != (2, 2, 12):
+            raise AssertionError(f"files resume: start epoch {resumed.start_epoch}, epoch "
+                                 f"{resumed.current_epoch}, step {resumed.state.step}")
+        log("files resume: went on at epoch 3 from step 8 to step 12")
+        del out, resumed
+        torch.cuda.empty_cache()
+
+        model, mcfg = load_pretrained_model(final, device=dev)
+        demo = MultimodalEmotionDemo(model=model, config=mcfg, device=dev)
+        # happy_000's disc pulses from frame to frame. The arrays side takes
+        # every frame the clip holds (decoded, or as drawn where the clip is
+        # an empty file beside its sidecars) and subsamples them itself.
+        name = "happy_000.wav"
+        wav = os.path.join(data, "audio", name)
+        clip = os.path.join(data, "video", name[:-4] + ".mp4")
+        w, h = tuple(mcfg.video_frame_size)
+        T = mcfg.video_max_frames
+        with open(os.path.join(data, "generation_meta.json")) as f:
+            drawn = int(_json.load(f)["duration"] * 15)  # synth_video's 15 fps
+        if has_opencv():
+            every_frame = load_video_frames(clip, drawn, (w, h))
+        else:
+            every_frame = synth_video("happy", drawn / 15, size=(w, h))
+        arrays_clip = every_frame[::max(drawn // T, 1)][:T]
+        got = demo.predict(FILES_TEXT, wav, clip)
+        want = demo.predict(FILES_TEXT, load_audio_fixed(wav, mcfg.audio_sample_rate,
+                                                         mcfg.audio_max_length), arrays_clip)
+        if got != want:
+            raise AssertionError(f"files serve: from paths {got} != from arrays {want}")
+        _check_probs(torch.tensor(list(got["emotion_distribution"].values())), "files serve")
+        log(f"files serve: {name} + the path of {'its mp4' if has_opencv() else 'its empty clip '
+            '(read from its sidecar)'} → {got['predicted_emotion']} ({got['confidence']:.3f}), "
+            f"equal to the request from arrays ({T} of its {drawn} frames at stride "
+            f"{max(drawn // T, 1)})")
+        del model, demo
+        torch.cuda.empty_cache()
+
+        out, _ = _run_cli(cli, argv + ["--epochs", "1", "--save_path",
+                                       os.path.join(root, "ck_prefetch")],
+                          4, 2, "files prefetch", device_data_cache_mb=0)
+        pre = out["trainer"]
+        if pre.device_cached:
+            raise AssertionError("files prefetch: the data set was cached on the device")
+        log(f"files standard (prefetch): epoch {pre.epoch_times[0]:.2f} s (train + validation, "
+            f"the first of the run), {n_train / pre.epoch_times[0]:.1f} train clips/s; cached "
+            f"path's first epoch {cached_times[0]:.2f} s; {smi_line()}")
+        del out, pre
+    finally:
+        os.chdir(cwd)
 
 
 def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
@@ -2601,7 +2832,7 @@ def main() -> int:
                 counts.update({k: v for k, v in phase_train(dev, tmp, long=True).items()
                                if k.endswith("_bwd")})
             for phase in (phase_distillation, phase_fewshot, phase_robust, phase_late_serve,
-                          phase_half, phase_families_f32):
+                          phase_half, phase_families_f32, phase_train_from_files):
                 t0 = time.perf_counter()
                 phase(dev, tmp)
                 torch.cuda.empty_cache()

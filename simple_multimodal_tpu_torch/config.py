@@ -1,11 +1,15 @@
-"""Model configuration for the PyTorch port.
+"""Configuration dataclasses for the PyTorch port.
 
-A stdlib copy of simple_multimodal_tpu's ``ModelConfig`` (same fields,
-defaults and JSON round-trip), so the port never imports the JAX package:
+A stdlib copy of simple_multimodal_tpu's ``ModelConfig``, ``DataConfig``
+and ``ExperimentConfig`` (same fields, defaults and JSON round-trip), so
+the port never imports the JAX package:
 importing that package's config runs its ``__init__``, which imports jax
 whenever ``JAX_PLATFORMS`` is set. Like the reference, constructing a
 ``ModelConfig`` creates its data/save/log directories; no instance is made
 at import time here.
+
+``ModelConfig.device_data_cache_mb`` is read by the port's trainer: a data
+set that fits it is kept on the card (``data/pipeline.DeviceCachedLoader``).
 """
 import dataclasses
 import json
@@ -77,7 +81,7 @@ class ModelConfig:
 
     # Device configuration
     # Mirrors the JAX config and round-trips through checkpoints; nothing in
-    # the port reads it: create_model, load_checkpoint and
+    # the port reads it: create_model, load_pretrained_model and
     # MultimodalEmotionDemo take an explicit ``device`` argument ("cuda" by
     # default, "cpu" on request).
     device: str = "auto"  # auto, cpu, cuda
@@ -90,14 +94,18 @@ class ModelConfig:
     encoder_preset: str = "base"
     # Compute dtype under mixed precision on a GPU. Params stay f32.
     compute_dtype: str = "bfloat16"
-    # The fields below are kept so configs round-trip with the JAX package;
-    # the serving port does not read them yet.
+    # Kept so configs round-trip with the JAX package; the port reads none
+    # of these four (its kernels are always on on the card).
     mesh_shape: Tuple[int, int] = (1, 1)
     remat_encoders: object = "auto"
     flash_attention: object = "auto"
     flash_attention_train: object = "auto"
+    # The dataset's video wire format: packed yuv420 or rgb8 (data/dataset.py).
     video_wire_format: str = "yuv420"
+    # A data set smaller than this stays on the card across epochs (the
+    # trainer's DeviceCachedLoader); 0 disables.
     device_data_cache_mb: int = 2048
+    # A sentencepiece unigram model file (data/tokenizer.get_tokenizer).
     spm_model_path: Optional[str] = None
 
     def __post_init__(self):
@@ -112,6 +120,70 @@ class ModelConfig:
         # Create directories (reference behavior, config.py:76-79)
         for p in (self.data_path, self.save_path, self.log_path):
             os.makedirs(p, exist_ok=True)
+
+
+@dataclass
+class DataConfig:
+    """Data configuration parameters (reference: config.py:82-107)."""
+
+    # Dataset selection
+    primary_dataset: str = "sample"  # cmu_mosei, meld, iemocap...
+    supplementary_datasets: List[str] = None
+
+    # Data preprocessing
+    normalize_audio: bool = True
+    augment_data: bool = True
+    balance_classes: bool = True
+
+    # Cross-validation
+    k_folds: int = 5
+    test_split: float = 0.2
+    val_split: float = 0.1
+
+    # Data loading
+    num_workers: int = 0
+    pin_memory: bool = True
+
+    # --- Extensions of the JAX package ---
+    # Cache decoded audio/video as .npy sidecars next to the raw media.
+    cache_decoded: bool = True
+    # Number of batches to prefetch onto the device.
+    prefetch_batches: int = 2
+
+    def __post_init__(self):
+        if self.supplementary_datasets is None:
+            self.supplementary_datasets = ["meld"]
+
+
+@dataclass
+class ExperimentConfig:
+    """Experiment configuration for research (reference: config.py:110-140)."""
+
+    # Ablation studies
+    enable_early_fusion: bool = True
+    enable_late_fusion: bool = True
+    enable_mult_fusion: bool = True
+    enable_graph_fusion: bool = True
+    enable_contrastive_learning: bool = True
+
+    # Few-shot learning
+    enable_prompt_tuning: bool = True
+    enable_adapter_tuning: bool = True
+    few_shot_samples: List[int] = None
+
+    # Robustness testing
+    test_missing_modalities: bool = True
+    missing_modality_rates: List[float] = None
+
+    # Knowledge distillation
+    enable_knowledge_distillation: bool = True
+    teacher_model_path: Optional[str] = None
+
+    def __post_init__(self):
+        if self.few_shot_samples is None:
+            self.few_shot_samples = [1, 5, 10, 20, 50]
+        if self.missing_modality_rates is None:
+            self.missing_modality_rates = [0.1, 0.3, 0.5, 0.7]
 
 
 def config_to_dict(cfg) -> Dict:

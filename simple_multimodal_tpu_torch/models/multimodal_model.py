@@ -361,3 +361,24 @@ def create_model(config, model_type: str = "standard", device="cuda",
     model = init_weights(families[model_type](dtype), generator)
     return model.to(device).eval()
 
+
+
+def load_pretrained_model(checkpoint_path: str, config=None, device="cuda",
+                          dtype: Optional[torch.dtype] = None):
+    """(model, config) from a port checkpoint directory
+    (``train/checkpoint.save_checkpoint``): the standard model of the
+    checkpoint's own config (or ``config``), its weights loaded, in eval
+    mode on ``device`` (the card unless the caller passes ``device="cpu"``;
+    raises without a CUDA device)."""
+    import json
+
+    from ..config import ModelConfig, config_from_dict
+    from ..train.checkpoint import load_payload
+
+    device = require_device(device, "load_pretrained_model")
+    payload = load_payload(checkpoint_path)
+    if config is None:
+        config = config_from_dict(ModelConfig, json.loads(payload["config"]))
+    model = MultimodalEmotionModel(config, dtype=dtype or resolve_dtype(config, device))
+    model.load_state_dict(payload["state_dict"])
+    return model.to(device).eval(), config

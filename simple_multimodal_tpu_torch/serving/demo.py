@@ -3,16 +3,19 @@ simple_multimodal_tpu/serving/demo.py).
 
 ``MultimodalEmotionDemo`` holds a port model on its device (the card by
 default, the CPU with ``device="cpu"``; no silent fallback), built
-from a model + config or loaded from a port checkpoint (``save_checkpoint``:
-a ``torch.save`` of the state_dict and the config as JSON).
+from a model + config or loaded from a port checkpoint directory
+(``train/checkpoint.py``; ``save_checkpoint`` here writes one from a model
+and its config) through ``load_pretrained_model``.
 ``predict(text, audio, video)`` runs one request and raises on error;
 ``process_multimodal_input`` is the UI entry point and, like the
-reference, turns any error into an error tuple. Audio and video arrive as
-already decoded arrays (or None, meaning zeros); decoding files waits for
-the host data path (ROADMAP Queue 1, 'Host data path'). The response templates,
-activity suggestions and chart payloads are pure Python.
+reference, turns any error into an error tuple. Audio and video come as
+file paths, decoded as the JAX demo decodes them (the WAV resampled to the
+model's rate, mono, padded or cut; the clip's frames subsampled by a
+stride that spreads ``video_max_frames`` over it; an empty clip, as the
+sample generator stores one without OpenCV, read from its decoded-frame
+sidecar), or as already decoded arrays, or None (zeros). The response
+templates, activity suggestions and chart payloads are pure Python.
 """
-import json
 import random
 import time
 from typing import Dict, List, Optional, Tuple
@@ -20,10 +23,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import ModelConfig, config_from_dict, config_to_dict
+from ..data.audio_io import load_audio_fixed
 from ..data.tokenizer import get_tokenizer
-from ..models.multimodal_model import MultimodalEmotionModel
-from ..ops.attention import require_device, resolve_dtype
+from ..data.video_io import frame_count, is_empty_clip, load_video_frames, sidecar_frames
+from ..models.multimodal_model import MultimodalEmotionModel, load_pretrained_model
+from ..ops.attention import require_device
+from ..train import checkpoint
 
 EMOTION_COLORS = {
     "happy": "#FFD700", "sad": "#4169E1", "angry": "#DC143C",
@@ -190,21 +195,9 @@ def activity_suggestions(emotion: str, confidence: float) -> str:
 
 
 def save_checkpoint(path: str, model: MultimodalEmotionModel, config) -> None:
-    """A port checkpoint: the state_dict and the config as JSON."""
-    torch.save({"state_dict": model.state_dict(),
-                "config": json.dumps(config_to_dict(config))}, path)
-
-
-def load_checkpoint(path: str, device="cuda", config=None) -> Tuple[MultimodalEmotionModel, object]:
-    """(model, config) from ``save_checkpoint``'s file, on ``device`` (the
-    card unless the caller passes ``device="cpu"``; raises without one)."""
-    device = require_device(device, "load_checkpoint")
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if config is None:
-        config = config_from_dict(ModelConfig, json.loads(payload["config"]))
-    model = MultimodalEmotionModel(config, dtype=resolve_dtype(config, device))
-    model.load_state_dict(payload["state_dict"])
-    return model.to(device).eval(), config
+    """A port checkpoint directory of ``model`` and its config, as
+    ``load_pretrained_model`` (and so the demo) reads it."""
+    checkpoint.save_checkpoint(path, model, config=config)
 
 
 class MultimodalEmotionDemo:
@@ -214,7 +207,7 @@ class MultimodalEmotionDemo:
                  checkpoint_path: Optional[str] = None, device="cuda"):
         self.device = require_device(device, "MultimodalEmotionDemo")
         if checkpoint_path is not None:
-            model, config = load_checkpoint(checkpoint_path, self.device, config)
+            model, config = load_pretrained_model(checkpoint_path, config, self.device)
         elif model is None:
             raise ValueError("MultimodalEmotionDemo needs a model or a checkpoint_path")
         self.config = config if config is not None else model.config
@@ -232,26 +225,36 @@ class MultimodalEmotionDemo:
         return {k: torch.from_numpy(v).to(self.device) for k, v in enc.items()}
 
     @staticmethod
-    def _no_files(value, what: str):
-        if isinstance(value, (str, bytes)) or hasattr(value, "__fspath__"):
-            raise NotImplementedError(
-                f"{what} files are not decoded by the port yet (ROADMAP Queue 1, "
-                f"'Host data path'): pass the decoded array instead")
+    def _is_path(value) -> bool:
+        return isinstance(value, str) or hasattr(value, "__fspath__")
 
     def _process_audio(self, audio) -> torch.Tensor:
-        """None → zeros; an array [T] or [1, T] (float or int16) as given."""
-        self._no_files(audio, "audio")
-        if audio is None:
+        """None or "" → zeros; a file path → decoded, resampled to the
+        model's rate, mono, padded or cut (``load_audio_fixed``); an array
+        [T] or [1, T] (float or int16) as given."""
+        if self._is_path(audio) and audio:
+            audio = load_audio_fixed(audio, self.config.audio_sample_rate,
+                                     self.config.audio_max_length)
+        if audio is None or (self._is_path(audio) and not audio):
             audio = np.zeros((self.config.audio_max_length,), np.float32)
         audio = np.asarray(audio)
         return torch.from_numpy(audio.reshape(1, -1)).to(self.device)
 
     def _process_video(self, video) -> torch.Tensor:
-        """None → zeros; a decoded clip [T, H, W, 3] (uint8 or float) or a
-        packed yuv420 clip [T, H*3//2, W], with or without a batch of 1."""
-        self._no_files(video, "video")
-        if video is None:
-            w, h = tuple(self.config.video_frame_size)
+        """None or "" → zeros; a file path → its first ``video_max_frames``
+        frames at a stride of frame count // video_max_frames (at least 1),
+        or, for an empty clip, the frames of its sidecar (which must hold
+        this config's frames; ``video_io.sidecar_frames``); a decoded clip [T, H, W, 3] (uint8 or float) or a packed yuv420 clip
+        [T, H*3//2, W], with or without a batch of 1."""
+        w, h = tuple(self.config.video_frame_size)
+        if self._is_path(video) and video and is_empty_clip(video):
+            video = sidecar_frames(video, "vid", (self.config.video_max_frames, h, w, 3))
+        elif self._is_path(video) and video:
+            total = frame_count(video)
+            stride = max(total // self.config.video_max_frames, 1) if total else 1
+            video = load_video_frames(video, self.config.video_max_frames, (w, h),
+                                      stride=stride)
+        if video is None or (self._is_path(video) and not video):
             video = np.zeros((self.config.video_max_frames, h, w, 3), np.uint8)
         video = np.asarray(video)
         packed = video.dtype == np.uint8 and video.shape[-1] != 3

@@ -1,0 +1,444 @@
+"""Trainers: standard, few-shot, robustness (port of
+simple_multimodal_tpu/train/trainer.py).
+
+``AdvancedTrainer``: the epoch loop over the port's train step, OneCycle
+over the loader's steps, the epoch's losses summed on the device and
+fetched once, validation with the metrics of ``eval/metrics.py`` over the
+clips without their wrap-padded duplicates, the best model (on validation
+F1-macro) snapshotted on the device and written once after training (or at
+every improvement with ``eager_best_checkpoint``; written at least once
+even if F1 never rises above 0), early stopping with patience, a
+checkpoint every 10 epochs, the test set, the learning-rate history and
+``resume_from`` (parameters, moments, count, step and generator).
+``FewShotTrainer``: episodes over the adapters, the prompt and the
+prototype network only, the support batch sorted by label.
+``RobustnessTrainer``: the train step with each modality zeroed with
+probability 0.3 on ``robust_prediction``, and the seven-scenario
+evaluation.
+
+Batches reach the device through ``data/pipeline.py``: a data set that
+fits ``device_data_cache_mb`` stays on the card (``DeviceCachedLoader``),
+else a producer thread prefetches. The plots need matplotlib; without it
+the trainer prints one line and writes no PNG.
+"""
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data.pipeline import (DeviceCachedLoader, estimate_batch_bytes, prefetch_to_device,
+                             to_device)
+from ..eval.metrics import classification_report, precision_recall_f1
+from .checkpoint import restore_checkpoint, save_checkpoint
+from .optim import (TRAINABLE_MARKERS, freeze, is_trainable_name, make_optimizer,
+                    make_trainable_only_optimizer)
+from .state import TrainState
+from .steps import device_batch, make_eval_step, make_fewshot_step, make_train_step
+
+_warned_no_plots = False
+
+
+def dedupe_by_sample_id(ids, *arrays):
+    """Drop wrap-padded duplicates: keep the first occurrence of each id."""
+    ids = np.asarray(ids)
+    _, first = np.unique(ids, return_index=True)
+    keep = np.sort(first)
+    return tuple(np.asarray(a)[keep] for a in arrays)
+
+
+def _metrics_np(targets, predictions) -> Dict[str, float]:
+    """Accuracy and F1 macro/weighted over the labels present in either
+    array (scikit-learn's default labels, as the JAX trainer calls it)."""
+    t, p = np.asarray(targets), np.asarray(predictions)
+    labels = np.unique(np.r_[t, p])
+    return {
+        "accuracy": float((t == p).mean()) if len(t) else 0.0,
+        "f1_macro": precision_recall_f1(t, p, labels, "macro")[2],
+        "f1_weighted": precision_recall_f1(t, p, labels, "weighted")[2],
+    }
+
+
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None (said once)."""
+    global _warned_no_plots
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        if not _warned_no_plots:
+            _warned_no_plots = True
+            print("matplotlib is not installed: no confusion-matrix or training-curve PNGs",
+                  flush=True)
+        return None
+    return plt
+
+
+def _model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+class AdvancedTrainer:
+    """Standard trainer."""
+
+    def __init__(self, model, config, train_loader, val_loader,
+                 test_loader=None, model_type: str = "standard", seed: int = 0,
+                 resume_from: Optional[str] = None):
+        self.model = model
+        self.config = config
+        self.device = _model_device(model)
+        self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.test_loader = test_loader
+        self.model_type = model_type
+        self.num_params = sum(p.numel() for p in model.parameters())
+
+        total_steps = max(len(train_loader) * config.num_epochs, 2)
+        self.optimizer = make_optimizer(config, model, total_steps)
+        self.state = TrainState.create(seed)
+        self.start_epoch = 0
+        if resume_from:
+            payload = restore_checkpoint(resume_from, model, self.optimizer, self.state)
+            epoch = payload["meta"].get("epoch")
+            if epoch is not None:
+                self.start_epoch = int(epoch) + 1
+            print(f"Resumed from {resume_from} at step {self.state.step} "
+                  f"(epoch {self.start_epoch})")
+
+        augment = getattr(train_loader.dataset, "augment", False)
+        self.train_step = make_train_step(model, self.optimizer, config, augment=augment,
+                                          compute_contrastive_loss=True)
+        self.eval_step = make_eval_step(model)
+
+        self.current_epoch = 0
+        self.best_val_acc = 0.0
+        self.best_val_f1 = 0.0
+        self.train_losses: List[float] = []
+        self.val_losses: List[float] = []
+        self.val_accuracies: List[float] = []
+        self.val_f1_scores: List[float] = []
+        self.lr_history: List[float] = []
+        self.epoch_times: List[float] = []
+
+        # a data set that fits the budget stays on the card across epochs
+        budget = getattr(config, "device_data_cache_mb", 0) * 1_000_000
+        self.device_cached = False
+        if budget > 0 and self.device.type == "cuda":
+            per_batch = estimate_batch_bytes(next(iter(train_loader)))
+            total = per_batch * (len(train_loader) + len(val_loader)
+                                 + (len(test_loader) if test_loader else 0))
+            if total <= budget:
+                print(f"Device-caching dataset ({total / 1e6:.0f} MB)")
+                self.train_loader = DeviceCachedLoader(train_loader, self.device, seed=seed)
+                self.val_loader = DeviceCachedLoader(val_loader, self.device, seed=seed)
+                if test_loader:
+                    self.test_loader = DeviceCachedLoader(test_loader, self.device, seed=seed)
+                self.device_cached = True
+
+        self.patience = getattr(config, "patience", 10)
+        self.patience_counter = 0
+        # best-model checkpoints: snapshot on the device, write once after
+        # training (eager_best_checkpoint writes at every improvement)
+        self.eager_best_checkpoint = bool(getattr(config, "eager_best_checkpoint", False))
+        self._best_snapshot = None
+        self._best_written = False
+
+    # ------------------------------------------------------------------ train
+    def _iter(self, loader):
+        if isinstance(loader, DeviceCachedLoader):
+            return iter(loader)
+        return prefetch_to_device(loader, size=2, device=self.device)
+
+    def train_epoch(self) -> Dict[str, float]:
+        # the loss parts are summed on the device and fetched once: the
+        # reported metrics are epoch means, with no host sync per batch
+        sums = None
+        n = 0
+        self.train_loader.set_epoch(self.current_epoch)
+        for batch in self._iter(self.train_loader):
+            self.state, parts = self.train_step(self.state, device_batch(batch))
+            sums = parts if sums is None else {k: sums[k] + v for k, v in parts.items()}
+            n += 1
+        if not n:
+            return {"total_loss": 0.0}
+        keys = list(sums)
+        vals = torch.stack([sums[k].float() for k in keys]).cpu().tolist()
+        return {k: v / n for k, v in zip(keys, vals)}
+
+    def _predict(self, loader, step, with_loss: bool = False):
+        """(predictions, targets, probs, sample ids, mean loss) over a loader,
+        the device results fetched once."""
+        preds, targets, probs, ids = [], [], [], []
+        loss, batches = None, 0
+        for batch in self._iter(loader):
+            out = step(device_batch(batch))
+            preds.append(out["predictions"])
+            targets.append(batch["emotion"])
+            probs.append(out["probs"].float())
+            ids.extend(batch["sample_ids"])
+            if with_loss:
+                loss = out["loss"] if loss is None else loss + out["loss"]
+            batches += 1
+        if not batches:
+            return [], [], np.zeros((0, self.config.num_emotions)), [], 0.0
+        preds = torch.cat(preds).cpu().numpy()
+        targets = torch.cat(targets).cpu().numpy()
+        probs = torch.cat(probs).cpu().numpy()
+        mean_loss = float(loss) / batches if with_loss else 0.0
+        return preds, targets, probs, ids, mean_loss
+
+    def validate(self):
+        preds, targets, probs, ids, val_loss = self._predict(self.val_loader, self.eval_step,
+                                                             with_loss=True)
+        preds, targets, probs = dedupe_by_sample_id(ids, preds, targets, probs)
+        preds, targets = preds.tolist(), targets.tolist()
+        m = _metrics_np(targets, preds)
+        metrics = {
+            "val_loss": val_loss,
+            "val_accuracy": m["accuracy"],
+            "val_f1_macro": m["f1_macro"],
+            "val_f1_weighted": m["f1_weighted"],
+        }
+        class_report = classification_report(targets, preds,
+                                             list(range(self.config.num_emotions)),
+                                             self.config.emotion_labels)
+        return metrics, class_report, preds, targets, probs
+
+    def current_lr(self) -> float:
+        return float(self.optimizer.schedule(self.optimizer.count))
+
+    def train(self) -> Dict[str, List[float]]:
+        name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
+                else "cpu")
+        print(f"Starting training on {self.device} ({name})")
+        print(f"Model parameters: {self.num_params:,}")
+
+        for epoch in range(self.start_epoch, self.config.num_epochs):
+            self.current_epoch = epoch
+            t0 = time.time()
+            train_metrics = self.train_epoch()
+            val_metrics, class_report, predictions, targets, probs = self.validate()
+            self.epoch_times.append(time.time() - t0)
+
+            self.train_losses.append(train_metrics.get("total_loss", 0.0))
+            self.val_losses.append(val_metrics["val_loss"])
+            self.val_accuracies.append(val_metrics["val_accuracy"])
+            self.val_f1_scores.append(val_metrics["val_f1_macro"])
+            self.lr_history.append(self.current_lr())
+
+            print(f"\nEpoch {epoch + 1}/{self.config.num_epochs} "
+                  f"({self.epoch_times[-1]:.1f}s)")
+            print(f"Train Loss: {self.train_losses[-1]:.4f}")
+            print(f"Val Loss: {val_metrics['val_loss']:.4f}")
+            print(f"Val Accuracy: {val_metrics['val_accuracy']:.4f}")
+            print(f"Val F1 (Macro): {val_metrics['val_f1_macro']:.4f}")
+
+            improved = val_metrics["val_f1_macro"] > self.best_val_f1
+            # the best model is written at least once even when val F1
+            # never beats 0.0, so that best_model/ always exists after a
+            # run; patience and plots keep the strict-improvement rule
+            if improved or (self._best_snapshot is None and not self._best_written):
+                if improved:
+                    self.best_val_f1 = val_metrics["val_f1_macro"]
+                    self.best_val_acc = val_metrics["val_accuracy"]
+                if self.eager_best_checkpoint:
+                    self.save_checkpoint("best_model", epoch, val_metrics)
+                    self._best_written = True
+                else:
+                    self._best_snapshot = (
+                        epoch, dict(val_metrics),
+                        {k: v.detach().clone() for k, v in self.model.state_dict().items()},
+                    )
+            if improved:
+                self.patience_counter = 0
+                self.plot_confusion_matrix(targets, predictions, epoch)
+            else:
+                self.patience_counter += 1
+
+            if self.patience_counter >= self.patience:
+                print(f"Early stopping at epoch {epoch + 1}")
+                break
+
+            if (epoch + 1) % 10 == 0:
+                self.save_checkpoint(f"checkpoint_epoch_{epoch + 1}", epoch, val_metrics)
+
+        if self._best_snapshot is not None:
+            best_epoch, best_metrics, best_params = self._best_snapshot
+            path = Path(self.config.save_path) / "best_model"
+            save_checkpoint(str(path), state=self.state, metrics=best_metrics,
+                            epoch=best_epoch, config=self.config, state_dict=best_params)
+            print(f"Checkpoint saved: {path} (best epoch {best_epoch + 1})")
+
+        if self.test_loader:
+            test_metrics = self.evaluate_test_set()
+            print("\nFinal Test Results:")
+            print(f"Test Accuracy: {test_metrics['test_accuracy']:.4f}")
+            print(f"Test F1 (Macro): {test_metrics['test_f1_macro']:.4f}")
+
+        self.plot_training_curves()
+        return {
+            "train_losses": self.train_losses,
+            "val_losses": self.val_losses,
+            "val_accuracies": self.val_accuracies,
+            "val_f1_scores": self.val_f1_scores,
+        }
+
+    def evaluate_test_set(self) -> Dict[str, float]:
+        if not self.test_loader:
+            return {}
+        preds, targets, _, ids, _ = self._predict(self.test_loader, self.eval_step)
+        preds, targets = dedupe_by_sample_id(ids, preds, targets)
+        m = _metrics_np(targets, preds)
+        return {
+            "test_accuracy": m["accuracy"],
+            "test_f1_macro": m["f1_macro"],
+            "test_f1_weighted": m["f1_weighted"],
+        }
+
+    # ------------------------------------------------------------- checkpoint
+    def save_checkpoint(self, filename: str, epoch: int, metrics: Dict):
+        path = Path(self.config.save_path) / filename
+        save_checkpoint(str(path), self.model, self.state, self.optimizer, metrics=metrics,
+                        epoch=epoch, config=self.config)
+        print(f"Checkpoint saved: {path}")
+
+    # ------------------------------------------------------------------ plots
+    def plot_confusion_matrix(self, targets, predictions, epoch: int):
+        plt = _pyplot()
+        if plt is None:
+            return
+        labels = self.config.emotion_labels
+        cm = np.zeros((len(labels), len(labels)), np.int64)
+        for t, p in zip(targets, predictions):
+            if 0 <= t < len(labels) and 0 <= p < len(labels):
+                cm[t, p] += 1
+        fig, ax = plt.subplots(figsize=(10, 8))
+        im = ax.imshow(cm, cmap="Blues")
+        ax.set_xticks(range(len(labels)), labels, rotation=45)
+        ax.set_yticks(range(len(labels)), labels)
+        for i in range(cm.shape[0]):
+            for j in range(cm.shape[1]):
+                ax.text(j, i, str(cm[i, j]), ha="center", va="center",
+                        color="black" if cm[i, j] < cm.max() / 2 else "white")
+        ax.set_title(f"Confusion Matrix - Epoch {epoch + 1}")
+        ax.set_ylabel("True Label")
+        ax.set_xlabel("Predicted Label")
+        fig.colorbar(im)
+        path = Path(self.config.log_path) / f"confusion_matrix_epoch_{epoch + 1}.png"
+        fig.savefig(path, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+
+    def plot_training_curves(self):
+        plt = _pyplot()
+        if plt is None:
+            return
+        epochs = range(1, len(self.train_losses) + 1)
+        fig, ((ax1, ax2), (ax3, ax4)) = plt.subplots(2, 2, figsize=(15, 10))
+        ax1.plot(epochs, self.train_losses, "b-", label="Training Loss")
+        ax1.plot(epochs, self.val_losses, "r-", label="Validation Loss")
+        ax1.set_title("Training and Validation Loss")
+        ax2.plot(epochs, self.val_accuracies, "g-", label="Validation Accuracy")
+        ax2.set_title("Validation Accuracy")
+        ax3.plot(epochs, self.val_f1_scores, "m-", label="Validation F1 (Macro)")
+        ax3.set_title("Validation F1 Score")
+        ax4.plot(epochs, self.lr_history, "c-", label="Learning Rate")
+        ax4.set_title("Learning Rate Schedule")
+        for ax in (ax1, ax2, ax3, ax4):
+            ax.set_xlabel("Epoch")
+            ax.legend()
+            ax.grid(True)
+        fig.tight_layout()
+        path = Path(self.config.log_path) / "training_curves.png"
+        fig.savefig(path, dpi=150, bbox_inches="tight")
+        plt.close(fig)
+
+
+class FewShotTrainer:
+    """Episodic few-shot trainer: only the parameters named by
+    ``TRAINABLE_MARKERS`` train (the rest frozen in the model), with the
+    plain AdamW of ``make_trainable_only_optimizer``."""
+
+    TRAINABLE_MARKERS = TRAINABLE_MARKERS
+
+    def __init__(self, model, config, support_loader, query_loader,
+                 n_way: Optional[int] = None, n_shot: int = 1, seed: int = 0):
+        self.model = model
+        self.config = config
+        self.device = _model_device(model)
+        self.support_loader = support_loader
+        self.query_loader = query_loader
+        self.n_way = n_way or config.num_emotions
+        self.n_shot = n_shot
+        freeze(model, lambda n: not is_trainable_name(n))
+        self.optimizer = make_trainable_only_optimizer(config, model)
+        self.state = TrainState.create(seed)
+        self.step = make_fewshot_step(model, self.optimizer, self.n_way, self.n_shot)
+
+    @staticmethod
+    def _sort_by_label(batch):
+        """The support batch ordered class by class, so that prototype i
+        is class i (the reference draws it from a shuffled loader)."""
+        order = np.argsort(np.asarray(batch["emotion"]), kind="stable")
+
+        def take(x):
+            if isinstance(x, np.ndarray) and x.ndim >= 1 and x.shape[0] == len(order):
+                return x[order]
+            return x
+
+        return {k: ({kk: take(vv) for kk, vv in v.items()} if isinstance(v, dict) else take(v))
+                for k, v in batch.items()}
+
+    def train_few_shot_episode(self, n_way: int, n_shot: int) -> float:
+        support = to_device(device_batch(self._sort_by_label(next(iter(self.support_loader)))),
+                            self.device)
+        query = to_device(device_batch(next(iter(self.query_loader))), self.device)
+        self.state, loss = self.step(self.state, support, query)
+        return float(loss)
+
+
+class RobustnessTrainer(AdvancedTrainer):
+    """Missing-modality training + the seven-scenario evaluation."""
+
+    SCENARIOS = (
+        (), ("text",), ("audio",), ("video",),
+        ("text", "audio"), ("text", "video"), ("audio", "video"),
+    )
+
+    def __init__(self, model, config, train_loader, val_loader,
+                 test_loader=None, model_type: str = "robust", **kw):
+        super().__init__(model, config, train_loader, val_loader,
+                         test_loader=test_loader, model_type=model_type, **kw)
+        self._robust_logits_key = (
+            "robust_prediction" if model_type == "robust" else "emotion_logits")
+        # each modality of a batch zeroed with probability 0.3
+        self.robust_train_step = make_train_step(
+            model, self.optimizer, config, augment=False, compute_contrastive_loss=False,
+            logits_key=self._robust_logits_key, missing_modality_rate=0.3)
+
+    def train_with_missing_modalities(self) -> Dict[str, float]:
+        total, n = None, 0
+        self.train_loader.set_epoch(self.current_epoch)
+        for batch in self._iter(self.train_loader):
+            self.state, parts = self.robust_train_step(self.state, device_batch(batch))
+            loss = parts["total_loss"]
+            total = loss if total is None else total + loss
+            n += 1
+        if not n:
+            return {"avg_loss": 0.0}
+        return {"avg_loss": float(total) / n}
+
+    def evaluate_robustness(self) -> Dict[str, Dict[str, float]]:
+        results = {}
+        for missing in self.SCENARIOS:
+            name = "all" if not missing else "_".join(missing) + "_missing"
+            step = make_eval_step(self.model, compute_loss=False,
+                                  logits_key=self._robust_logits_key,
+                                  missing_modalities=missing or None)
+            preds, targets, _, ids, _ = self._predict(self.val_loader, step)
+            preds, targets = dedupe_by_sample_id(ids, preds, targets)
+            m = _metrics_np(targets, preds)
+            results[name] = {"accuracy": m["accuracy"], "f1_macro": m["f1_macro"]}
+        return results

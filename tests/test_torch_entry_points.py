@@ -1,5 +1,6 @@
 """The port's entry points run on the card unless the caller asks for the
-CPU: ``create_model``, ``load_checkpoint`` and ``MultimodalEmotionDemo``
+CPU: ``create_model``, the checkpoint loader (``load_pretrained_model``,
+listed as ``load_checkpoint``) and ``MultimodalEmotionDemo``
 default to ``device="cuda"`` and raise without a CUDA device instead of
 carrying on on the CPU; with ``device="cpu"`` they work as before. Also the
 host-side helper that decides which rows the flash_attention kernels (and
@@ -9,11 +10,13 @@ import pytest
 import torch
 
 from simple_multimodal_tpu_torch.config import ModelConfig
-from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+from simple_multimodal_tpu_torch.models.multimodal_model import (
+    create_model, load_pretrained_model,
+)
 from simple_multimodal_tpu_torch.ops.attention import require_device, resolve_dtype
 from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
 from simple_multimodal_tpu_torch.serving.demo import (
-    MultimodalEmotionDemo, load_checkpoint, save_checkpoint,
+    MultimodalEmotionDemo, save_checkpoint,
 )
 
 
@@ -27,7 +30,7 @@ def tiny(tmp_path_factory):
                       log_path=str(tmp / "l"))
     cfg.fusion_type = "hierarchical"
     model = create_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    ckpt = str(tmp / "model.pt")
+    ckpt = str(tmp / "model")
     save_checkpoint(ckpt, model, cfg)
     return cfg, model, ckpt
 
@@ -39,7 +42,7 @@ def no_cuda(monkeypatch):
 
 ENTRY_POINTS = {
     "create_model": lambda cfg, model, ckpt, **kw: create_model(cfg, **kw),
-    "load_checkpoint": lambda cfg, model, ckpt, **kw: load_checkpoint(ckpt, **kw)[0],
+    "load_checkpoint": lambda cfg, model, ckpt, **kw: load_pretrained_model(ckpt, **kw)[0],
     "demo_from_model": lambda cfg, model, ckpt, **kw: MultimodalEmotionDemo(
         model=model, config=cfg, **kw).model,
     "demo_from_checkpoint": lambda cfg, model, ckpt, **kw: MultimodalEmotionDemo(

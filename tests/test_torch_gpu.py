@@ -700,3 +700,55 @@ def test_cuda_deberta_training_forward_equals_eval_forward(cuda, S):
     want = torch.autograd.grad(da.deberta_attention_plain(*t32, mask, **kw), t32, gy.float())
     for a, b in zip(got, want):
         assert float((a.float() - b).abs().max()) <= 5e-2 * float(b.abs().max())
+
+
+def _host_batches(n, rng):
+    return [{"text": {"input_ids": rng.integers(0, 1000, (4, 16)).astype(np.int32),
+                      "attention_mask": np.ones((4, 16), np.int32)},
+             "audio": rng.integers(-3000, 3000, (4, 3200)).astype(np.int16),
+             "video": rng.integers(0, 256, (4, 4, 48, 32)).astype(np.uint8),
+             "emotion": rng.integers(0, 7, 4).astype(np.int32),
+             "text_raw": ["t"] * 4, "sample_ids": list(range(4 * i, 4 * i + 4))}
+            for i in range(n)]
+
+
+def test_prefetch_copies_every_batch_to_the_card_intact(cuda):
+    """Pinned host memory → a side stream → the consumer's stream: each
+    batch equals its host arrays although the consumer keeps the default
+    stream busy and frees every batch before the next (a buffer reused
+    before its copy or its use ended would show as a wrong value)."""
+    from simple_multimodal_tpu_torch.data.pipeline import prefetch_to_device
+
+    batches = _host_batches(12, np.random.default_rng(0))
+    big = torch.randn(4096, 4096, device=cuda)
+    for i, got in enumerate(prefetch_to_device(iter(batches), size=2, device=cuda)):
+        big = big @ big.T / 4096.0  # keeps the consumer's stream behind the copies
+        want = batches[i]
+        assert got["sample_ids"] == want["sample_ids"] and got["text_raw"] == want["text_raw"]
+        for key in ("audio", "video", "emotion"):
+            assert got[key].device.type == "cuda"
+            np.testing.assert_array_equal(got[key].cpu().numpy(), want[key])
+        np.testing.assert_array_equal(got["text"]["input_ids"].cpu().numpy(),
+                                      want["text"]["input_ids"])
+        del got
+    torch.cuda.synchronize()
+
+
+def test_device_cached_loader_gathers_on_the_card(cuda):
+    from simple_multimodal_tpu_torch.data.pipeline import DeviceCachedLoader
+
+    batches = _host_batches(3, np.random.default_rng(1))
+
+    class Loader(list):
+        dataset = None
+
+    loader = DeviceCachedLoader(Loader(batches), device=cuda, seed=4)
+    audio = np.concatenate([b["audio"] for b in batches])
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        perm = np.random.default_rng(4 + epoch).permutation(12)
+        for b, got in enumerate(loader):
+            rows = perm[4 * b:4 * b + 4]
+            assert got["sample_ids"] == rows.tolist()
+            assert got["audio"].device.type == "cuda"
+            np.testing.assert_array_equal(got["audio"].cpu().numpy(), audio[rows])

@@ -197,7 +197,7 @@ def test_late_eval_step_and_demo_individual_modalities(late, tmp_path):
     for key, value in _flat(want).items():
         np.testing.assert_allclose(_np(_flat(got)[key]), np.asarray(value), **TOL, err_msg=key)
 
-    ckpt = str(tmp_path / "late.pt")
+    ckpt = str(tmp_path / "late")
     save_checkpoint(ckpt, port, pcfg)
     demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device="cpu")
     wav = (np.random.default_rng(2).standard_normal(pcfg.audio_max_length) * 3000).astype(np.int16)

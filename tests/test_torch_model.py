@@ -130,7 +130,7 @@ def test_param_round_trip_is_exact(slice_):
 
 def test_demo_predict_returns_a_distribution(slice_, tmp_path):
     cfg, pcfg, model, params, port, (text, audio, video) = slice_
-    ckpt = str(tmp_path / "model.pt")
+    ckpt = str(tmp_path / "model")
     save_checkpoint(ckpt, port, pcfg)
     demo = MultimodalEmotionDemo(checkpoint_path=ckpt, device="cpu")
     rng = np.random.default_rng(1)
@@ -151,28 +151,31 @@ def test_demo_predict_returns_a_distribution(slice_, tmp_path):
     assert len(demo.conversation_history) == 1
 
 
-def test_demo_refuses_files_until_the_data_path_is_ported(slice_):
+def test_demo_refuses_files_until_the_data_path_is_ported(slice_, tmp_path):
+    """The data path is ported: ``predict`` decodes file paths as the JAX
+    demo does. A path that is not there reads as zeros (the JAX loaders'
+    rule for missing media), so it answers as None does; the UI entry
+    point serves a missing clip instead of returning an error tuple."""
     cfg, pcfg, model, params, port, _ = slice_
     demo = MultimodalEmotionDemo(model=port, config=pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Host data path"):
-        demo.predict("hello", audio="clip.wav")
-    analysis, message, *_ = demo.process_multimodal_input("hello", video="clip.mp4")
-    assert analysis == {} and message.startswith("Error processing input")
+    missing = str(tmp_path / "clip.wav")
+    assert demo.predict("hello", audio=missing) == demo.predict("hello", audio=None)
+    analysis, message, *_ = demo.process_multimodal_input("hello",
+                                                          video=str(tmp_path / "clip.mp4"))
+    assert analysis == demo.predict("hello") and not message.startswith("Error")
 
 
 def test_unported_options_raise(slice_):
-    """What the port still refuses, each naming its ROADMAP item: an spm
-    tokenizer and media files in ``predict``; and an unknown model type.
-    Late fusion, adapters, prompts and the three model families, refused
-    before, are ported (tests/test_torch_families.py)."""
-    from simple_multimodal_tpu_torch.data.tokenizer import get_tokenizer
+    """What the port still refuses: an unknown model type; and the
+    training modes that are not ported yet, each naming its ROADMAP item
+    (tests/test_torch_cli.py). An spm tokenizer and media files, refused
+    before, are ported: an spm path that does not exist falls back to
+    HashTokenizer, as in the JAX package (tests/test_torch_data.py)."""
+    from simple_multimodal_tpu_torch.data.tokenizer import HashTokenizer, get_tokenizer
 
     cfg, pcfg, model, params, port, inputs = slice_
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_tokenizer(pcfg.text_model_name, pcfg.text_max_length, spm_path="model.spm")
-    demo = MultimodalEmotionDemo(model=port, config=pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.predict("hello", video="clip.mp4")
+    assert isinstance(get_tokenizer(pcfg.text_model_name, pcfg.text_max_length,
+                                    spm_path="model.spm"), HashTokenizer)
     with pytest.raises(ValueError, match="Unknown model type"):
         create_model(pcfg, model_type="no-such-family", device="cpu")
 

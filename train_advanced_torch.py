@@ -1,0 +1,324 @@
+#!/usr/bin/env python
+"""Advanced training CLI of the PyTorch port (simple_multimodal_tpu_torch).
+
+Takes ``train_advanced.py``'s flags: ``--mode``, ``--fusion_type``, the
+paths, batch size, epochs, learning rate, seed, wandb, ``--preset``,
+``--episodes``, ``--few_shot_samples``, ``--resume``, ``--dataset``. The
+JAX package's TPU-only flags (``--mesh``, ``--flash_attention``,
+``--flash_attention_train``, ``--remat``) are accepted and written to
+``final_config.json`` unread.
+
+Runs on the card: ``--device`` defaults to ``cuda``; ``auto`` means
+``cuda`` too, and both raise without a CUDA device. ``--device cpu`` runs
+on the CPU (bf16 compute on the card, f32 on the CPU).
+
+Modes ``standard``, ``few_shot`` and ``robust`` run. ``distillation``,
+``ablation`` and ``all`` are not ported yet (ROADMAP.md, Queue 1) and
+raise.
+
+    python train_advanced_torch.py --mode standard --data_path data/sample \\
+        --preset base --fusion_type hierarchical --batch_size 8 --epochs 2
+"""
+import argparse
+import json
+import os
+import random
+import sys
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from simple_multimodal_tpu_torch.config import (  # noqa: E402
+    DataConfig, ExperimentConfig, ModelConfig, config_to_dict,
+)
+
+UNPORTED_MODES = ("distillation", "ablation", "all")
+
+
+def set_seed(seed: int = 42) -> None:
+    """Seed the host RNGs; the device generators are split from the seed."""
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+
+def resolve_device(name: str):
+    """The device of ``--device``: 'cuda' and 'auto' need a CUDA device and
+    raise without one; 'cpu' only on request."""
+    import torch
+
+    device = torch.device("cuda" if name in ("auto", "cuda") else name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train_advanced_torch: --device {name} needs a CUDA device and "
+                           "none is available; pass --device cpu to train on the CPU")
+    return device
+
+
+def load_datasets(data_config: DataConfig, model_config: ModelConfig,
+                  seed: int = 0) -> Dict:
+    from simple_multimodal_tpu_torch.data.dataset import create_dataloader, get_dataset
+
+    print("Loading datasets...")
+    loaders = {}
+    counts = {}
+    for split in ("train", "val", "test"):
+        ds = get_dataset(
+            dataset_name=data_config.primary_dataset,
+            data_path=model_config.data_path,
+            split=split,
+            config=model_config,
+            augment=data_config.augment_data if split == "train" else False,
+        )
+        loaders[split] = create_dataloader(
+            ds, batch_size=model_config.batch_size,
+            shuffle=(split == "train"), seed=seed,
+        )
+        counts[split] = len(ds)
+    print(f"Train samples: {counts['train']}")
+    print(f"Val samples: {counts['val']}")
+    print(f"Test samples: {counts['test']}")
+    return loaders
+
+
+def _generator(seed: int):
+    import torch
+
+    return torch.Generator().manual_seed(seed)
+
+
+def train_standard_model(model_config: ModelConfig, data_config: DataConfig, device,
+                         fusion_type: str = "hierarchical", seed: int = 0,
+                         resume_from: str = None):
+    """Train, then save ``final_model_<fusion>``; returns (path, trainer)."""
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
+
+    print(f"=== Training Standard Model with {fusion_type} fusion ===")
+    model_config.fusion_type = fusion_type
+    loaders = load_datasets(data_config, model_config, seed)
+    model = create_model(model_config, model_type="standard", device=device,
+                         generator=_generator(seed))
+    trainer = AdvancedTrainer(
+        model=model, config=model_config,
+        train_loader=loaders["train"], val_loader=loaders["val"],
+        test_loader=loaders["test"], seed=seed, resume_from=resume_from,
+    )
+    trainer.train()
+    model_path = Path(model_config.save_path) / f"final_model_{fusion_type}"
+    save_checkpoint(str(model_path), model, trainer.state, trainer.optimizer, metrics={},
+                    epoch=trainer.current_epoch, config=model_config)
+    print(f"Model saved to: {model_path}")
+    return str(model_path), trainer
+
+
+def train_few_shot_model(model_config: ModelConfig, data_config: DataConfig,
+                         experiment_config: ExperimentConfig, device,
+                         seed: int = 0, num_episodes: int = 100) -> Dict[str, float]:
+    from simple_multimodal_tpu_torch.data.dataset import (FewShotDataset, create_dataloader,
+                                                          get_dataset)
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.trainer import FewShotTrainer
+
+    print("=== Few-Shot Learning Experiments ===")
+    results = {}
+    train_dataset = get_dataset(data_config.primary_dataset,
+                                model_config.data_path, "train", model_config)
+    val_dataset = get_dataset(data_config.primary_dataset,
+                              model_config.data_path, "val", model_config)
+
+    # the prototypes need exactly n_shot clips of every class: clamp each
+    # sweep point to the scarcest class
+    class_counts = {}
+    for row in train_dataset.data:
+        cid = train_dataset.emotion_to_id[row["emotion"]]
+        class_counts[cid] = class_counts.get(cid, 0) + 1
+    min_count = min(
+        (class_counts.get(c, 0) for c in range(model_config.num_emotions)),
+        default=0,
+    )
+    if min_count == 0:
+        print("Few-shot skipped: some emotion class has no train samples")
+        return results
+
+    for n_shot in experiment_config.few_shot_samples:
+        print(f"Training {n_shot}-shot model...")
+        n_shot_eff = min(n_shot, min_count)
+        few_shot_train = FewShotDataset(train_dataset, n_shot=n_shot_eff,
+                                        n_way=model_config.num_emotions)
+        few_shot_val = FewShotDataset(val_dataset, n_shot=n_shot_eff,
+                                      n_way=model_config.num_emotions)
+        # shuffled loaders: every episode draws a fresh support order and
+        # another query batch; the trainer sorts the support by label
+        support_loader = create_dataloader(
+            few_shot_train, batch_size=len(few_shot_train), shuffle=True, seed=seed)
+        query_loader = create_dataloader(
+            few_shot_val, batch_size=min(16, max(len(few_shot_val), 1)),
+            shuffle=True, seed=seed)
+        model = create_model(model_config, model_type="few_shot", device=device,
+                             generator=_generator(seed))
+        trainer = FewShotTrainer(
+            model=model, config=model_config,
+            support_loader=support_loader, query_loader=query_loader,
+            n_way=model_config.num_emotions, n_shot=n_shot_eff, seed=seed,
+        )
+        total_loss = 0.0
+        for episode in range(num_episodes):
+            loss = trainer.train_few_shot_episode(
+                n_way=model_config.num_emotions, n_shot=n_shot_eff)
+            total_loss += loss
+            if (episode + 1) % 20 == 0:
+                print(f"Episode {episode + 1}/{num_episodes}, Loss: {loss:.4f}")
+        avg = total_loss / num_episodes
+        results[f"{n_shot}_shot"] = avg
+        print(f"{n_shot}-shot average loss: {avg:.4f}")
+    return results
+
+
+def train_robust_model(model_config: ModelConfig, data_config: DataConfig,
+                       experiment_config: ExperimentConfig, device,
+                       seed: int = 0) -> Dict[str, Dict[str, float]]:
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from simple_multimodal_tpu_torch.train.trainer import RobustnessTrainer
+
+    print("=== Robustness Training ===")
+    loaders = load_datasets(data_config, model_config, seed)
+    robust_model = create_model(model_config, model_type="robust", device=device,
+                                generator=_generator(seed))
+    trainer = RobustnessTrainer(
+        model=robust_model, config=model_config,
+        train_loader=loaders["train"], val_loader=loaders["val"],
+        test_loader=loaders["test"], model_type="robust", seed=seed,
+    )
+    print("Training with random modality dropout...")
+    for epoch in range(max(model_config.num_epochs // 2, 1)):
+        trainer.current_epoch = epoch
+        metrics = trainer.train_with_missing_modalities()
+        print(f"Epoch {epoch + 1}, Loss: {metrics['avg_loss']:.4f}")
+
+    print("Evaluating robustness...")
+    results = trainer.evaluate_robustness()
+    print("Robustness Results:")
+    for scenario, m in results.items():
+        print(f"{scenario}: Accuracy={m['accuracy']:.3f}, F1={m['f1_macro']:.3f}")
+    robust_path = Path(model_config.save_path) / "robust_model"
+    save_checkpoint(str(robust_path), robust_model, trainer.state, trainer.optimizer,
+                    metrics={}, epoch=trainer.current_epoch, config=model_config)
+    return results
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="Advanced Multimodal Emotion Recognition Training (PyTorch port)")
+    parser.add_argument("--mode", type=str, default="standard",
+                        choices=["standard", "few_shot", "distillation",
+                                 "robust", "ablation", "all"],
+                        help="Training mode (distillation, ablation and all are not "
+                             "ported yet)")
+    parser.add_argument("--fusion_type", type=str, default="hierarchical",
+                        choices=["early", "late", "mult", "graph",
+                                 "contrastive", "adaptive", "hierarchical"],
+                        help="Fusion strategy")
+    parser.add_argument("--data_path", type=str, default="./data")
+    parser.add_argument("--save_path", type=str, default="./checkpoints")
+    parser.add_argument("--teacher_model", type=str,
+                        help="Teacher model path for distillation")
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--epochs", type=int, default=50)
+    parser.add_argument("--learning_rate", type=float, default=1e-4)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or auto: the card, raising without one; "
+                             "cpu: the CPU")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--use_wandb", action="store_true")
+    parser.add_argument("--wandb_project", type=str, default="multimodal-emotion")
+    parser.add_argument("--preset", type=str, default="base",
+                        choices=["tiny", "half", "base"],
+                        help="Encoder backbone scale")
+    parser.add_argument("--mesh", type=str, default="1,1",
+                        help="JAX device mesh 'data,model': recorded, not read")
+    parser.add_argument("--episodes", type=int, default=100,
+                        help="Few-shot episodes per n_shot")
+    parser.add_argument("--few_shot_samples", type=int, nargs="+", default=None,
+                        help="Override the n_shot sweep (default 1 5 10 20 50)")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="Checkpoint directory to resume training from "
+                             "(parameters, optimizer, step and generator)")
+    parser.add_argument("--dataset", type=str, default=None,
+                        help="Override primary dataset name")
+    parser.add_argument("--flash_attention", type=str, default="auto",
+                        help="JAX kernel switch: recorded, not read")
+    parser.add_argument("--flash_attention_train", type=str, default="auto",
+                        help="JAX kernel switch: recorded, not read")
+    parser.add_argument("--remat", type=str, default="auto", choices=["auto", "0", "1"],
+                        help="JAX remat switch: recorded, not read")
+    return parser
+
+
+def main(argv=None) -> Dict:
+    args = build_parser().parse_args(argv)
+    if args.mode in UNPORTED_MODES:
+        raise NotImplementedError(
+            f"--mode {args.mode} is not ported yet (ROADMAP.md, Queue 1, item 1); "
+            "the ported modes are standard, few_shot and robust")
+    device = resolve_device(args.device)
+    set_seed(args.seed)
+
+    model_config = ModelConfig(data_path=args.data_path, save_path=args.save_path)
+    model_config.batch_size = args.batch_size
+    model_config.num_epochs = args.epochs
+    model_config.learning_rate = args.learning_rate
+    model_config.device = args.device
+    model_config.use_wandb = args.use_wandb
+    model_config.fusion_type = args.fusion_type
+    model_config.encoder_preset = args.preset
+    model_config.mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+    model_config.flash_attention = args.flash_attention
+    model_config.flash_attention_train = args.flash_attention_train
+    model_config.remat_encoders = ("auto" if args.remat == "auto" else args.remat == "1")
+
+    data_config = DataConfig()
+    if args.dataset:
+        data_config.primary_dataset = args.dataset
+    experiment_config = ExperimentConfig()
+    if args.few_shot_samples:
+        experiment_config.few_shot_samples = args.few_shot_samples
+
+    os.makedirs(args.save_path, exist_ok=True)
+    result: Dict = {"mode": args.mode}
+    if args.mode == "standard":
+        path, trainer = train_standard_model(model_config, data_config, device,
+                                             args.fusion_type, args.seed,
+                                             resume_from=args.resume)
+        print(f"Training completed! Model saved to: {path}")
+        result.update(path=path, trainer=trainer)
+    elif args.mode == "few_shot":
+        results = train_few_shot_model(model_config, data_config, experiment_config,
+                                       device, args.seed, args.episodes)
+        print(f"Few-shot learning results: {results}")
+        result.update(results=results)
+    elif args.mode == "robust":
+        results = train_robust_model(model_config, data_config, experiment_config,
+                                     device, args.seed)
+        print(f"Robustness training completed! Results: {results}")
+        result.update(results=results)
+
+    config_save_path = Path(args.save_path) / "final_config.json"
+    with open(config_save_path, "w") as f:
+        json.dump({
+            "model_config": config_to_dict(model_config),
+            "data_config": config_to_dict(data_config),
+            "experiment_config": config_to_dict(experiment_config),
+        }, f, indent=2)
+    print(f"Configuration saved to: {config_save_path}")
+    return result
+
+
+if __name__ == "__main__":
+    main()
