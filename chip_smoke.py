@@ -124,7 +124,37 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     bit-equal to the request from arrays the port's loaders decoded; one
     epoch with ``device_data_cache_mb=0`` (the prefetcher). Printed: decode
     seconds cold and warm, seconds per epoch and clips/s on both paths,
-    peak device memory.
+    peak device memory;
+18. distillation from files: ``train_advanced_torch.main --mode
+    distillation --teacher_model <17's final_model_hierarchical> --epochs
+    1``: 4 synchronised, timed train steps each launching both models'
+    forwards (46/70/24) and the student's backwards (23/35/12), a
+    validation and a test batch of 46/70/24 forwards; the teacher bit-equal
+    to its checkpoint after the run; ``distilled_student_model`` loaded
+    strictly into a standard model of the student's config, which serves
+    ``happy_000`` from its paths. Printed: step ms, epoch s, peak memory;
+19. ablation: ``--mode ablation --epochs 1``, five fusions, each 4 train
+    steps of 23/35/12 both ways and 2 eval batches of 23/35/12 forwards;
+    finite validation accuracy and F1 a fusion;
+20. ``--mode all`` at the half preset, ``--epochs 1 --episodes 1
+    --few_shot_samples 1``: 48 train steps of 11/17/6 both ways and 29 eval
+    batches of 11/17/6 forwards (six fusions, the robust epoch and its seven
+    scenarios, the ablation), ``errors`` empty, every output directory;
+21. evaluation: ``evaluate_model_torch.main`` on 17's model over the test
+    split: one batch of 23/35/12 forwards, predictions equal to the
+    trainer's test pass and accuracy to ``evaluate_test_set`` on the same
+    model, ``evaluation_report.html`` and ``detailed_results.json``, the
+    line each skipped plot printed; ``evaluate_dataset`` seconds and clips/s;
+22. web server: ``demo/serve_torch.py``'s handler on port 0 in a thread;
+    ``POST /api/analyze`` with ``happy_000``'s paths answers ``predict``'s
+    distribution bit for bit, 23/35/12 forwards a request; 5 requests timed;
+23. weights I/O: 17's backbones written as HF-named safetensors by the
+    port's writer and imported by ``tools/import_hf_backbones_torch.py``:
+    state dict and one served request bit-equal to the same fresh model
+    given them directly; where ``transformers`` imports, its
+    DeBERTa-v3-base, wav2vec2-base and ViT-B/16 (random weights, a local
+    config) saved, imported, and their f32 hidden states on the card held
+    against the port's f32 encoders at atol=rtol=1e-3.
 
 Phases 2 and 3 also run the half preset's widths: attention_block at
 [240,197,384] and [8,499,384] (6 heads), ffn_block at E 384 / F 1536
@@ -187,9 +217,11 @@ and time ``F.scaled_dot_product_attention`` beside flash_attention as a
 yardstick the port never calls.
 
 ``python3 chip_smoke.py --profile`` runs none of the checks: after the build
-it prints, for the 10 s and the 20 s model, ``torch.profiler``'s device time
-by kernel over two B=8 forwards and two B=8 train steps, with the device's
-busy share of the wall time. ``python3 chip_smoke.py --timings [--tree DIR]``
+it prints, for the 10 s and the 20 s model, the device time by kernel over
+two B=8 forwards and two B=8 train steps, with the device's busy share of
+the wall time, through ``utils/profiling.py`` (``trace``: ``torch.profiler``
+with a Chrome trace written to the run's temporary directory; ``annotate``
+around each repetition). ``python3 chip_smoke.py --timings [--tree DIR]``
 prints only medians (the forward+backward of attention_block, ffn_block and
 deberta_attention, deberta_attention's forward alone, the B=8 forward, the
 B=8 train step), importing the package from DIR when given: the
@@ -2013,49 +2045,87 @@ def phase_families_f32(dev, tmp: str):
 
 
 FILES_PER_EMOTION = 6  # 42 clips: 29 train, 6 val, 7 test
+
+
+def _files(tmp: str):
+    """(root, sample set, trained model) of phase 17, which the later
+    phases read: ``final_model_hierarchical`` after its resume."""
+    root = os.path.join(tmp, "files")
+    os.makedirs(root, exist_ok=True)
+    return (root, os.path.join(root, "data"),
+            os.path.join(root, "ck", "final_model_hierarchical"))
+
+
+@contextlib.contextmanager
+def _in_dir(path: str):
+    """Run in ``path``: the CLIs' ModelConfig makes ./data, ./checkpoints
+    and ./logs where it is built."""
+    cwd = os.getcwd()
+    os.makedirs(path, exist_ok=True)
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
 FILES_TEXT = "I am so happy about my new job!"
 
 
-def _count_steps(module, record: dict):
+def _count_steps(module, record: dict, timed: bool = False):
     """Wrap ``module``'s ``make_train_step`` and ``make_eval_step`` (the
-    names the trainer calls) so that every step's launch counts are read
-    with the counters set to 0 just before it, and its loss is kept (on the
-    device, checked after the run). Returns the patch's undo."""
+    names its trainer or evaluator calls; those it has) so that every
+    step's launch counts are read with the counters set to 0 just before it,
+    and a train step's loss is kept (on the device, checked after the run).
+    ``timed``: each train step also synchronised and timed on the host
+    clock (``record["ms"]``). Returns the patch's undo."""
     from simple_multimodal_tpu_torch.ops import hopper
 
-    make_train, make_eval = module.make_train_step, module.make_eval_step
+    kinds = {kind: name for kind, name in (("train", "make_train_step"),
+                                           ("eval", "make_eval_step")) if hasattr(module, name)}
+    made = {kind: getattr(module, name) for kind, name in kinds.items()}
 
     def counted(kind, step):
         def run(*args):
+            if timed and kind == "train":
+                sync()
+                t0 = time.perf_counter()
             hopper.reset_launch_counts()
             state_or_out = step(*args)
             record[kind].append(hopper.launch_counts())
             if kind == "train":
                 record["losses"].append(state_or_out[1]["total_loss"])
+                if timed:
+                    sync()
+                    record["ms"].append((time.perf_counter() - t0) * 1e3)
             return state_or_out
         return run
 
-    module.make_train_step = lambda *a, **k: counted("train", make_train(*a, **k))
-    module.make_eval_step = lambda *a, **k: counted("eval", make_eval(*a, **k))
+    for kind, name in kinds.items():
+        setattr(module, name, lambda *a, kind=kind, **k: counted(kind, made[kind](*a, **k)))
 
     def undo():
-        module.make_train_step, module.make_eval_step = make_train, make_eval
+        for kind, name in kinds.items():
+            setattr(module, name, made[kind])
     return undo
 
 
-def _run_cli(cli, argv, expect_train: int, expect_eval: int, tag: str, **config_kw):
-    """``train_advanced_torch.main(argv)`` in-process (``config_kw`` set on
-    its ModelConfig), holding every train step to 23/35/12 launches both
-    ways and every validation or test batch to 23/35/12 forwards and no
-    backward; every step's loss finite. Returns (result, wall seconds)."""
+def _run_cli(cli, argv, expect_train: int, expect_eval: int, tag: str,
+             train_launches=None, eval_launches=None, record=None, **config_kw):
+    """``cli.main(argv)`` in-process (``config_kw`` set on its ModelConfig),
+    holding every train step to ``train_launches`` (23/35/12 both ways) and
+    every validation or test batch to ``eval_launches`` (23/35/12 forwards,
+    no backward); every step's loss finite. ``record`` (with an ``ms``
+    list) times each train step. Returns (result, wall seconds)."""
     import math
 
     import torch
 
     from simple_multimodal_tpu_torch.train import trainer as trainer_module
 
-    record = {"train": [], "eval": [], "losses": []}
-    undo = _count_steps(trainer_module, record)
+    train_launches = train_launches or TRAIN_LAUNCHES
+    eval_launches = eval_launches or EXPECTED_LAUNCHES
+    record = record if record is not None else {}
+    record.update(train=[], eval=[], losses=[])
+    undo = _count_steps(trainer_module, record, timed="ms" in record)
     make_config = cli.ModelConfig
     cli.ModelConfig = lambda **kw: make_config(**kw, **config_kw)
     try:
@@ -2072,17 +2142,20 @@ def _run_cli(cli, argv, expect_train: int, expect_eval: int, tag: str, **config_
                              f"{len(record['eval'])} eval batches, expected {expect_train} "
                              f"and {expect_eval}")
     for i, counts in enumerate(record["train"]):
-        _expect(f"{tag} train step {i}", counts, TRAIN_LAUNCHES)
+        _expect(f"{tag} train step {i}", counts, train_launches)
     for i, counts in enumerate(record["eval"]):
-        _expect(f"{tag} eval batch {i}", counts, EXPECTED_LAUNCHES)
+        _expect(f"{tag} eval batch {i}", counts, eval_launches)
     losses = torch.stack([v.float() for v in record["losses"]]).cpu().tolist()
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{tag}: non-finite losses {losses}")
-    log(f"{tag}: {expect_train} train steps of {TRAIN_LAUNCHES['attention_block_bwd']}/"
-        f"{TRAIN_LAUNCHES['ffn_block_bwd']}/{TRAIN_LAUNCHES['deberta_attention_bwd']} backward "
-        f"launches, {expect_eval} eval batches of forwards only; losses "
+    log(f"{tag}: {expect_train} train steps of {_launch_str(train_launches)} launches, "
+        f"{expect_eval} eval batches of {_launch_str(eval_launches)}; losses "
         + " ".join(f"{v:.4f}" for v in losses))
     return result, wall
+
+
+def _launch_str(counts: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v)
 
 
 def _decode_epoch_seconds(ds_module, data, cfg) -> float:
@@ -2131,14 +2204,10 @@ def phase_train_from_files(dev, tmp: str):
 
     gen_cli = importlib.import_module("create_sample_data_torch")
     cli = importlib.import_module("train_advanced_torch")
-    root = os.path.join(tmp, "files")
-    os.makedirs(root, exist_ok=True)
-    cwd = os.getcwd()
-    os.chdir(root)  # the CLI's ModelConfig makes ./logs for its plots
-    try:
+    root, data, final = _files(tmp)
+    with _in_dir(root):  # the CLI's ModelConfig makes ./logs for its plots
         t0 = time.perf_counter()
-        data = gen_cli.main(["--output_dir", os.path.join(root, "data"), "--num_samples",
-                             str(FILES_PER_EMOTION)])
+        gen_cli.main(["--output_dir", data, "--num_samples", str(FILES_PER_EMOTION)])
         with open(os.path.join(data, "generation_meta.json")) as f:
             store = _json.load(f).get("video_store", "mp4")
         log(f"files: {FILES_PER_EMOTION * 7} clips generated in {time.perf_counter() - t0:.1f} "
@@ -2160,7 +2229,6 @@ def phase_train_from_files(dev, tmp: str):
         if not trainer.device_cached or trainer.state.step != 8:
             raise AssertionError(f"files: cached={trainer.device_cached} "
                                  f"step={trainer.state.step}")
-        final = os.path.join(save, "final_model_hierarchical")
         for d in (os.path.join(save, "best_model"), final):
             if not os.path.exists(os.path.join(d, "meta.json")):
                 raise AssertionError(f"files: {d}/meta.json missing")
@@ -2224,8 +2292,394 @@ def phase_train_from_files(dev, tmp: str):
             f"the first of the run), {n_train / pre.epoch_times[0]:.1f} train clips/s; cached "
             f"path's first epoch {cached_times[0]:.2f} s; {smi_line()}")
         del out, pre
+
+
+KD_EVAL_LAUNCHES = {**NO_LAUNCHES, **{k: 2 * v for k, v in FORWARD_LAUNCHES.items()}}
+
+
+def phase_distillation_from_files(dev, tmp: str):
+    """Phase 18: ``train_advanced_torch.py --mode distillation
+    --teacher_model <phase 17's final_model_hierarchical> --epochs 1`` at
+    base width, B=8: 4 train steps, each launching the teacher's and the
+    student's forwards (46/70/24) and the student's backwards (23/35/12),
+    each timed; a validation and a test batch of both forwards (46/70/24);
+    the teacher bit-equal to its checkpoint after the run; the saved
+    ``distilled_student_model`` loaded strictly into a standard model with
+    the student's config, which serves one request from the paths of a WAV
+    and its clip."""
+    import importlib
+
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel
+    from simple_multimodal_tpu_torch.serving.demo import MultimodalEmotionDemo
+    from simple_multimodal_tpu_torch.train.checkpoint import restore_params
+
+    cli = importlib.import_module("train_advanced_torch")
+    root, data, teacher = _files(tmp)
+    with _in_dir(root):
+        torch.cuda.reset_peak_memory_stats()
+        record = {"ms": []}
+        out, wall = _run_cli(cli, ["--mode", "distillation", "--teacher_model", teacher,
+                                   "--preset", "base", "--batch_size", str(B), "--epochs", "1",
+                                   "--data_path", data, "--save_path", os.path.join(root, "kd")],
+                             4, 2, "files distillation", KD_TRAIN_LAUNCHES, KD_EVAL_LAUNCHES,
+                             record)
+        peak = torch.cuda.max_memory_allocated()
+        trainer = out["trainer"]
+        saved = restore_params(teacher)
+        live = trainer.model.teacher.state_dict()
+        moved = [k for k in saved if not torch.equal(live[k].cpu(), saved[k])]
+        if set(live) != set(saved) or moved:
+            raise AssertionError(f"files distillation: teacher moved or differs: {moved[:5]}")
+        student_cfg = trainer.config
+        log(f"files distillation: student fusion {student_cfg.fusion_hidden_size}, "
+            f"{student_cfg.fusion_num_heads} heads, {student_cfg.fusion_num_layers} layers; "
+            f"steps {' '.join(f'{t:.1f}' for t in record['ms'])} ms (synchronised, median "
+            f"{median(record['ms'][1:]):.1f} after the first); epoch "
+            f"{trainer.epoch_times[0]:.2f} s; run {wall:.1f} s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; teacher bit-equal ({len(saved)} tensors); {smi_line()}")
+        del out, trainer, live
+        torch.cuda.empty_cache()
+
+        student = MultimodalEmotionModel(student_cfg)
+        student.load_state_dict(restore_params(os.path.join(root, "kd",
+                                                            "distilled_student_model")))
+        demo = MultimodalEmotionDemo(model=student, config=student_cfg, device=dev)
+        wav, clip = _files_request(data)
+        got = demo.predict(FILES_TEXT, wav, clip)
+        _check_probs(torch.tensor(list(got["emotion_distribution"].values())),
+                     "files distillation serve")
+        log(f"files distillation: distilled_student_model loaded strictly into a standard "
+            f"model ({sum(p.numel() for p in student.parameters()):,} parameters), serves "
+            f"{os.path.basename(wav)} → {got['predicted_emotion']} ({got['confidence']:.3f})")
+
+
+def _files_request(data: str):
+    """The WAV and the moving clip of ``happy_000`` in phase 17's set."""
+    return (os.path.join(data, "audio", "happy_000.wav"),
+            os.path.join(data, "video", "happy_000.mp4"))
+
+
+ABLATION_FUSIONS = ("early", "late", "mult", "graph", "contrastive")
+
+
+def phase_ablation_from_files(dev, tmp: str):
+    """Phase 19: ``train_advanced_torch.py --mode ablation --epochs 1`` at
+    base width, B=8: five fusions, each 4 train steps of 23/35/12 launches
+    both ways and a validation and a test batch of 23/35/12 forwards; a
+    finite validation accuracy and F1 for each."""
+    import importlib
+    import math
+
+    cli = importlib.import_module("train_advanced_torch")
+    root, data, _ = _files(tmp)
+    with _in_dir(root):
+        out, wall = _run_cli(cli, ["--mode", "ablation", "--preset", "base", "--batch_size",
+                                   str(B), "--epochs", "1", "--data_path", data,
+                                   "--save_path", os.path.join(root, "ablation")],
+                             4 * len(ABLATION_FUSIONS), 2 * len(ABLATION_FUSIONS),
+                             "files ablation")
+    results = out["results"]
+    if tuple(results) != ABLATION_FUSIONS or not all(
+            math.isfinite(v) for r in results.values() for v in r.values()):
+        raise AssertionError(f"files ablation: {results}")
+    log(f"files ablation: {len(results)} fusions in {wall:.1f} s: " + "; ".join(
+        f"{k} acc {r['val_accuracy']:.3f} F1 {r['val_f1']:.3f}" for k, r in results.items())
+        + f"; {smi_line()}")
+
+
+def phase_all_from_files(dev, tmp: str):
+    """Phase 20: ``train_advanced_torch.py --mode all`` at the half preset,
+    B=8, ``--epochs 1 --episodes 1 --few_shot_samples 1``: six standard
+    fusions (4 train steps and 2 eval batches each), a 7-way 1-shot
+    episode, a robust epoch (4 steps) and its seven scenarios (a
+    validation batch each), and the ablation (five fusions, 4 + 2 each):
+    every train step 11/17/6 both ways and every eval batch 11/17/6
+    forwards; ``errors`` empty; every output directory written."""
+    import importlib
+
+    cli = importlib.import_module("train_advanced_torch")
+    root, data, _ = _files(tmp)
+    save = os.path.join(root, "all")
+    n_train = 4 * len(cli.ALL_STANDARD_FUSIONS) + 4 + 4 * len(ABLATION_FUSIONS)
+    n_eval = 2 * len(cli.ALL_STANDARD_FUSIONS) + 7 + 2 * len(ABLATION_FUSIONS)
+    with _in_dir(root):
+        out, wall = _run_cli(cli, ["--mode", "all", "--preset", "half", "--batch_size", str(B),
+                                   "--epochs", "1", "--episodes", "1", "--few_shot_samples", "1",
+                                   "--data_path", data, "--save_path", save],
+                             n_train, n_eval, "files all (half)", HALF_TRAIN_LAUNCHES,
+                             HALF_FORWARD_LAUNCHES)
+    if out["errors"] != {}:
+        raise AssertionError(f"files all: errors {out['errors']}")
+    expected = [f"final_model_{f}" for f in cli.ALL_STANDARD_FUSIONS] + [
+        "robust_model", "best_model"]
+    missing = [d for d in expected if not os.path.exists(os.path.join(save, d, "checkpoint.pt"))]
+    if missing or not os.path.exists(os.path.join(save, "final_config.json")):
+        raise AssertionError(f"files all: missing {missing} or final_config.json")
+    log(f"files all (half): errors {{}}, {len(out['results'])} parts "
+        f"({', '.join(out['results'])}) in {wall:.1f} s; few-shot {out['results']['few_shot']}; "
+        f"{smi_line()}")
+
+
+def phase_evaluate_from_files(dev, tmp: str):
+    """Phase 21: ``evaluate_model_torch.py`` on phase 17's model over the
+    test split (7 clips, one batch of 8 launching 23/35/12 forwards and no
+    backward): its predictions equal those of the trainer's test pass on
+    the same model and split, its accuracy the trainer's
+    ``evaluate_test_set``; ``evaluation_report.html`` and
+    ``detailed_results.json`` written; the line each plot family printed
+    when it was skipped. Printed: the seconds and clips/s of
+    ``evaluate_dataset``."""
+    import contextlib as _contextlib
+    import importlib
+    import io
+
+    import numpy as np
+
+    from simple_multimodal_tpu_torch.data.dataset import create_dataloader, get_dataset
+    from simple_multimodal_tpu_torch.eval import evaluator as evaluator_module
+    from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer, dedupe_by_sample_id
+
+    cli = importlib.import_module("evaluate_model_torch")
+    root, data, final = _files(tmp)
+    out_dir = os.path.join(root, "evaluation")
+    record = {"train": [], "eval": [], "losses": []}
+    timing = {}
+    evaluate = evaluator_module.ModelEvaluator.evaluate_dataset
+
+    def timed(self, loader):
+        sync()
+        t0 = time.perf_counter()
+        res = evaluate(self, loader)
+        sync()
+        timing["s"] = time.perf_counter() - t0
+        timing["evaluator"] = self
+        return res
+
+    undo = _count_steps(evaluator_module, record)
+    evaluator_module.ModelEvaluator.evaluate_dataset = timed
+    printed = io.StringIO()
+    try:
+        with _in_dir(root), _contextlib.redirect_stdout(printed):
+            results = cli.main(["--model_path", final, "--data_path", data, "--dataset",
+                                "sample", "--split", "test", "--batch_size", str(B),
+                                "--output_dir", out_dir])
     finally:
-        os.chdir(cwd)
+        evaluator_module.ModelEvaluator.evaluate_dataset = evaluate
+        undo()
+    for line in printed.getvalue().splitlines():
+        if "skipped" in line or line.startswith(("Accuracy", "F1-Score (Macro)")):
+            log(f"evaluate: {line}")
+    if len(record["eval"]) != 1:
+        raise AssertionError(f"evaluate: {len(record['eval'])} eval batches, expected 1")
+    _expect("evaluate batch 0", record["eval"][0], EXPECTED_LAUNCHES)
+    for name in ("evaluation_report.html", "detailed_results.json"):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            raise AssertionError(f"evaluate: {name} missing")
+
+    ev = timing["evaluator"]
+    ds = get_dataset("sample", data, "test", ev.config)
+    loader = create_dataloader(ds, batch_size=B, shuffle=False)
+    trainer = AdvancedTrainer(ev.model, ev.config, loader, loader, loader)
+    preds, _, _, ids, _ = trainer._predict(create_dataloader(ds, batch_size=B, shuffle=False),
+                                           trainer.eval_step)
+    (preds,) = dedupe_by_sample_id(ids, preds)
+    test = trainer.evaluate_test_set()
+    if not np.array_equal(preds, results["predictions"]):
+        raise AssertionError(f"evaluate: predictions {results['predictions']} != the "
+                             f"trainer's {preds}")
+    if test["test_accuracy"] != results["metrics"]["accuracy"]:
+        raise AssertionError(f"evaluate: accuracy {results['metrics']['accuracy']} != the "
+                             f"trainer's {test['test_accuracy']}")
+    n = len(results["predictions"])
+    log(f"evaluate: {n} test clips, predictions equal to the trainer's test pass, accuracy "
+        f"{test['test_accuracy']:.4f} equal to evaluate_test_set; evaluate_dataset "
+        f"{timing['s']:.3f} s = {n / timing['s']:.1f} clips/s (one batch of {B}, model "
+        f"loaded); report and detailed_results.json written; {smi_line()}")
+
+
+def phase_web_server(dev, tmp: str):
+    """Phase 22: ``demo/serve_torch.py``'s handler over phase 17's model on
+    port 0 in a thread; ``POST /api/analyze`` with the paths of ``happy_000``
+    (its moving clip) answers the distribution ``predict`` gives on the same
+    inputs, bit for bit, each request launching 23/35/12 forwards; then 5
+    requests timed on the host clock."""
+    import importlib
+    import json as _json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from simple_multimodal_tpu_torch.ops import hopper
+
+    serve = importlib.import_module("demo.serve_torch")
+    root, data, final = _files(tmp)
+    demo = serve.load_demo(final, device=dev)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(demo, media_dir=data))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    body = _json.dumps({"text": FILES_TEXT, "audio_path": "audio/happy_000.wav",
+                        "video_path": "video/happy_000.mp4"}).encode()
+
+    def post():
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/api/analyze",
+                                     data=body, headers={"Content-Type": "application/json"})
+        return _json.loads(urllib.request.urlopen(req, timeout=120).read())
+
+    try:
+        post()  # warm-up
+        times = []
+        for i in range(6):
+            hopper.reset_launch_counts()
+            t0 = time.perf_counter()
+            answer = post()
+            times.append((time.perf_counter() - t0) * 1e3)
+            _expect(f"web request {i}", hopper.launch_counts(), EXPECTED_LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    want = demo.predict(FILES_TEXT, *_files_request(data))
+    got = answer["emotion_analysis"]
+    if got["emotion_distribution"] != want["emotion_distribution"]:
+        raise AssertionError(f"web: {got['emotion_distribution']} != predict's "
+                             f"{want['emotion_distribution']}")
+    log(f"web: POST /api/analyze (happy_000 by path) → {got['predicted_emotion']} "
+        f"({got['confidence']:.3f}), equal to predict bit for bit; 23/35/12 a request; "
+        f"latency {' '.join(f'{t:.1f}' for t in times[1:])} ms (median "
+        f"{median(times[1:]):.1f}; host clock, decode included); {smi_line()}")
+
+
+def _hf_backbones():
+    """DeBERTa-v3-base, wav2vec2-base and ViT-B/16 as ``transformers``
+    builds them from a local config (random weights, no download), or None
+    where ``transformers`` is missing."""
+    try:
+        import transformers
+    except ImportError:
+        return None
+    text = transformers.DebertaV2Model(transformers.DebertaV2Config(
+        vocab_size=128100, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+        intermediate_size=3072, max_position_embeddings=512, relative_attention=True,
+        position_buckets=256, norm_rel_ebd="layer_norm", share_att_key=True,
+        pos_att_type=["p2c", "c2p"], layer_norm_eps=1e-7, position_biased_input=False))
+    audio = transformers.Wav2Vec2Model(transformers.Wav2Vec2Config(
+        hidden_size=768, num_hidden_layers=12, num_attention_heads=12, intermediate_size=3072,
+        conv_dim=(512,) * 7, conv_kernel=(10, 3, 3, 3, 3, 2, 2), conv_stride=(5, 2, 2, 2, 2, 2, 2),
+        num_feat_extract_layers=7, num_conv_pos_embeddings=128,
+        num_conv_pos_embedding_groups=16, do_stable_layer_norm=False,
+        feat_extract_norm="group", apply_spec_augment=False))
+    video = transformers.ViTModel(transformers.ViTConfig(
+        image_size=224, patch_size=16, hidden_size=768, num_hidden_layers=12,
+        num_attention_heads=12, intermediate_size=3072), add_pooling_layer=False)
+    return transformers.__version__, text, audio, video
+
+
+def phase_weights_io(dev, tmp: str):
+    """Phase 23: phase 17's three backbones written as HF-named safetensors
+    (``deberta.``, ``wav2vec2.``, ``vit.`` prefixes) by the port's writer,
+    imported into a fresh model by ``tools/import_hf_backbones_torch.py``:
+    its state dict bit-equal to the same fresh model given those backbones
+    directly, and one request served from each bit-equal. Where
+    ``transformers`` imports, DeBERTa-v3-base, wav2vec2-base and ViT-B/16
+    built by it (random weights) are saved, imported, and their f32 hidden
+    states on the card held against the port's f32 encoders at
+    atol=rtol=1e-3 (TF32 off)."""
+    import importlib
+
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import (create_model,
+                                                                     load_pretrained_model)
+    from simple_multimodal_tpu_torch.models.safetensors_io import (load_pretrained_backbones,
+                                                                   save_safetensors)
+    from simple_multimodal_tpu_torch.serving.demo import MultimodalEmotionDemo
+    from simple_multimodal_tpu_torch.train.checkpoint import restore_params
+
+    tool = importlib.import_module("tools.import_hf_backbones_torch")
+    root, data, final = _files(tmp)
+    wdir = os.path.join(root, "weights")
+    os.makedirs(wdir, exist_ok=True)
+    served, cfg = load_pretrained_model(final, device=dev)
+    parts = {"text": ("deberta.", served.text_encoder.model),
+             "audio": ("wav2vec2.", served.audio_encoder.model),
+             "video": ("vit.", served.video_encoder.vit)}
+    t0 = time.perf_counter()
+    files = {}
+    for name, (prefix, module) in parts.items():
+        files[name] = os.path.join(wdir, f"{name}.safetensors")
+        save_safetensors({prefix + k: v for k, v in module.state_dict().items()}, files[name])
+    written = time.perf_counter() - t0
+    with _in_dir(root):
+        t0 = time.perf_counter()
+        out = tool.main(["--text", files["text"], "--audio", files["audio"], "--video",
+                         files["video"], "--output", os.path.join(wdir, "imported"), "--preset",
+                         "base", "--fusion_type", "hierarchical", "--seed", "7"])
+        imported_s = time.perf_counter() - t0
+        expected = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(7))
+    for name, (_, module) in parts.items():
+        target = {"text": expected.text_encoder.model, "audio": expected.audio_encoder.model,
+                  "video": expected.video_encoder.vit}[name]
+        target.load_state_dict(module.state_dict())
+    got = restore_params(out)
+    want = expected.state_dict()
+    differ = [k for k in want if not torch.equal(got[k], want[k].cpu())]
+    if set(got) != set(want) or differ:
+        raise AssertionError(f"weights: imported state differs: {differ[:5]}")
+    wav, clip = _files_request(data)
+    a = MultimodalEmotionDemo(checkpoint_path=out, device=dev).predict(FILES_TEXT, wav, clip)
+    b = MultimodalEmotionDemo(model=expected, config=cfg, device=dev).predict(FILES_TEXT, wav,
+                                                                             clip)
+    if a != b:
+        raise AssertionError(f"weights: served {a} != {b}")
+    sizes = sum(os.path.getsize(f) for f in files.values())
+    log(f"weights: three backbones written as safetensors ({sizes / 1e6:.0f} MB) in "
+        f"{written:.1f} s, imported by tools/import_hf_backbones_torch.py in {imported_s:.1f} s; "
+        f"{len(got)} tensors and one served request bit-equal")
+    del served, expected
+    torch.cuda.empty_cache()
+
+    hf = _hf_backbones()
+    if hf is None:
+        log("weights: transformers is not installed: the transformers comparison is skipped")
+        return
+    version, text, audio, video = hf
+    hf_files = {}
+    for name, module in (("text", text), ("audio", audio), ("video", video)):
+        hf_files[name] = os.path.join(wdir, f"hf_{name}.safetensors")
+        save_safetensors(module.state_dict(), hf_files[name])
+    port = create_model(cfg, device=dev, dtype=torch.float32)
+    load_pretrained_backbones(port, **hf_files)
+    g = torch.Generator().manual_seed(11)
+    S, valid = cfg.text_max_length, cfg.text_max_length * 3 // 5
+    ids = torch.randint(1, 128000, (2, S), generator=g).to(dev)
+    mask = torch.ones(2, S, dtype=torch.long, device=dev)
+    mask[1, valid:] = 0
+    wave = (torch.randn(2, cfg.audio_max_length, generator=g) * 0.1).to(dev)
+    frames = torch.rand(4, *cfg.video_frame_size, 3, generator=g).to(dev)
+    with torch.no_grad():
+        text, audio, video = text.to(dev).eval(), audio.to(dev).eval(), video.to(dev).eval()
+        pairs = {
+            "DeBERTa": (port.text_encoder.model(ids, mask, torch.float32),
+                        text(input_ids=ids, attention_mask=mask).last_hidden_state),
+            "wav2vec2": (port.audio_encoder.model(wave, torch.float32),
+                         audio(wave).last_hidden_state),
+            "ViT": (port.video_encoder.vit(frames, torch.float32),
+                    video(pixel_values=frames.permute(0, 3, 1, 2)).last_hidden_state),
+        }
+    for name, (mine, theirs) in pairs.items():
+        if name == "DeBERTa":  # the padded row's masked positions are not compared
+            mine = torch.cat([mine[0], mine[1, :valid]])
+            theirs = torch.cat([theirs[0], theirs[1, :valid]])
+        err = float((mine - theirs).abs().max())
+        log(f"weights: transformers {version} {name} {tuple(theirs.shape)} f32 hidden states: "
+            f"max_abs_err={err:.3e} (atol=rtol={ATOL_F32:g}, max |want| "
+            f"{float(theirs.abs().max()):.3f})")
+        if not torch.allclose(mine, theirs, atol=ATOL_F32, rtol=ATOL_F32):
+            raise AssertionError(f"weights: {name} differs from transformers by {err:.3e}")
+    del port, text, audio, video, pairs
+    torch.cuda.empty_cache()
 
 
 def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
@@ -2250,17 +2704,19 @@ def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
 
 def phase_profile(dev, tmp: str):
     """``--profile``: where the device time goes in the B=8 forward and the
-    B=8 train step, at 10 s of audio and at 20 s with the fused front end."""
+    B=8 train step, at 10 s of audio and at 20 s with the fused front end,
+    through ``utils/profiling.py``: ``trace`` (``torch.profiler``, CPU and
+    CUDA, a Chrome trace written under the run's temporary directory) over
+    two repetitions, each inside an ``annotate`` region."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
     from simple_multimodal_tpu_torch.train.optim import make_optimizer
     from simple_multimodal_tpu_torch.train.state import TrainState
     from simple_multimodal_tpu_torch.train.steps import make_train_step
+    from simple_multimodal_tpu_torch.utils.profiling import annotate, trace
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     reps = 2
     for long in (False, True):
         tag = "20 s" if long else "10 s"
@@ -2272,10 +2728,11 @@ def phase_profile(dev, tmp: str):
         with torch.inference_mode():
             model(*inputs)  # warm-up
             sync()
-            with profile(activities=acts) as prof:
+            with trace(os.path.join(tmp, "traces", f"{tag} forward")) as prof:
                 t0 = time.perf_counter()
                 for _ in range(reps):
-                    model(*inputs)
+                    with annotate(f"{tag} B={B} forward"):
+                        model(*inputs)
                 sync()
                 wall = (time.perf_counter() - t0) * 1e3
         _report_profile(prof, f"{tag} B={B} forward", wall, reps)
@@ -2283,10 +2740,11 @@ def phase_profile(dev, tmp: str):
                                augment=True, compute_contrastive_loss=True)
         state, _ = step(TrainState.create(0), batch)  # warm-up
         sync()
-        with profile(activities=acts) as prof:
+        with trace(os.path.join(tmp, "traces", f"{tag} train")) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                state, _ = step(state, batch)
+                with annotate(f"{tag} B={B} train step"):
+                    state, _ = step(state, batch)
             sync()
             wall = (time.perf_counter() - t0) * 1e3
         _report_profile(prof, f"{tag} B={B} train step", wall, reps)
@@ -2832,7 +3290,10 @@ def main() -> int:
                 counts.update({k: v for k, v in phase_train(dev, tmp, long=True).items()
                                if k.endswith("_bwd")})
             for phase in (phase_distillation, phase_fewshot, phase_robust, phase_late_serve,
-                          phase_half, phase_families_f32, phase_train_from_files):
+                          phase_half, phase_families_f32, phase_train_from_files,
+                          phase_distillation_from_files, phase_ablation_from_files,
+                          phase_all_from_files, phase_evaluate_from_files, phase_web_server,
+                          phase_weights_io):
                 t0 = time.perf_counter()
                 phase(dev, tmp)
                 torch.cuda.empty_cache()

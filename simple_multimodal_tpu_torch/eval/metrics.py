@@ -7,7 +7,8 @@ accuracy; F1, precision and recall, macro/weighted/micro and per class;
 one-vs-rest macro ROC-AUC with tied scores ranked by their midrank (None
 where it is undefined: a class absent from the targets, rows of scores
 that do not sum to 1, no rows); ``classification_report`` as its
-``output_dict``; and the confidence statistics.
+``output_dict``; and the confidence statistics. The evaluator's plots take
+``confusion_matrix``, ``roc_curve`` and ``auc`` from here.
 """
 from typing import Dict, List, Optional, Sequence
 
@@ -63,20 +64,67 @@ def precision_recall_f1(targets, predictions, labels: Sequence[int],
     return avg(precision), avg(recall), avg(f1)
 
 
-def _binary_auc(y: np.ndarray, score: np.ndarray) -> float:
-    """Area under the ROC curve of binary targets ``y`` by the trapezoid
-    rule over the curve's distinct thresholds (scikit-learn's
-    ``roc_curve`` + ``auc``): tied scores count half, their midrank."""
+def _roc_points(y: np.ndarray, score: np.ndarray):
+    """(false, true) positive counts at each distinct score, highest first
+    (scikit-learn's ``_binary_clf_curve``)."""
     order = np.argsort(score, kind="mergesort")[::-1]
     s, yy = score[order], y[order].astype(np.float64)
     distinct = np.where(np.diff(s))[0]
     ends = np.r_[distinct, yy.size - 1]
     tps = np.cumsum(yy)[ends]
     fps = 1 + ends - tps
-    tps = np.r_[0, tps]
-    fps = np.r_[0, fps]
-    fpr, tpr = fps / fps[-1], tps / tps[-1]
-    return float(_trapezoid(tpr, fpr))
+    return fps, tps
+
+
+def roc_curve(y, score, drop_intermediate: bool = True):
+    """(fpr, tpr) of binary targets ``y`` against ``score``, as
+    scikit-learn's ``roc_curve``: the curve starts at (0, 0) and, with
+    ``drop_intermediate``, keeps only the points where it bends."""
+    fps, tps = _roc_points(np.asarray(y), np.asarray(score))
+    if drop_intermediate and len(fps) > 2:
+        keep = np.where(np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True])[0]
+        fps, tps = fps[keep], tps[keep]
+    fps, tps = np.r_[0, fps], np.r_[0, tps]
+    return fps / fps[-1], tps / tps[-1]
+
+
+def auc(x, y) -> float:
+    """Area under a curve by the trapezoid rule (scikit-learn's ``auc``
+    for an increasing ``x``)."""
+    return float(_trapezoid(y, x))
+
+
+def _binary_auc(y: np.ndarray, score: np.ndarray) -> float:
+    """Area under the ROC curve of binary targets ``y`` by the trapezoid
+    rule over the curve's distinct thresholds (scikit-learn's
+    ``roc_curve`` + ``auc``): tied scores count half, their midrank."""
+    fpr, tpr = roc_curve(y, score, drop_intermediate=False)
+    return auc(fpr, tpr)
+
+
+def confusion_matrix(targets, predictions, labels: Sequence[int]) -> np.ndarray:
+    """Counts [true, predicted] over ``labels`` (scikit-learn's
+    ``confusion_matrix(..., labels=labels)``): pairs with a label outside
+    ``labels`` are left out."""
+    index = {int(c): i for i, c in enumerate(labels)}
+    cm = np.zeros((len(index), len(index)), np.int64)
+    for t, p in zip(np.asarray(targets).tolist(), np.asarray(predictions).tolist()):
+        if t in index and p in index:
+            cm[index[t], index[p]] += 1
+    return cm
+
+
+def accuracy_f1(targets, predictions) -> Dict[str, float]:
+    """Accuracy and F1 macro/weighted over the labels present in either
+    array (scikit-learn's default labels, as the JAX trainer and evaluator
+    call ``f1_score``)."""
+    t, p = np.asarray(targets), np.asarray(predictions)
+    labels = np.unique(np.r_[t, p])
+    return {
+        "accuracy": float((t == p).mean()) if len(t) else 0.0,
+        "f1_macro": precision_recall_f1(t, p, labels, "macro")[2],
+        "f1_weighted": precision_recall_f1(t, p, labels, "weighted")[2],
+    }
 
 
 def roc_auc_ovr_macro(targets, probabilities, labels: Sequence[int]) -> Optional[float]:

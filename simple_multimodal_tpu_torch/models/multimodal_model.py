@@ -339,17 +339,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def create_model(config, model_type: str = "standard", device="cuda",
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None) -> nn.Module:
+                 generator: Optional[torch.Generator] = None,
+                 student_config=None) -> nn.Module:
     """An eval-mode model of the family ``model_type`` ('standard',
-    'few_shot', 'robust' or 'distillation', the last pairing ``config`` with
-    itself as in the JAX factory) on ``device`` (the card unless the caller
+    'few_shot', 'robust' or 'distillation', the last with ``config`` as the
+    teacher's and ``student_config`` as the student's, by default ``config``
+    again as in the JAX factory) on ``device`` (the card unless the caller
     passes ``device="cpu"``; raises without a CUDA device), initialised from
     ``generator`` (seed 0 if None). ``dtype`` defaults to ``resolve_dtype``."""
     families = {
         "standard": lambda dt: MultimodalEmotionModel(config, dtype=dt),
         "few_shot": lambda dt: FewShotModel(config, dtype=dt),
         "robust": lambda dt: RobustMultimodalModel(config, dtype=dt),
-        "distillation": lambda dt: KnowledgeDistillationModel(config, config, dtype=dt),
+        "distillation": lambda dt: KnowledgeDistillationModel(
+            config, student_config or config, dtype=dt),
     }
     if model_type not in families:
         raise ValueError(f"Unknown model type: {model_type}")
@@ -367,7 +370,8 @@ def load_pretrained_model(checkpoint_path: str, config=None, device="cuda",
                           dtype: Optional[torch.dtype] = None):
     """(model, config) from a port checkpoint directory
     (``train/checkpoint.save_checkpoint``): the standard model of the
-    checkpoint's own config (or ``config``), its weights loaded, in eval
+    checkpoint's own config (or ``config``, which a ``save_params`` directory
+    needs: it holds no config), its weights loaded, in eval
     mode on ``device`` (the card unless the caller passes ``device="cpu"``;
     raises without a CUDA device)."""
     import json
@@ -378,6 +382,9 @@ def load_pretrained_model(checkpoint_path: str, config=None, device="cuda",
     device = require_device(device, "load_pretrained_model")
     payload = load_payload(checkpoint_path)
     if config is None:
+        if "config" not in payload:
+            raise ValueError(f"{checkpoint_path} holds no config (a save_params directory): "
+                             "pass the model's config")
         config = config_from_dict(ModelConfig, json.loads(payload["config"]))
     model = MultimodalEmotionModel(config, dtype=dtype or resolve_dtype(config, device))
     model.load_state_dict(payload["state_dict"])

@@ -30,7 +30,7 @@ import torch
 
 from ..data.pipeline import (DeviceCachedLoader, estimate_batch_bytes, prefetch_to_device,
                              to_device)
-from ..eval.metrics import classification_report, precision_recall_f1
+from ..eval.metrics import accuracy_f1, classification_report, confusion_matrix
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .optim import (TRAINABLE_MARKERS, freeze, is_trainable_name, make_optimizer,
                     make_trainable_only_optimizer)
@@ -46,18 +46,6 @@ def dedupe_by_sample_id(ids, *arrays):
     _, first = np.unique(ids, return_index=True)
     keep = np.sort(first)
     return tuple(np.asarray(a)[keep] for a in arrays)
-
-
-def _metrics_np(targets, predictions) -> Dict[str, float]:
-    """Accuracy and F1 macro/weighted over the labels present in either
-    array (scikit-learn's default labels, as the JAX trainer calls it)."""
-    t, p = np.asarray(targets), np.asarray(predictions)
-    labels = np.unique(np.r_[t, p])
-    return {
-        "accuracy": float((t == p).mean()) if len(t) else 0.0,
-        "f1_macro": precision_recall_f1(t, p, labels, "macro")[2],
-        "f1_weighted": precision_recall_f1(t, p, labels, "weighted")[2],
-    }
 
 
 def _pyplot():
@@ -195,7 +183,7 @@ class AdvancedTrainer:
                                                              with_loss=True)
         preds, targets, probs = dedupe_by_sample_id(ids, preds, targets, probs)
         preds, targets = preds.tolist(), targets.tolist()
-        m = _metrics_np(targets, preds)
+        m = accuracy_f1(targets, preds)
         metrics = {
             "val_loss": val_loss,
             "val_accuracy": m["accuracy"],
@@ -291,7 +279,7 @@ class AdvancedTrainer:
             return {}
         preds, targets, _, ids, _ = self._predict(self.test_loader, self.eval_step)
         preds, targets = dedupe_by_sample_id(ids, preds, targets)
-        m = _metrics_np(targets, preds)
+        m = accuracy_f1(targets, preds)
         return {
             "test_accuracy": m["accuracy"],
             "test_f1_macro": m["f1_macro"],
@@ -311,10 +299,7 @@ class AdvancedTrainer:
         if plt is None:
             return
         labels = self.config.emotion_labels
-        cm = np.zeros((len(labels), len(labels)), np.int64)
-        for t, p in zip(targets, predictions):
-            if 0 <= t < len(labels) and 0 <= p < len(labels):
-                cm[t, p] += 1
+        cm = confusion_matrix(targets, predictions, range(len(labels)))
         fig, ax = plt.subplots(figsize=(10, 8))
         im = ax.imshow(cm, cmap="Blues")
         ax.set_xticks(range(len(labels)), labels, rotation=45)
@@ -439,6 +424,6 @@ class RobustnessTrainer(AdvancedTrainer):
                                   missing_modalities=missing or None)
             preds, targets, _, ids, _ = self._predict(self.val_loader, step)
             preds, targets = dedupe_by_sample_id(ids, preds, targets)
-            m = _metrics_np(targets, preds)
+            m = accuracy_f1(targets, preds)
             results[name] = {"accuracy": m["accuracy"], "f1_macro": m["f1_macro"]}
         return results

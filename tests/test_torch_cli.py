@@ -1,9 +1,10 @@
 """The port's CLIs on the CPU: ``create_sample_data_torch.py`` followed by
 ``train_advanced_torch.py --device cpu --preset tiny`` in the standard,
 few-shot and robust modes (in-process, at the tiny media sizes of
-tests/conftest.py), what each writes, the refusals (no card, unported
-modes), and the saved model served through ``MultimodalEmotionDemo`` from
-file paths, whose decode is held against the JAX demo's on the same files.
+tests/conftest.py), what each writes, the dispatch of the other modes, the
+refusal without a card, and the saved model served through
+``MultimodalEmotionDemo`` from file paths, whose decode is held against the
+JAX demo's on the same files.
 """
 import importlib.util
 import json
@@ -163,11 +164,22 @@ def test_few_shot_and_robust_modes_run(tiny_media, workdir):
 
 
 @pytest.mark.parametrize("mode", ["distillation", "ablation", "all"])
-def test_unported_modes_raise_with_a_pointer(mode, workdir):
+def test_unported_modes_raise_with_a_pointer(mode, workdir, monkeypatch):
+    """``--mode distillation``, ``ablation`` and ``all`` each reach their
+    function (stubbed here; tests/test_torch_modes.py runs them) and write
+    the run's config."""
     root, data = workdir
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["--device", "cpu", "--mode", mode, "--data_path", data,
-                        "--save_path", str(root / "none")])
+    called = []
+    runs = {"distillation": ("train_knowledge_distillation", ("path", None)),
+            "ablation": ("run_ablation_studies", {}),
+            "all": ("run_all_experiments", ({}, {}))}
+    for name, value in runs.values():
+        monkeypatch.setattr(train_cli, name,
+                            lambda *a, name=name, value=value, **k: called.append(name) or value)
+    out = train_cli.main(["--device", "cpu", "--mode", mode, "--data_path", data,
+                          "--save_path", str(root / mode), "--teacher_model", "teacher"])
+    assert out["mode"] == mode and called == [runs[mode][0]]
+    assert (root / mode / "final_config.json").exists()
 
 
 @pytest.mark.parametrize("device", ["cuda", "auto"])

@@ -12,14 +12,21 @@ Runs on the card: ``--device`` defaults to ``cuda``; ``auto`` means
 ``cuda`` too, and both raise without a CUDA device. ``--device cpu`` runs
 on the CPU (bf16 compute on the card, f32 on the CPU).
 
-Modes ``standard``, ``few_shot`` and ``robust`` run. ``distillation``,
-``ablation`` and ``all`` are not ported yet (ROADMAP.md, Queue 1) and
-raise.
+Every mode of ``train_advanced.py`` runs: ``standard``, ``few_shot``,
+``distillation`` (the teacher from a port checkpoint directory given by
+``--teacher_model``; the student saved weights-only to
+``distilled_student_model``), ``robust``, ``ablation`` and ``all``.
+``main`` returns what it trained; under ``--mode all`` also ``errors``
+(experiment → message), empty when every part ran, where the JAX CLI only
+prints the failures.
 
     python train_advanced_torch.py --mode standard --data_path data/sample \\
         --preset base --fusion_type hierarchical --batch_size 8 --epochs 2
+    python train_advanced_torch.py --mode distillation --data_path data/sample \\
+        --teacher_model checkpoints/final_model_hierarchical --epochs 1
 """
 import argparse
+import copy
 import json
 import os
 import random
@@ -34,9 +41,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from simple_multimodal_tpu_torch.config import (  # noqa: E402
     DataConfig, ExperimentConfig, ModelConfig, config_to_dict,
 )
-
-UNPORTED_MODES = ("distillation", "ablation", "all")
-
 
 def set_seed(seed: int = 42) -> None:
     """Seed the host RNGs; the device generators are split from the seed."""
@@ -213,14 +217,134 @@ def train_robust_model(model_config: ModelConfig, data_config: DataConfig,
     return results
 
 
+def train_knowledge_distillation(model_config: ModelConfig, data_config: DataConfig, device,
+                                 teacher_model_path: str, seed: int = 0):
+    """A student with the fusion stack halved, trained against the frozen
+    teacher restored from ``teacher_model_path``; the student alone saved
+    to ``distilled_student_model``. Returns (path, trainer)."""
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.checkpoint import (read_meta, restore_params,
+                                                              save_params)
+    from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
+
+    print("=== Knowledge Distillation Training ===")
+    loaders = load_datasets(data_config, model_config, seed)
+    teacher_state = restore_params(teacher_model_path)
+    # the teacher's fusion comes from its own saved config
+    meta_cfg = read_meta(teacher_model_path).get("config") or {}
+    if meta_cfg.get("fusion_type"):
+        model_config.fusion_type = meta_cfg["fusion_type"]
+
+    # the student: the fusion stack halved
+    student_config = copy.deepcopy(model_config)
+    student_config.fusion_hidden_size = model_config.fusion_hidden_size // 2
+    student_config.fusion_num_heads = max(model_config.fusion_num_heads // 2, 1)
+    student_config.fusion_num_layers = max(model_config.fusion_num_layers // 2, 1)
+
+    model = create_model(model_config, model_type="distillation", device=device,
+                         generator=_generator(seed), student_config=student_config)
+    model.teacher.load_state_dict(teacher_state)  # strict: every key, no other
+    trainer = AdvancedTrainer(
+        model=model, config=student_config,
+        train_loader=loaders["train"], val_loader=loaders["val"],
+        test_loader=loaders["test"], model_type="distillation", seed=seed,
+    )
+    trainer.train()
+    student_path = Path(model_config.save_path) / "distilled_student_model"
+    save_params(str(student_path), model.student)
+    print(f"Distilled model saved to: {student_path}")
+    return str(student_path), trainer
+
+
+def run_ablation_studies(model_config: ModelConfig, data_config: DataConfig,
+                         experiment_config: ExperimentConfig, device,
+                         seed: int = 0) -> Dict[str, Dict[str, float]]:
+    """Each fusion that ``experiment_config`` enables, trained for
+    min(10, epochs) epochs on fresh loaders: {fusion: {val_accuracy, val_f1}}."""
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
+
+    print("=== Ablation Studies ===")
+    fusion_methods = [name for name, on in (
+        ("early", experiment_config.enable_early_fusion),
+        ("late", experiment_config.enable_late_fusion),
+        ("mult", experiment_config.enable_mult_fusion),
+        ("graph", experiment_config.enable_graph_fusion),
+        ("contrastive", experiment_config.enable_contrastive_learning),
+    ) if on]
+
+    results = {}
+    for fusion_type in fusion_methods:
+        print(f"Testing {fusion_type} fusion...")
+        temp = copy.deepcopy(model_config)
+        temp.fusion_type = fusion_type
+        temp.num_epochs = min(10, model_config.num_epochs)
+        loaders = load_datasets(data_config, temp, seed)
+        model = create_model(temp, model_type="standard", device=device,
+                             generator=_generator(seed))
+        trainer = AdvancedTrainer(
+            model=model, config=temp,
+            train_loader=loaders["train"], val_loader=loaders["val"],
+            test_loader=loaders["test"], seed=seed,
+        )
+        trainer.train()
+        results[fusion_type] = {
+            "val_accuracy": trainer.best_val_acc,
+            "val_f1": trainer.best_val_f1,
+        }
+        print(f"{fusion_type} - Val Acc: {trainer.best_val_acc:.3f}, "
+              f"Val F1: {trainer.best_val_f1:.3f}")
+    return results
+
+
+ALL_STANDARD_FUSIONS = ("early", "late", "mult", "graph", "contrastive", "hierarchical")
+
+
+def run_all_experiments(model_config: ModelConfig, data_config: DataConfig,
+                        experiment_config: ExperimentConfig, device, seed: int = 0,
+                        num_episodes: int = 100):
+    """Six standard fusions, then few-shot, robust and ablation, each
+    isolated: a failure is printed and the rest still run. Returns
+    (results, errors), each keyed by experiment."""
+    print("Running comprehensive experiments...")
+    results: Dict = {}
+    errors: Dict[str, str] = {}
+
+    def attempt(name: str, what: str, run, done):
+        try:
+            results[name] = run()
+            print(done(results[name]))
+        except Exception as e:  # per-experiment isolation, as the JAX CLI
+            errors[name] = str(e)
+            print(f"Error in {what}: {e}")
+
+    for fusion_type in ALL_STANDARD_FUSIONS:
+        attempt(fusion_type, f"{fusion_type} fusion",
+                lambda f=fusion_type: train_standard_model(model_config, data_config, device,
+                                                           f, seed)[0],
+                lambda _, f=fusion_type: f"Completed {f} fusion training")
+    attempt("few_shot", "few-shot learning",
+            lambda: train_few_shot_model(model_config, data_config, experiment_config, device,
+                                         seed, num_episodes),
+            lambda r: f"Few-shot results: {r}")
+    attempt("robust", "robustness training",
+            lambda: train_robust_model(model_config, data_config, experiment_config, device,
+                                       seed),
+            lambda r: f"Robustness results: {r}")
+    attempt("ablation", "ablation studies",
+            lambda: run_ablation_studies(model_config, data_config, experiment_config, device,
+                                         seed),
+            lambda r: f"Ablation results: {r}")
+    return results, errors
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="Advanced Multimodal Emotion Recognition Training (PyTorch port)")
     parser.add_argument("--mode", type=str, default="standard",
                         choices=["standard", "few_shot", "distillation",
                                  "robust", "ablation", "all"],
-                        help="Training mode (distillation, ablation and all are not "
-                             "ported yet)")
+                        help="Training mode")
     parser.add_argument("--fusion_type", type=str, default="hierarchical",
                         choices=["early", "late", "mult", "graph",
                                  "contrastive", "adaptive", "hierarchical"],
@@ -263,10 +387,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Dict:
     args = build_parser().parse_args(argv)
-    if args.mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"--mode {args.mode} is not ported yet (ROADMAP.md, Queue 1, item 1); "
-            "the ported modes are standard, few_shot and robust")
+    if args.mode == "distillation" and not args.teacher_model:
+        print("Error: Teacher model path required for distillation")
+        return {"mode": args.mode}
     device = resolve_device(args.device)
     set_seed(args.seed)
 
@@ -303,11 +426,25 @@ def main(argv=None) -> Dict:
                                        device, args.seed, args.episodes)
         print(f"Few-shot learning results: {results}")
         result.update(results=results)
+    elif args.mode == "distillation":
+        path, trainer = train_knowledge_distillation(model_config, data_config, device,
+                                                     args.teacher_model, args.seed)
+        print(f"Distillation completed! Student model saved to: {path}")
+        result.update(path=path, trainer=trainer)
     elif args.mode == "robust":
         results = train_robust_model(model_config, data_config, experiment_config,
                                      device, args.seed)
         print(f"Robustness training completed! Results: {results}")
         result.update(results=results)
+    elif args.mode == "ablation":
+        results = run_ablation_studies(model_config, data_config, experiment_config,
+                                       device, args.seed)
+        print(f"Ablation studies completed! Results: {results}")
+        result.update(results=results)
+    elif args.mode == "all":
+        results, errors = run_all_experiments(model_config, data_config, experiment_config,
+                                              device, args.seed, args.episodes)
+        result.update(results=results, errors=errors)
 
     config_save_path = Path(args.save_path) / "final_config.json"
     with open(config_save_path, "w") as f:
