@@ -154,7 +154,30 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     given them directly; where ``transformers`` imports, its
     DeBERTa-v3-base, wav2vec2-base and ViT-B/16 (random weights, a local
     config) saved, imported, and their f32 hidden states on the card held
-    against the port's f32 encoders at atol=rtol=1e-3.
+    against the port's f32 encoders at atol=rtol=1e-3;
+24. data parallel (``parallel/mesh.py``): the base hierarchical model, B=8,
+    dropout and augmentation off, the contrastive loss on, two train steps
+    and a validation batch, each launching 23/35/12 both ways (the batch
+    23/35/12 forwards) on every rank: without a process group in bf16 and
+    in f32 (the references); through the data-parallel path over NCCL at
+    world 1 in this process in bf16, every collective called (counted),
+    bit-equal to the reference (cuDNN deterministic for both); at world 2
+    on this one card, two processes started as torchrun starts a rank and
+    joined by ``initialize_distributed`` over gloo (NCCL refuses two ranks
+    on one device; every kernel runs on the card), 4 rows a rank, and where
+    there are two cards or more at world min(cards, 4) under ``torchrun``
+    over NCCL, a card a rank: in bf16 and f32 held to the references
+    (``DP_BOUNDS``: f32 the CPU test's loss, gradient-norm and parameter
+    bounds, a few elements a tensor excepted; bf16 each tensor's update
+    against the reference's), every rank's parameters bit-identical, and
+    in bf16 with the contrastive term rank-local, which must fail those
+    bounds; then ``train_advanced_torch.main --mesh W,1 --epochs 1`` on
+    17's files on every rank: the set cached on the card under the mesh,
+    4 train steps and 2 eval batches at their launches, losses, validation
+    and parameters equal on every rank, rank 0 alone writing
+    ``best_model/`` and ``final_model_hierarchical/``; each rank's ms/step
+    and peak memory printed. ``python3 chip_smoke.py --data-parallel`` runs
+    the build and this phase alone (the four-card call).
 
 Phases 2 and 3 also run the half preset's widths: attention_block at
 [240,197,384] and [8,499,384] (6 heads), ffn_block at E 384 / F 1536
@@ -2682,6 +2705,567 @@ def phase_weights_io(dev, tmp: str):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- data parallel
+
+DP_STEPS = 2
+DP_TIMEOUT_S = 600  # each world's ranks, start to exit
+DP_WORLD_MAX = 4
+# f32: the CPU test's bounds (tests/test_torch_parallel.py), loss and gradient
+# norm 1e-5 relative and every element within 1e-4 of its tensor's largest
+# magnitude, but for DP_F32_STRAYS_PER_TENSOR elements a tensor and
+# DP_F32_STRAYS in all: Adam divides each gradient element by its own
+# magnitude, so an element whose gradient is rounding noise moves by the
+# noise's sign (7 and 11 of 411M elements on an H100 at world 2 and 4).
+# bf16: each rank's products round partial sums over its own rows, and
+# cuBLAS and cuDNN pick their algorithms by the row count, so the runs part
+# by bf16 rounding (on an H100 at world 2, the first step: loss 3e-5 apart,
+# gradient norm 2e-3); Adam then moves every element whose gradient is
+# rounding noise by the noise's sign, and the second step parts further
+# (loss 2e-4, gradient norm 4e-3 to 1.3e-2, ~1M elements beyond the f32
+# bound, each tensor's change |Δ - Δ₁| / |Δ₁| 0.19 at the median and up to
+# 1.03 against world 1's Δ₁). So bf16 holds the loss and the gradient norm
+# of the first step ("steps": 1), where both runs start from the same
+# parameters, and the probabilities after both steps; the parameters'
+# distances are printed, not bounded.
+DP_BOUNDS = {
+    "f32": {"loss": 1e-5, "grad_norm": 1e-5, "steps": DP_STEPS, "strays": True,
+            "probs": 1e-5, "predictions": True},
+    # probabilities softmaxed in bf16 (an ulp is 2^-8 near 1) after two steps
+    # of slightly different updates
+    "bf16": {"loss": 2.0 ** -8, "grad_norm": 2.0 ** -6, "steps": 1, "strays": False,
+             "probs": 2.0 ** -5, "predictions": False},
+}
+DP_F32_STRAYS_PER_TENSOR = 8
+DP_F32_STRAYS = 32
+DP_FILES_STEPS, DP_FILES_EVALS = 4, 2  # phase 17's files, --epochs 1: 29 train clips at B=8
+
+
+def _dp_model(cfg, dev):
+    """The base hierarchical model from seed 0 (bf16 compute), kept in eval
+    mode under the train step's ``model.train()`` (dropout off, gradients
+    on), so that world d and world 1 compute the same function."""
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+
+    model = create_model(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    if model.dtype != torch.bfloat16:
+        raise AssertionError(f"base model on cuda should compute in bf16, got {model.dtype}")
+    model.eval()
+    model.train = lambda mode=True: model
+    return model
+
+
+def _dp_batch(cfg, dev):
+    """The phase's global batch of B clips (the same on every rank)."""
+    import numpy as np
+
+    return _train_batch(np.random.default_rng(13), cfg, dev)
+
+
+def _dp_run(model, cfg, batch, mesh, tag):
+    """DP_STEPS train steps (augmentation and dropout off, the contrastive
+    loss on) on this rank's rows of ``batch`` and one validation batch
+    through the data-parallel path under ``mesh`` (None: one process, no
+    mesh), in the model's compute dtype: the eval step's predictions,
+    probabilities and loss gathered or averaged over the ranks as the
+    trainer's ``_predict`` does. Every step and the validation batch with the
+    counters set to 0 just before and read just after. Returns a dict:
+    per-step metrics, the parameters after the steps (host), the validation
+    outputs, host ms per step, peak device GiB."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops import hopper
+    from simple_multimodal_tpu_torch.parallel.mesh import replicated
+    from simple_multimodal_tpu_torch.train.optim import make_optimizer
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    if mesh is not None:
+        replicated(model, mesh)
+        rows = mesh.rows(B)
+        batch = {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict)
+                     else v[rows]) for k, v in batch.items()}
+    opt = make_optimizer(cfg, model, total_steps=100)
+    step = make_train_step(model, opt, cfg, augment=False, compute_contrastive_loss=True,
+                           mesh=mesh)
+    state = TrainState.create(0)
+    metrics, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_STEPS):
+        sync()
+        hopper.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, parts = step(state, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        _expect(f"{tag} step {i}", hopper.launch_counts(), TRAIN_LAUNCHES)
+        metrics.append({k: float(v) for k, v in parts.items()})
+    hopper.reset_launch_counts()
+    out = make_eval_step(model)(batch)
+    gather = (lambda t: t) if mesh is None else mesh.gather
+    loss = out["loss"].float().reshape(1)
+    if mesh is not None:
+        mesh.all_reduce_mean_([loss])
+        mesh.barrier()  # where the trainer's rank-0 writes wait
+    val = {"predictions": gather(out["predictions"]).cpu(),
+           "probs": gather(out["probs"].float()).cpu(), "loss": loss.cpu()}
+    sync()
+    _expect(f"{tag} validation batch", hopper.launch_counts(), EXPECTED_LAUNCHES)
+    return {"metrics": metrics, "val": val, "ms": times,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+
+
+def _dp_faults(run, ref, init, bounds, travel):
+    """(faults, information) of a data-parallel run against the
+    one-process run ``ref``, both from the parameters ``init``, under
+    ``bounds`` (a DP_BOUNDS entry): the loss and gradient norm of the first
+    ``steps`` steps within their relative bounds; with ``strays`` every element within 1e-4
+    of its tensor's largest magnitude, or of twice the summed learning rate
+    ``travel`` where that is larger (a zero-initialised tensor's only
+    scale), attention key biases (a zero gradient in exact arithmetic,
+    which Adam steps by the sign of its rounding noise) within twice the
+    travel, but for DP_F32_STRAYS_PER_TENSOR elements a tensor and
+    DP_F32_STRAYS in all; the validation probabilities within their bound
+    and, where the bounds ask, equal predictions. Printed besides: each
+    tensor's change over the steps, its distance from the reference's
+    change relative to the latter (key biases left out)."""
+    import math
+
+    import torch
+
+    faults, worst = [], {}
+    for i, (m, r) in enumerate(zip(run["metrics"], ref["metrics"])):
+        for k, key in (("total_loss", "loss"), ("grad_norm", "grad_norm")):
+            rel = abs(m[k] - r[k]) / abs(r[k])
+            worst[key] = max(worst.get(key, 0.0), rel)
+            if rel > bounds[key] and i < bounds["steps"]:
+                faults.append(f"step {i} {k} {m[k]!r} vs {r[k]!r}")
+    strays, updates, total = {}, {}, 0
+    for name, want in ref["params"].items():
+        got, start = run["params"][name], init[name].cpu()
+        pieces = [(name, got, want, start, name.endswith(("key.bias", "k_proj.bias")))]
+        if name.endswith("in_proj_bias"):
+            E = want.shape[0] // 3
+            pieces = [(f"{name}[{p}]", got[i * E:(i + 1) * E], want[i * E:(i + 1) * E],
+                       start[i * E:(i + 1) * E], p == "k") for i, p in enumerate("qkv")]
+        for label, x, y, z, key_bias in pieces:
+            diff = (x - y).abs()
+            tol = (2 * travel if key_bias
+                   else min(1e-4 * max(float(y.abs().max()), 2 * travel), 1e-4))
+            n = int((diff > tol).sum())
+            total += diff.numel()
+            if n:
+                strays[label] = n
+            if not key_bias:
+                moved, off = float((y - z).norm()), float(diff.norm())
+                updates[label] = off / moved if moved else (0.0 if off == 0 else math.inf)
+    if bounds["strays"]:
+        many = {k: v for k, v in strays.items() if v > DP_F32_STRAYS_PER_TENSOR}
+        if many:
+            faults.append(f"more than {DP_F32_STRAYS_PER_TENSOR} elements beyond the f32 "
+                          f"bound in {dict(list(many.items())[:5])} ({len(many)} tensors)")
+        if sum(strays.values()) > DP_F32_STRAYS:
+            faults.append(f"{sum(strays.values())} elements beyond the f32 bound, "
+                          f"more than {DP_F32_STRAYS}")
+    order = sorted(updates.items(), key=lambda kv: -kv[1])
+    probs_err = float((run["val"]["probs"] - ref["val"]["probs"]).abs().max())
+    same_predictions = torch.equal(run["val"]["predictions"], ref["val"]["predictions"])
+    if probs_err > bounds["probs"]:
+        faults.append(f"validation probabilities {probs_err:.3e} apart")
+    if bounds["predictions"] and not same_predictions:
+        faults.append("validation predictions differ")
+    info = {"loss_rel": worst["loss"], "grad_norm_rel": worst["grad_norm"],
+            "first_step": {k: abs(run["metrics"][0][k] - ref["metrics"][0][k])
+                           / abs(ref["metrics"][0][k]) for k in ("total_loss", "grad_norm")},
+            "elements_beyond_f32_bound": f"{sum(strays.values())} of {total} in "
+                                         f"{len(strays)} tensors, at most "
+                                         f"{max(strays.values(), default=0)} in one",
+            "update_rel": {"median": median([v for _, v in order]), "largest": order[:3]},
+            "probs_err": probs_err, "predictions_equal": same_predictions}
+    return faults, info
+
+
+def _param_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(params[name].numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_files(tmp: str) -> str:
+    """Phase 17's sample set (generated and decoded once here when this
+    phase runs alone), so that the ranks only read its sidecars."""
+    import importlib
+
+    from simple_multimodal_tpu_torch.config import ModelConfig
+    from simple_multimodal_tpu_torch.data import dataset as ds_module
+
+    root, data, _ = _files(tmp)
+    if not os.path.exists(os.path.join(data, "generation_meta.json")):
+        with _in_dir(root):
+            importlib.import_module("create_sample_data_torch").main(
+                ["--output_dir", data, "--num_samples", str(FILES_PER_EMOTION)])
+            _decode_epoch_seconds(ds_module, data, ModelConfig(
+                data_path=data, save_path=os.path.join(root, "ck"),
+                log_path=os.path.join(root, "logs")))
+    return data
+
+
+def _dp_cli(spec: dict, rank: int) -> dict:
+    """The user's entry point on this rank: ``train_advanced_torch.main``
+    with ``--mode standard --preset base --fusion_type hierarchical
+    --batch_size 8 --epochs 1 --mesh W,1`` on phase 17's files, every train
+    step and eval batch held to its launches (``_run_cli``), the set cached
+    on the card under the mesh (``DeviceCachedLoader(mesh=)``), the
+    checkpoint writes recorded."""
+    import importlib
+
+    import torch
+
+    from simple_multimodal_tpu_torch.train import checkpoint
+    from simple_multimodal_tpu_torch.train import trainer as trainer_module
+
+    cli = importlib.import_module("train_advanced_torch")
+    world, writes = spec["world"], []
+    saved = checkpoint.save_checkpoint
+
+    def recorded(path, *a, **kw):
+        writes.append(os.path.basename(str(path)))
+        return saved(path, *a, **kw)
+
+    checkpoint.save_checkpoint = trainer_module.save_checkpoint = recorded
+    argv = ["--mode", "standard", "--preset", "base", "--fusion_type", "hierarchical",
+            "--batch_size", str(B), "--epochs", "1", "--mesh", f"{world},1",
+            "--data_path", spec["data"], "--save_path", os.path.join(spec["out"], "ck")]
+    record = {"ms": []}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _in_dir(os.path.join(spec["out"], "cwd")):
+            out, wall = _run_cli(cli, argv, DP_FILES_STEPS, DP_FILES_EVALS,
+                                 f"data parallel CLI world {world} rank {rank}", record=record)
+    finally:
+        checkpoint.save_checkpoint = trainer_module.save_checkpoint = saved
+    t = out["trainer"]
+    if not t.device_cached or t.mesh.shape != {"data": world, "model": 1} \
+            or t.state.step != DP_FILES_STEPS:
+        raise AssertionError(f"data parallel CLI rank {rank}: cached={t.device_cached} mesh="
+                             f"{t.mesh.shape} step={t.state.step}")
+    launches = {}
+    for counts in record["train"] + record["eval"]:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return {"writes": writes, "launches": launches, "ms": record["ms"], "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "train_losses": t.train_losses, "val_losses": t.val_losses,
+            "val_f1": t.val_f1_scores, "val_accuracy": t.val_accuracies,
+            "digest": _param_digest({n: p.detach().cpu()
+                                     for n, p in t.model.named_parameters()})}
+
+
+def _dp_rank(spec: dict) -> None:
+    """One rank of the phase's world ``spec["world"]``, started as torchrun
+    starts a rank (RANK, WORLD_SIZE, LOCAL_RANK and the rendezvous address
+    in the environment): by torchrun over NCCL, a card a rank, or (backend
+    "gloo") by the phase as two one-card nodes that share cuda:0, which
+    NCCL refuses. Joins the group through ``initialize_distributed``; runs
+    ``_dp_run`` on its rows in bf16, in bf16 with the contrastive term
+    rank-local (the planted fault: the bounds must see it) and in f32, each
+    from the seed-0 parameters and held to the parent's one-process runs
+    (``ref``); then ``_dp_cli``. Writes a JSON summary."""
+    import torch
+
+    from simple_multimodal_tpu_torch.models import fusion
+    from simple_multimodal_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                           local_device, make_mesh,
+                                                           shutdown_distributed)
+
+    rank = int(os.environ["RANK"])
+    out_path = os.path.join(spec["out"], f"rank{rank}.json")
+    try:
+        dev = local_device("cuda")
+        torch.cuda.set_device(dev)
+        set_tf32(False)
+        initialize_distributed(backend=spec["backend"])
+        try:
+            cfg = _base_config(spec["tmp"])
+            model = _dp_model(cfg, dev)
+            init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            batch = _dp_batch(cfg, dev)
+            mesh = make_mesh((spec["world"], 1), dev)
+            ref = torch.load(spec["ref"], weights_only=False, mmap=True)
+            summary = {"rank": rank, "device": str(dev)}
+            gather = fusion.gather_rows
+            torch.backends.cudnn.deterministic = True  # as the references ran
+            for run_name, dtype in (("bf16", "bf16"), ("bf16 rank-local InfoNCE", "bf16"),
+                                    ("f32", "f32")):
+                model.load_state_dict(init)
+                model.dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+                tag = f"data parallel world {spec['world']} rank {rank} {run_name}"
+                if "InfoNCE" in run_name:
+                    fusion.gather_rows = lambda x: x  # each rank's own negatives only
+                try:
+                    run = _dp_run(model, cfg, batch, mesh, tag)
+                finally:
+                    fusion.gather_rows = gather
+                faults, info = _dp_faults(run, ref[dtype], init, DP_BOUNDS[dtype], ref["travel"])
+                summary[run_name] = {"metrics": run["metrics"], "ms": run["ms"],
+                                     "peak_gib": run["peak_gib"], "faults": faults,
+                                     "info": info, "digest": _param_digest(run["params"])}
+                del run
+            del model, init, batch, ref
+            torch.cuda.empty_cache()
+            torch.backends.cudnn.deterministic = False  # the CLI as users run it
+            summary["cli"] = _dp_cli(spec, rank)
+        finally:
+            shutdown_distributed()
+        with open(out_path, "w") as f:
+            json.dump(summary, f)
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _dp_spawned(rank: int, env: dict, spec: dict) -> None:
+    os.environ.update(env, RANK=str(rank))
+    _dp_rank(spec)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_dp_world(world: int, backend, tmp: str, ref_path: str, data: str) -> list:
+    """``_dp_rank`` on ``world`` processes, their summaries in rank order:
+    with ``backend`` "gloo" two spawned processes on cuda:0 (LOCAL_RANK 0
+    each, a local rendezvous), else ``torchrun --standalone
+    --nproc_per_node=world chip_smoke.py --dp-rank`` over NCCL, a card a
+    rank. Every process is joined, or killed at DP_TIMEOUT_S."""
+    import multiprocessing
+    import signal
+
+    out = os.path.join(tmp, f"dp_{backend or 'nccl'}_{world}")
+    os.makedirs(out, exist_ok=True)
+    spec = {"world": world, "backend": backend, "tmp": tmp, "ref": ref_path, "data": data,
+            "out": out}
+    outs = [os.path.join(out, f"rank{r}.json") for r in range(world)]
+    if backend == "gloo":
+        env = {"WORLD_SIZE": str(world), "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_dp_spawned, args=(r, env, spec)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 0.0))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        codes = [p.exitcode for p in procs]
+    else:
+        launch = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={world}", os.path.abspath(__file__), "--dp-rank",
+             json.dumps(spec)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            start_new_session=True)
+        try:
+            codes = [launch.wait(timeout=DP_TIMEOUT_S)]
+        except subprocess.TimeoutExpired:
+            codes = ["timed out"]
+        finally:
+            if launch.poll() is None:
+                os.killpg(launch.pid, signal.SIGKILL)
+                launch.wait(10)
+    errors = [open(o + ".err").read() for o in outs if os.path.exists(o + ".err")]
+    if errors or any(c != 0 for c in codes):
+        raise AssertionError(f"data parallel world {world} ({backend or 'nccl'}): exit codes "
+                             f"{codes}\n" + "\n".join(errors))
+    return [json.load(open(o)) for o in outs]
+
+
+def _report_dp(results, label):
+    """Every rank's runs printed; each faithful run within its bounds of
+    world 1 with every rank's parameters bit-identical, the planted fault
+    beyond them; the CLI's epoch: launches, losses, validation and
+    parameters equal on every rank, rank 0 alone writing. Raises, after
+    printing everything, on any failure."""
+    errors = []
+    for run_name, dtype in (("bf16", "bf16"), ("bf16 rank-local InfoNCE", "bf16"),
+                            ("f32", "f32")):
+        for r in results:
+            run = r[run_name]
+            log(f"{label} {run_name} rank {r['rank']} on {r['device']}: "
+                + " ".join(f"step {i} {ms:.1f} ms loss={m['total_loss']!r} "
+                           f"grad_norm={m['grad_norm']!r}"
+                           for i, (ms, m) in enumerate(zip(run["ms"], run["metrics"])))
+                + f"; peak {run['peak_gib']:.2f} GiB; against world 1: {run['info']}")
+        faults = [f for r in results for f in r[run_name]["faults"]]
+        if "InfoNCE" in run_name:
+            if all(r[run_name]["faults"] for r in results):
+                log(f"{label} {run_name} (planted fault): beyond the bounds "
+                    f"{DP_BOUNDS[dtype]} as it must be: {faults[:3]}")
+            else:
+                errors.append(f"{run_name}: the planted fault is within the bounds "
+                              f"{DP_BOUNDS[dtype]}")
+        elif faults:
+            errors.append(f"{run_name}: {len(faults)} beyond the bounds {DP_BOUNDS[dtype]}, "
+                          f"e.g. {faults[:10]}")
+        elif len({r[run_name]["digest"] for r in results}) != 1:
+            errors.append(f"{run_name}: the ranks' parameters differ")
+        else:
+            log(f"{label} {run_name}: within the bounds {DP_BOUNDS[dtype]} of world 1; every "
+                f"rank's parameters bit-identical (sha256 "
+                f"{results[0][run_name]['digest'][:16]})")
+    for r in results:
+        c = r["cli"]
+        log(f"{label} train_advanced_torch --mesh {len(results)},1 rank {r['rank']}: launches "
+            f"{_launch_str(c['launches'])}; steps " + " ".join(f"{ms:.1f}" for ms in c["ms"])
+            + f" ms; run {c['wall_s']:.1f} s; peak {c['peak_gib']:.2f} GiB; train losses "
+            f"{c['train_losses']}; val loss {c['val_losses']} F1 {c['val_f1']}; writes "
+            f"{c['writes']}")
+    keys = ("launches", "train_losses", "val_losses", "val_f1", "val_accuracy", "digest")
+    first = results[0]["cli"]
+    differ = sorted({k for r in results[1:] for k in keys if r["cli"][k] != first[k]})
+    if differ:
+        errors.append(f"CLI: the ranks differ in {differ}")
+    elif not {"best_model", "final_model_hierarchical"} <= set(first["writes"]) \
+            or any(r["cli"]["writes"] for r in results[1:]):
+        errors.append(f"CLI: writes by rank {[r['cli']['writes'] for r in results]}")
+    else:
+        log(f"{label} CLI: launches, losses, validation and parameters equal on every rank; "
+            f"rank 0 alone wrote {first['writes']}")
+    if errors:
+        raise AssertionError(f"{label}: " + "; ".join(errors))
+
+
+@contextlib.contextmanager
+def _counted_collectives(counts: dict):
+    """Count the torch.distributed collectives called inside the block."""
+    import torch.distributed as dist
+
+    names = ("all_reduce", "broadcast", "all_gather", "barrier")
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def _log_run(label, run):
+    log(f"{label}: " + " ".join(
+        f"step {i} {ms:.1f} ms loss={m['total_loss']!r} grad_norm={m['grad_norm']!r}"
+        for i, (ms, m) in enumerate(zip(run["ms"], run["metrics"])))
+        + f"; peak {run['peak_gib']:.2f} GiB")
+
+
+def phase_data_parallel(dev, tmp: str):
+    """Phase 24, data parallelism at base width (hierarchical, B=8, dropout
+    and augmentation off, the contrastive loss on): DP_STEPS train steps and
+    a validation batch (1) in one process without a process group, in bf16
+    and in f32 (TF32 off): the references; (2) in bf16 through the
+    data-parallel path over NCCL at world 1 in this process, every
+    collective called, bit-equal to (1) (cuDNN deterministic for both);
+    (3) at world 2 on this one card (``_dp_rank``: gloo, as NCCL refuses
+    two ranks on one device; the kernels run on the card), 4 rows a rank,
+    held to (1) within DP_BOUNDS, a planted fault beyond them, then
+    ``train_advanced_torch.main --mesh 2,1`` for an epoch on phase 17's
+    files; (4) where the machine has two cards or more, the same at world
+    min(cards, 4) under torchrun over NCCL, a card a rank."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from simple_multimodal_tpu_torch.parallel.mesh import make_mesh, set_current_mesh
+    from simple_multimodal_tpu_torch.train.optim import make_schedule
+
+    t_phase = time.perf_counter()
+    data = _dp_files(tmp)
+    cfg = _base_config(tmp)
+    model = _dp_model(cfg, dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = _dp_batch(cfg, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # bit-equal runs: no cuDNN algorithm races
+    try:
+        ref = {"bf16": _dp_run(model, cfg, batch, None, "data parallel: one process bf16")}
+        _log_run("data parallel: one process bf16, no process group", ref["bf16"])
+        model.load_state_dict(init)
+        counts = {}
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_world1",
+                                world_size=1, rank=0, timeout=timedelta(seconds=300),
+                                device_id=dev)
+        try:
+            mesh = make_mesh((1, 1), dev)
+            with _counted_collectives(counts):
+                nccl = _dp_run(model, cfg, batch, mesh, "data parallel: NCCL world 1")
+        finally:
+            dist.destroy_process_group()
+            set_current_mesh(None)
+        model.load_state_dict(init)
+        model.dtype = torch.float32
+        ref["f32"] = _dp_run(model, cfg, batch, None, "data parallel: one process f32")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _log_run("data parallel: one process f32, no process group", ref["f32"])
+    want = ref["bf16"]
+    missing = [n for n in ("all_reduce", "broadcast", "all_gather", "barrier")
+               if not counts.get(n)]
+    differ = [n for n, v in want["params"].items() if not torch.equal(v, nccl["params"][n])]
+    differ += [k for k, v in want["val"].items() if not torch.equal(v, nccl["val"][k])]
+    same = nccl["metrics"] == want["metrics"] and not differ
+    log(f"data parallel: NCCL world 1 in-process bf16, collectives called {counts}: bit-equal "
+        f"to the one-process run (metrics, parameters, validation): {same}; "
+        + " ".join(f"step {i} {ms:.1f} ms" for i, ms in enumerate(nccl["ms"]))
+        + f"; peak {nccl['peak_gib']:.2f} GiB")
+    if missing or not same:
+        raise AssertionError(f"data parallel NCCL world 1: collectives not called {missing}; "
+                             f"differ: {differ[:5]}, metrics {nccl['metrics']} vs "
+                             f"{want['metrics']}")
+    del model, init, batch, nccl
+    torch.cuda.empty_cache()
+
+    schedule = make_schedule(cfg.learning_rate, 100)
+    ref_path = os.path.join(tmp, "dp_reference.pt")
+    travel = sum(schedule(c) for c in range(DP_STEPS))
+    torch.save({**{d: {k: r[k] for k in ("metrics", "params", "val")} for d, r in ref.items()},
+                "travel": travel}, ref_path)
+    del ref
+    _report_dp(_run_dp_world(2, "gloo", tmp, ref_path, data),
+               "data parallel: world 2 on one card over gloo")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(cards, DP_WORLD_MAX)
+        _report_dp(_run_dp_world(world, None, tmp, ref_path, data),
+                   f"data parallel: torchrun world {world} over NCCL, one card a rank")
+    else:
+        log(f"data parallel across cards: not run: {cards} card")
+    os.remove(ref_path)
+    log(f"data parallel phase in {time.perf_counter() - t_phase:.1f} s; {smi_line()}")
+
+
 def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
     """Device time by kernel (self time of the device-side rows), per
     repetition, and the device's busy share of the wall time."""
@@ -3261,6 +3845,9 @@ def main() -> int:
               "repository (simple_multimodal_tpu_torch not importable)",
               file=sys.stderr)
         return 2
+    if "--dp-rank" in argv:  # one rank of phase 24's torchrun launch
+        _dp_rank(json.loads(argv[argv.index("--dp-rank") + 1]))
+        return 0
     try:
         dev = torch.device("cuda", 0)
         t_start = time.perf_counter()
@@ -3268,6 +3855,10 @@ def main() -> int:
         if "--profile" in argv or "--timings" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_profile if "--profile" in argv else phase_timings)(dev, tmp)
+            return 0
+        if "--data-parallel" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                phase_data_parallel(dev, tmp)
             return 0
         phase_gemm(dev)
         phase_ffn_bwd_kernels(dev)
@@ -3293,7 +3884,7 @@ def main() -> int:
                           phase_half, phase_families_f32, phase_train_from_files,
                           phase_distillation_from_files, phase_ablation_from_files,
                           phase_all_from_files, phase_evaluate_from_files, phase_web_server,
-                          phase_weights_io):
+                          phase_weights_io, phase_data_parallel):
                 t0 = time.perf_counter()
                 phase(dev, tmp)
                 torch.cuda.empty_cache()

@@ -5,9 +5,13 @@ The reference augments per item on the host: audio gets gaussian noise
 video gets a brightness scale U[0.8, 1.2] (p=0.3) and a horizontal flip
 (p=0.5). Here the same distributions act on the whole batch on its device,
 every draw from an explicit generator, with static shapes (the time
-stretch is a fixed-size gather with masking, not a resize).
+stretch is a fixed-size gather with masking, not a resize). Under a
+data-parallel mesh every draw is the global batch's and each rank keeps its
+rows (``parallel/mesh.py::draw_rows``).
 """
 import torch
+
+from ..parallel.mesh import draw_rows
 
 
 def time_stretch(wav: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
@@ -31,11 +35,11 @@ def augment_audio(audio: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """audio f32 [B, L]: noise 0.01·N(0, 1) with p=0.3, then a time stretch
     by U[0.8, 1.2] with p=0.3, each per sample."""
     B, dev = audio.shape[0], audio.device
-    add_noise = torch.rand(B, 1, generator=gen, device=dev) < 0.3
-    noise = torch.randn(audio.shape, generator=gen, device=dev)
+    add_noise = draw_rows(torch.rand, (B, 1), generator=gen, device=dev) < 0.3
+    noise = draw_rows(torch.randn, audio.shape, generator=gen, device=dev)
     audio = torch.where(add_noise, audio + 0.01 * noise, audio)
-    do_stretch = torch.rand(B, 1, generator=gen, device=dev) < 0.3
-    factor = 0.8 + torch.rand(B, generator=gen, device=dev) * 0.4
+    do_stretch = draw_rows(torch.rand, (B, 1), generator=gen, device=dev) < 0.3
+    factor = 0.8 + draw_rows(torch.rand, (B,), generator=gen, device=dev) * 0.4
     return torch.where(do_stretch, time_stretch(audio, factor), audio)
 
 
@@ -44,10 +48,10 @@ def augment_video(video: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     [0, 1] with p=0.3, and a horizontal flip with p=0.5, per sample."""
     B, dev = video.shape[0], video.device
     shape = (B,) + (1,) * (video.dim() - 1)
-    do_bright = torch.rand(shape, generator=gen, device=dev) < 0.3
-    factor = (0.8 + torch.rand(shape, generator=gen, device=dev) * 0.4).to(video.dtype)
+    do_bright = draw_rows(torch.rand, shape, generator=gen, device=dev) < 0.3
+    factor = (0.8 + draw_rows(torch.rand, shape, generator=gen, device=dev) * 0.4).to(video.dtype)
     video = torch.where(do_bright, torch.clamp(video * factor, 0.0, 1.0), video)
-    do_flip = torch.rand(shape, generator=gen, device=dev) < 0.5
+    do_flip = draw_rows(torch.rand, shape, generator=gen, device=dev) < 0.5
     return torch.where(do_flip, video.flip(3), video)
 
 

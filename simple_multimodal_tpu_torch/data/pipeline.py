@@ -15,7 +15,13 @@ loader's batches are copied once, and each epoch gathers its rows on the
 device in the order of ``default_rng(seed + epoch).permutation``, as the
 JAX loader does.
 
-Host-only fields (``text_raw``, ``sample_ids``) stay on the host.
+``DistributedLoader`` feeds one process of a data-parallel mesh: every
+process iterates the same global batches and keeps its rows of each array
+(JAX ``DistributedLoader``); ``DeviceCachedLoader`` given a mesh gathers
+only those rows on the device.
+
+Host-only fields (``text_raw``, ``sample_ids``) stay on the host, whole:
+they name the global batch's rows.
 """
 import queue as queue_mod
 import threading
@@ -117,10 +123,13 @@ class DeviceCachedLoader:
     """Keeps the whole data set on the card across epochs: the loader's
     batches (one epoch, wrap-padded to a uniform size) are copied once;
     each epoch draws a fresh sample→batch assignment by a row gather on the
-    device, with ``default_rng(seed + epoch)`` as the JAX loader."""
+    device, with ``default_rng(seed + epoch)`` as the JAX loader. Under a
+    data-parallel ``mesh`` every rank caches the whole (small) set, draws the
+    same permutation and gathers only its rows of each global batch."""
 
-    def __init__(self, loader, device="cuda", seed: int = 0):
+    def __init__(self, loader, device="cuda", seed: int = 0, mesh=None):
         self._seed = seed
+        self._mesh = mesh
         batches = list(loader)
         if not batches:
             raise ValueError("DeviceCachedLoader needs a non-empty loader")
@@ -158,13 +167,41 @@ class DeviceCachedLoader:
         perm = rng.permutation(self._n)
         self._epoch += 1
         order = torch.from_numpy(perm).to(self.device)
+        local = slice(None) if self._mesh is None else self._mesh.rows(self.batch_size)
         for b in range(self._num_batches):
             rows = perm[b * self.batch_size:(b + 1) * self.batch_size]
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+            idx = order[b * self.batch_size:(b + 1) * self.batch_size][local]
             batch = _map_arrays(self._data, lambda x: x.index_select(0, idx))
             for k, vals in self._host.items():
                 batch[k] = [vals[int(i)] for i in rows]
             yield batch
+
+
+class DistributedLoader:
+    """One process's share of a loader that yields global batches: each
+    array cut to this rank's rows (``mesh.rows``: rows = B // d from
+    rank · rows, JAX ``pipeline.py:186-193``; a batch that the data axis does
+    not divide raises), the host fields kept whole. Every process builds the
+    same global batches (same seed, same shuffle), so no process reads
+    another's rows. Not ``DistributedSampler``: that would make the global
+    batch ``batch_size × world`` and change the number of steps."""
+
+    def __init__(self, loader, mesh):
+        self._loader = loader
+        self._mesh = mesh
+        self.dataset = getattr(loader, "dataset", None)
+
+    def __len__(self):
+        return len(self._loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self._loader, "set_epoch"):
+            self._loader.set_epoch(epoch)
+
+    def __iter__(self):
+        for batch in self._loader:
+            rows = self._mesh.rows(len(batch["emotion"]))
+            yield _map_arrays(batch, lambda x: x[rows])
 
 
 def estimate_batch_bytes(batch: Dict) -> int:

@@ -82,7 +82,8 @@ class DebertaLayer(nn.Module):
         q = linear(hidden, sa.query_proj, dtype).reshape(B, S, H, E // H)
         k = linear(hidden, sa.key_proj, dtype).reshape(B, S, H, E // H)
         v = linear(hidden, sa.value_proj, dtype).reshape(B, S, H, E // H)
-        rel_embeddings = dropout(rel_embeddings, cfg.hidden_dropout, gen, train)
+        rel_embeddings = dropout(rel_embeddings, cfg.hidden_dropout, gen, train,
+                                 batch_axis=False)  # one table, no batch axis
         pos_k = linear(rel_embeddings, sa.key_proj, dtype)  # share_att_key
         pos_q = linear(rel_embeddings, sa.query_proj, dtype)
         rate, seed = kernel_seed(gen, cfg.attention_dropout, train, dev)

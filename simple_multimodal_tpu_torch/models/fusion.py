@@ -14,6 +14,8 @@ In training mode every ``fusion_dropout`` site of the JAX modules runs
 state-dict names keep the reference's indices), the attention
 probabilities take dropout inside each MultiHeadAttention, and the GAT
 coefficients at ``graph_dropout``; masks come from the caller's generator.
+The contrastive loss takes its negatives from the global batch under a
+data-parallel mesh (``info_nce``).
 """
 from typing import Dict
 
@@ -22,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import MultiHeadAttention, dropout, layer_norm, linear
+from ..parallel.mesh import gather_rows
 
 
 class EarlyFusion(nn.Module):
@@ -169,7 +172,11 @@ class GraphFusion(nn.Module):
 
 
 def info_nce(z1: torch.Tensor, z2: torch.Tensor, temperature: float) -> torch.Tensor:
-    """Symmetric InfoNCE over in-batch pairs."""
+    """Symmetric InfoNCE over in-batch pairs. Under a data-parallel mesh the
+    negatives are the global batch, as under the JAX mesh: every rank
+    gathers all ranks' rows (``gather_rows``, the gradient reaching the rank
+    that owns each row) and computes the same global loss."""
+    z1, z2 = gather_rows(z1), gather_rows(z2)
     sim = (z1.float() @ z2.float().t()) / temperature
     labels = torch.arange(z1.shape[0], device=z1.device)
     return 0.5 * (F.cross_entropy(sim, labels) + F.cross_entropy(sim.t(), labels))

@@ -17,6 +17,7 @@ All seven fusion types are ported. ``late`` fusion has no ``classifier``
 (its logits are the fused per-modality logits) and feeds the auxiliary
 heads the mean of the three features, as in the JAX model.
 """
+import functools
 import math
 from typing import Dict, Optional, Sequence
 
@@ -26,6 +27,7 @@ import torch.nn as nn
 from ..data.video_wire import decode_video_wire
 from ..ops.adapters import AdapterLayer
 from ..ops.attention import dropout, linear, require_device, resolve_dtype
+from ..parallel.mesh import draw_rows
 from .encoders import AudioEncoder, TextEncoder, VideoEncoder
 from .fusion import (AdaptiveFusion, ContrastiveFusion, EarlyFusion, GraphFusion,
                      HierarchicalFusion, LateFusion, MultimodalTransformer)
@@ -67,9 +69,10 @@ def modality_dropout(text, audio, video, rate: float, gen: torch.Generator):
     surviving: rows where all three dropped revive one uniformly at random
     (the JAX ``ops/adapters.modality_dropout``)."""
     B, dev = text.shape[0], text.device
-    keep = torch.rand((B, 3), generator=gen, device=dev) > rate
+    keep = draw_rows(torch.rand, (B, 3), generator=gen, device=dev) > rate
     revive = torch.nn.functional.one_hot(
-        torch.randint(0, 3, (B,), generator=gen, device=dev), 3).bool()
+        draw_rows(functools.partial(torch.randint, 0, 3), (B,), generator=gen, device=dev),
+        3).bool()
     keep = torch.where(keep.any(dim=1, keepdim=True), keep, revive)
     mask = keep.to(text.dtype)
     return text * mask[:, 0:1], audio * mask[:, 1:2], video * mask[:, 2:3]

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import dropout, fused_weights, gelu, kernel_seed, layer_norm, linear
+from ..parallel.mesh import draw_rows
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
 from ..ops.hopper.wav_frontend import wav_frontend
@@ -181,7 +182,7 @@ def spec_augment_mask(B: int, S: int, prob: float, length: int,
     """SpecAugment time mask [B, S] (bool): every frame starts a span of
     ``length`` frames with probability ``prob``, spans cut at S (the JAX
     model's convolution of the starts with a ones window, 'full', first S)."""
-    starts = (torch.rand((B, S), generator=gen, device=device) < prob).to(torch.int32)
+    starts = (draw_rows(torch.rand, (B, S), generator=gen, device=device) < prob).to(torch.int32)
     run = starts.cumsum(dim=1)
     before = torch.nn.functional.pad(run, (length, 0))[:, :S]  # starts up to t - length
     return run - before > 0

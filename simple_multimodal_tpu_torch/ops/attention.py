@@ -13,6 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw_rows, kernel_seed_offset
 from .hopper.flash_attention import flash_attention
 
 FLASH_MIN_LENGTH = 512  # queries and keys beyond this go through flash_attention
@@ -64,15 +65,22 @@ def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, batch_axis: bool = True) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 − rate and
     scale it by 1/(1 − rate), the mask drawn from ``gen`` (on x's device);
-    the identity in eval mode or at rate 0. No global RNG is used."""
+    the identity in eval mode or at rate 0. No global RNG is used. x's first
+    axis is the batch (or batch-major) unless ``batch_axis`` is False: under
+    a data-parallel mesh its mask is then this rank's rows of the global
+    batch's (``parallel/mesh.py::draw_rows``)."""
     if not training or not rate:
         return x
     if gen is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    if batch_axis:
+        rand = draw_rows(torch.rand, x.shape, generator=gen, device=x.device)
+    else:
+        rand = torch.rand(x.shape, generator=gen, device=x.device)
+    keep = rand < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -81,13 +89,19 @@ def kernel_seed(gen: Optional[torch.Generator], rate: float, training: bool,
     """(rate, seed) for a fused kernel's hash dropout: an int32 [1] seed in
     [0, 2³¹ − 1) drawn from ``gen`` on the device (no host sync), as the
     JAX ``kernel_dropout_seed`` draws it; (0.0, None) in eval mode or at
-    rate 0, without a draw."""
+    rate 0, without a draw. Under a data-parallel mesh the draw is the same
+    on every rank and rank r adds r · 1000003 (int32 wrap-around), as the
+    JAX kernels do inside their ``shard_map``: the kernels hash local batch
+    indices, so no rank repeats another's masks."""
     if not training or not rate:
         return 0.0, None
     if gen is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
     seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device,
                          dtype=torch.int32)
+    offset = kernel_seed_offset()
+    if offset:
+        seed = ((seed.long() + offset + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
     return float(rate), seed
 
 

@@ -8,6 +8,16 @@ the step's generator), the composite loss, backward (through the Hopper
 kernels' backwards on CUDA), the gradient norm before clipping, and the
 optimizer update. Nothing syncs with the host: the metrics stay tensors.
 ``make_fewshot_step`` is the prototypical episode's step.
+
+Under a data-parallel mesh (``parallel/mesh.py``) the batch holds this
+rank's rows of the global batch and the step computes what the
+single-process step computes on the whole batch, as under the JAX mesh:
+the step's generators are the same on every rank, every draw with a batch
+axis is the global batch's (this rank's rows kept), the contrastive loss
+takes the global batch's negatives, the gradients are averaged over the
+ranks (one all-reduce of their concatenation) before the norm, the clip and
+the update, and the reported loss parts are the global batch's. Without a
+process group none of that adds a collective or a larger draw.
 """
 from typing import Callable, Dict, Optional, Sequence
 
@@ -15,6 +25,7 @@ import torch
 
 from ..data.augment import augment_batch
 from ..data.video_wire import decode_video_wire
+from ..parallel.mesh import Mesh, use_mesh
 from .losses import cross_entropy, total_loss
 from .optim import AdamWChain, global_norm
 from .state import TrainState
@@ -33,15 +44,21 @@ def _device_generators(state: TrainState, device, n: int):
 def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
                     compute_contrastive_loss: bool = True,
                     logits_key: str = "emotion_logits",
-                    missing_modality_rate: float = 0.0) -> Callable:
+                    missing_modality_rate: float = 0.0,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """(state, batch) → (state, metrics) over ``model`` (on its device) and
     ``optimizer`` (made over the model's parameters). ``missing_modality_rate``
     > 0 zeroes each modality of the whole batch with that probability, the
-    robustness trainer's scenario draw."""
+    robustness trainer's scenario draw. ``mesh``: the data-parallel mesh the
+    step runs under (None: one process, the whole batch)."""
     del config  # the JAX step reads only the compute dtype from it; the model holds it
     compute_dtype = model.dtype
 
     def step(state: TrainState, batch: Dict):
+        with use_mesh(mesh):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: Dict):
         device = next(model.parameters()).device
         g_aug, g_drop, g_miss = _device_generators(state, device, 3)
         audio = batch["audio"]
@@ -61,8 +78,10 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
                         gen=g_drop)
         loss, parts = total_loss(outputs, batch["emotion"], label_smoothing=0.1,
                                  logits_key=logits_key)
-        grads = _backward(loss, optimizer)
+        grads = _backward(loss, optimizer, mesh)
         parts = {k: v.detach() for k, v in parts.items()}
+        if mesh is not None:
+            mesh.all_reduce_mean_(parts.values())
         parts["grad_norm"] = global_norm([g for g in grads if g is not None])
         optimizer.update(grads)
         return TrainState(step=state.step + 1, generator=state.generator), parts
@@ -70,15 +89,18 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
     return step
 
 
-def _backward(loss: torch.Tensor, optimizer: AdamWChain) -> list:
+def _backward(loss: torch.Tensor, optimizer: AdamWChain, mesh: Optional[Mesh] = None) -> list:
     """The gradients of ``loss`` for the optimizer's parameters (None where
-    none reaches one), leaving no ``.grad`` behind."""
+    none reaches one; the same on every rank, whose graphs are the same),
+    averaged over the mesh's ranks, leaving no ``.grad`` behind."""
     for p in optimizer.params:
         p.grad = None
     loss.backward()
     grads = [p.grad for p in optimizer.params]
     for p in optimizer.params:
         p.grad = None
+    if mesh is not None:
+        mesh.all_reduce_mean_(grads)
     return grads
 
 
@@ -89,9 +111,14 @@ def make_fewshot_step(model, optimizer: AdamWChain, n_way: int, n_shot: int) -> 
     probabilities, not logits, without label smoothing (the reference's
     quirk, kept as the JAX step keeps it). ``support`` holds n_way · n_shot
     clips ordered by class; both batches are dicts with text, audio, video
-    and (query) emotion."""
+    and (query) emotion. The episode is whole on every process: it runs
+    under no mesh, as the JAX few-shot trainer makes none."""
 
     def step(state: TrainState, support: Dict, query: Dict):
+        with use_mesh(None):
+            return _step(state, support, query)
+
+    def _step(state: TrainState, support: Dict, query: Dict):
         device = next(model.parameters()).device
         (g_drop,) = _device_generators(state, device, 1)
         model.train()

@@ -20,6 +20,19 @@ Batches reach the device through ``data/pipeline.py``: a data set that
 fits ``device_data_cache_mb`` stays on the card (``DeviceCachedLoader``),
 else a producer thread prefetches. The plots need matplotlib; without it
 the trainer prints one line and writes no PNG.
+
+Data parallelism (JAX ``trainer.py:88-105, 128-137, 177-185, 254-256``):
+``AdvancedTrainer`` makes the mesh of ``config.mesh_shape`` (one process a
+data shard, ``parallel/mesh.py``), broadcasts rank 0's parameters, feeds
+each rank its rows of every global batch (``DistributedLoader``, or the
+device cache's row gather) and steps with the gradients averaged over the
+ranks. Validation and test predictions are gathered from every rank before
+the metrics, and the validation loss is averaged over the ranks, so every
+rank takes the same best-model and early-stopping decisions. Rank 0 alone
+prints the epochs and writes checkpoints, ``best_model/`` and plots, the
+others waiting at a barrier after each write. ``RobustnessTrainer`` and the
+distillation trainer inherit this; ``FewShotTrainer`` ignores the mesh, as
+the JAX one does.
 """
 import time
 from pathlib import Path
@@ -28,9 +41,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..data.pipeline import (DeviceCachedLoader, estimate_batch_bytes, prefetch_to_device,
-                             to_device)
+from ..data.pipeline import (DeviceCachedLoader, DistributedLoader, estimate_batch_bytes,
+                             prefetch_to_device, to_device)
 from ..eval.metrics import accuracy_f1, classification_report, confusion_matrix
+from ..parallel.mesh import make_mesh, replicated
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .optim import (TRAINABLE_MARKERS, freeze, is_trainable_name, make_optimizer,
                     make_trainable_only_optimizer)
@@ -83,7 +97,10 @@ class AdvancedTrainer:
         self.test_loader = test_loader
         self.model_type = model_type
         self.num_params = sum(p.numel() for p in model.parameters())
+        self.mesh = make_mesh(getattr(config, "mesh_shape", (1, 1)), self.device)
+        replicated(model, self.mesh)
 
+        # the loaders yield global batches: OneCycle counts global steps
         total_steps = max(len(train_loader) * config.num_epochs, 2)
         self.optimizer = make_optimizer(config, model, total_steps)
         self.state = TrainState.create(seed)
@@ -93,12 +110,12 @@ class AdvancedTrainer:
             epoch = payload["meta"].get("epoch")
             if epoch is not None:
                 self.start_epoch = int(epoch) + 1
-            print(f"Resumed from {resume_from} at step {self.state.step} "
-                  f"(epoch {self.start_epoch})")
+            self._log(f"Resumed from {resume_from} at step {self.state.step} "
+                      f"(epoch {self.start_epoch})")
 
         augment = getattr(train_loader.dataset, "augment", False)
         self.train_step = make_train_step(model, self.optimizer, config, augment=augment,
-                                          compute_contrastive_loss=True)
+                                          compute_contrastive_loss=True, mesh=self.mesh)
         self.eval_step = make_eval_step(model)
 
         self.current_epoch = 0
@@ -119,12 +136,15 @@ class AdvancedTrainer:
             total = per_batch * (len(train_loader) + len(val_loader)
                                  + (len(test_loader) if test_loader else 0))
             if total <= budget:
-                print(f"Device-caching dataset ({total / 1e6:.0f} MB)")
-                self.train_loader = DeviceCachedLoader(train_loader, self.device, seed=seed)
-                self.val_loader = DeviceCachedLoader(val_loader, self.device, seed=seed)
-                if test_loader:
-                    self.test_loader = DeviceCachedLoader(test_loader, self.device, seed=seed)
+                self._log(f"Device-caching dataset ({total / 1e6:.0f} MB)")
+                self.train_loader, self.val_loader, self.test_loader = (
+                    DeviceCachedLoader(loader, self.device, seed=seed, mesh=self.mesh)
+                    if loader else loader for loader in (train_loader, val_loader, test_loader))
                 self.device_cached = True
+        if self.mesh.size > 1 and not self.device_cached:
+            self.train_loader, self.val_loader, self.test_loader = (
+                DistributedLoader(loader, self.mesh) if loader else loader
+                for loader in (train_loader, val_loader, test_loader))
 
         self.patience = getattr(config, "patience", 10)
         self.patience_counter = 0
@@ -133,6 +153,10 @@ class AdvancedTrainer:
         self.eager_best_checkpoint = bool(getattr(config, "eager_best_checkpoint", False))
         self._best_snapshot = None
         self._best_written = False
+
+    def _log(self, *args) -> None:
+        if self.mesh.rank == 0:
+            print(*args)
 
     # ------------------------------------------------------------------ train
     def _iter(self, loader):
@@ -158,14 +182,17 @@ class AdvancedTrainer:
 
     def _predict(self, loader, step, with_loss: bool = False):
         """(predictions, targets, probs, sample ids, mean loss) over a loader,
-        the device results fetched once."""
+        the device results fetched once; under a mesh every rank's rows,
+        gathered in the global batches' order, and the loss averaged over the
+        ranks."""
+        gather = self.mesh.gather
         preds, targets, probs, ids = [], [], [], []
         loss, batches = None, 0
         for batch in self._iter(loader):
             out = step(device_batch(batch))
-            preds.append(out["predictions"])
-            targets.append(batch["emotion"])
-            probs.append(out["probs"].float())
+            preds.append(gather(out["predictions"]))
+            targets.append(gather(batch["emotion"]))
+            probs.append(gather(out["probs"].float()))
             ids.extend(batch["sample_ids"])
             if with_loss:
                 loss = out["loss"] if loss is None else loss + out["loss"]
@@ -175,7 +202,11 @@ class AdvancedTrainer:
         preds = torch.cat(preds).cpu().numpy()
         targets = torch.cat(targets).cpu().numpy()
         probs = torch.cat(probs).cpu().numpy()
-        mean_loss = float(loss) / batches if with_loss else 0.0
+        mean_loss = 0.0
+        if with_loss:
+            loss = loss.float().reshape(1)
+            self.mesh.all_reduce_mean_([loss])
+            mean_loss = float(loss) / batches
         return preds, targets, probs, ids, mean_loss
 
     def validate(self):
@@ -201,8 +232,8 @@ class AdvancedTrainer:
     def train(self) -> Dict[str, List[float]]:
         name = (torch.cuda.get_device_name(self.device) if self.device.type == "cuda"
                 else "cpu")
-        print(f"Starting training on {self.device} ({name})")
-        print(f"Model parameters: {self.num_params:,}")
+        self._log(f"Starting training on {self.device} ({name}, mesh {self.mesh.shape})")
+        self._log(f"Model parameters: {self.num_params:,}")
 
         for epoch in range(self.start_epoch, self.config.num_epochs):
             self.current_epoch = epoch
@@ -217,12 +248,12 @@ class AdvancedTrainer:
             self.val_f1_scores.append(val_metrics["val_f1_macro"])
             self.lr_history.append(self.current_lr())
 
-            print(f"\nEpoch {epoch + 1}/{self.config.num_epochs} "
-                  f"({self.epoch_times[-1]:.1f}s)")
-            print(f"Train Loss: {self.train_losses[-1]:.4f}")
-            print(f"Val Loss: {val_metrics['val_loss']:.4f}")
-            print(f"Val Accuracy: {val_metrics['val_accuracy']:.4f}")
-            print(f"Val F1 (Macro): {val_metrics['val_f1_macro']:.4f}")
+            self._log(f"\nEpoch {epoch + 1}/{self.config.num_epochs} "
+                      f"({self.epoch_times[-1]:.1f}s)")
+            self._log(f"Train Loss: {self.train_losses[-1]:.4f}")
+            self._log(f"Val Loss: {val_metrics['val_loss']:.4f}")
+            self._log(f"Val Accuracy: {val_metrics['val_accuracy']:.4f}")
+            self._log(f"Val F1 (Macro): {val_metrics['val_f1_macro']:.4f}")
 
             improved = val_metrics["val_f1_macro"] > self.best_val_f1
             # the best model is written at least once even when val F1
@@ -247,7 +278,7 @@ class AdvancedTrainer:
                 self.patience_counter += 1
 
             if self.patience_counter >= self.patience:
-                print(f"Early stopping at epoch {epoch + 1}")
+                self._log(f"Early stopping at epoch {epoch + 1}")
                 break
 
             if (epoch + 1) % 10 == 0:
@@ -256,15 +287,16 @@ class AdvancedTrainer:
         if self._best_snapshot is not None:
             best_epoch, best_metrics, best_params = self._best_snapshot
             path = Path(self.config.save_path) / "best_model"
-            save_checkpoint(str(path), state=self.state, metrics=best_metrics,
-                            epoch=best_epoch, config=self.config, state_dict=best_params)
-            print(f"Checkpoint saved: {path} (best epoch {best_epoch + 1})")
+            self.mesh.on_rank0(lambda: save_checkpoint(
+                str(path), state=self.state, metrics=best_metrics, epoch=best_epoch,
+                config=self.config, state_dict=best_params))
+            self._log(f"Checkpoint saved: {path} (best epoch {best_epoch + 1})")
 
         if self.test_loader:
             test_metrics = self.evaluate_test_set()
-            print("\nFinal Test Results:")
-            print(f"Test Accuracy: {test_metrics['test_accuracy']:.4f}")
-            print(f"Test F1 (Macro): {test_metrics['test_f1_macro']:.4f}")
+            self._log("\nFinal Test Results:")
+            self._log(f"Test Accuracy: {test_metrics['test_accuracy']:.4f}")
+            self._log(f"Test F1 (Macro): {test_metrics['test_f1_macro']:.4f}")
 
         self.plot_training_curves()
         return {
@@ -289,12 +321,16 @@ class AdvancedTrainer:
     # ------------------------------------------------------------- checkpoint
     def save_checkpoint(self, filename: str, epoch: int, metrics: Dict):
         path = Path(self.config.save_path) / filename
-        save_checkpoint(str(path), self.model, self.state, self.optimizer, metrics=metrics,
-                        epoch=epoch, config=self.config)
-        print(f"Checkpoint saved: {path}")
+        self.mesh.on_rank0(lambda: save_checkpoint(
+            str(path), self.model, self.state, self.optimizer, metrics=metrics, epoch=epoch,
+            config=self.config))
+        self._log(f"Checkpoint saved: {path}")
 
     # ------------------------------------------------------------------ plots
     def plot_confusion_matrix(self, targets, predictions, epoch: int):
+        self.mesh.on_rank0(lambda: self._plot_confusion_matrix(targets, predictions, epoch))
+
+    def _plot_confusion_matrix(self, targets, predictions, epoch: int):
         plt = _pyplot()
         if plt is None:
             return
@@ -317,6 +353,9 @@ class AdvancedTrainer:
         plt.close(fig)
 
     def plot_training_curves(self):
+        self.mesh.on_rank0(self._plot_training_curves)
+
+    def _plot_training_curves(self):
         plt = _pyplot()
         if plt is None:
             return
@@ -401,7 +440,7 @@ class RobustnessTrainer(AdvancedTrainer):
         # each modality of a batch zeroed with probability 0.3
         self.robust_train_step = make_train_step(
             model, self.optimizer, config, augment=False, compute_contrastive_loss=False,
-            logits_key=self._robust_logits_key, missing_modality_rate=0.3)
+            logits_key=self._robust_logits_key, missing_modality_rate=0.3, mesh=self.mesh)
 
     def train_with_missing_modalities(self) -> Dict[str, float]:
         total, n = None, 0

@@ -752,3 +752,65 @@ def test_device_cached_loader_gathers_on_the_card(cuda):
             assert got["sample_ids"] == rows.tolist()
             assert got["audio"].device.type == "cuda"
             np.testing.assert_array_equal(got["audio"].cpu().numpy(), audio[rows])
+
+
+def test_nccl_world_1_steps_are_bit_equal_to_steps_without_a_group(cuda, tmp_path):
+    """Two train steps of the tiny hierarchical model in f32 (dropout off:
+    eval mode, gradients on; the contrastive loss on) through the
+    data-parallel path over NCCL at world 1, where the parameter broadcast,
+    the gradient and loss all-reduces and the contrastive all-gathers all
+    run, are bit-equal to the same steps in a process with no group."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from simple_multimodal_tpu_torch.parallel.mesh import make_mesh, replicated, set_current_mesh
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    cfg = ModelConfig(encoder_preset="tiny", text_max_length=16, audio_max_length=3200,
+                      video_max_frames=4, video_frame_size=(32, 32), fusion_hidden_size=32,
+                      fusion_num_heads=4, graph_hidden_size=16,
+                      data_path=str(tmp_path / "d"), save_path=str(tmp_path / "c"),
+                      log_path=str(tmp_path / "l"))
+    cfg.fusion_type = "hierarchical"
+    gen = torch.Generator().manual_seed(1)
+    batch = {"text": {"input_ids": torch.randint(1, 1000, (4, 16), generator=gen).to(cuda),
+                      "attention_mask": torch.ones(4, 16, dtype=torch.int32, device=cuda)},
+             "audio": torch.randn(4, 3200, generator=gen).to(cuda),
+             "video": torch.randint(0, 256, (4, 4, 32, 32, 3), generator=gen,
+                                    dtype=torch.uint8).to(cuda),
+             "emotion": torch.tensor([2, 6, 0, 3], device=cuda)}
+
+    def run(mesh):
+        model = create_model(cfg, device=cuda, dtype=torch.float32,
+                             generator=torch.Generator().manual_seed(0))
+        model.eval()
+        model.train = lambda mode=True: model
+        if mesh is not None:
+            replicated(model, mesh)
+        opt = make_optimizer(cfg, model, total_steps=10)
+        step = make_train_step(model, opt, cfg, compute_contrastive_loss=True, mesh=mesh)
+        state, metrics = TrainState.create(0), []
+        for _ in range(2):
+            state, parts = step(state, batch)
+            metrics.append({k: float(v) for k, v in parts.items()})
+        return metrics, {k: v.cpu() for k, v in model.state_dict().items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = run(None)
+        dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", world_size=1,
+                                rank=0, timeout=timedelta(seconds=120),
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            got = run(make_mesh((1, 1), cuda))
+        finally:
+            dist.destroy_process_group()
+            set_current_mesh(None)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got[0] == want[0]
+    for name, v in want[1].items():
+        assert torch.equal(got[1][name], v), name

@@ -3,14 +3,28 @@
 
 Takes ``train_advanced.py``'s flags: ``--mode``, ``--fusion_type``, the
 paths, batch size, epochs, learning rate, seed, wandb, ``--preset``,
-``--episodes``, ``--few_shot_samples``, ``--resume``, ``--dataset``. The
-JAX package's TPU-only flags (``--mesh``, ``--flash_attention``,
+``--episodes``, ``--few_shot_samples``, ``--resume``, ``--dataset``,
+``--mesh``. The JAX package's TPU-only flags (``--flash_attention``,
 ``--flash_attention_train``, ``--remat``) are accepted and written to
 ``final_config.json`` unread.
 
 Runs on the card: ``--device`` defaults to ``cuda``; ``auto`` means
 ``cuda`` too, and both raise without a CUDA device. ``--device cpu`` runs
 on the CPU (bf16 compute on the card, f32 on the CPU).
+
+``--mesh d,1`` trains data-parallel over d processes, one a card, launched
+by ``torchrun`` (NCCL on the cards, gloo with ``--device cpu``):
+``--batch_size`` stays the global batch, each process takes its rows, the
+gradients are averaged over the processes and the schedule counts global
+steps, so the run trains the same model, step for step, as ``--mesh 1,1``
+on one card. Under ``torchrun``, ``--device cuda`` is ``cuda:LOCAL_RANK``
+and rank 0 alone writes checkpoints and reports. ``d`` must equal the
+number of processes; a ``model`` axis above 1 is not ported yet and raises
+``NotImplementedError``. Without ``torchrun``, ``--mesh 1,1`` (the default)
+is one process on one card::
+
+    torchrun --standalone --nproc_per_node=8 train_advanced_torch.py --mesh 8,1 \\
+        --data_path data/sample --preset base --batch_size 16 --epochs 2
 
 Every mode of ``train_advanced.py`` runs: ``standard``, ``few_shot``,
 ``distillation`` (the teacher from a port checkpoint directory given by
@@ -53,14 +67,18 @@ def set_seed(seed: int = 42) -> None:
 
 def resolve_device(name: str):
     """The device of ``--device``: 'cuda' and 'auto' need a CUDA device and
-    raise without one; 'cpu' only on request."""
+    raise without one (under ``torchrun``: this process's card,
+    ``cuda:LOCAL_RANK``); 'cpu' only on request."""
     import torch
+    import torch.distributed as dist
+
+    from simple_multimodal_tpu_torch.parallel.mesh import local_device
 
     device = torch.device("cuda" if name in ("auto", "cuda") else name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"train_advanced_torch: --device {name} needs a CUDA device and "
                            "none is available; pass --device cpu to train on the CPU")
-    return device
+    return local_device(device) if dist.is_initialized() else device
 
 
 def load_datasets(data_config: DataConfig, model_config: ModelConfig,
@@ -115,8 +133,9 @@ def train_standard_model(model_config: ModelConfig, data_config: DataConfig, dev
     )
     trainer.train()
     model_path = Path(model_config.save_path) / f"final_model_{fusion_type}"
-    save_checkpoint(str(model_path), model, trainer.state, trainer.optimizer, metrics={},
-                    epoch=trainer.current_epoch, config=model_config)
+    trainer.mesh.on_rank0(lambda: save_checkpoint(
+        str(model_path), model, trainer.state, trainer.optimizer, metrics={},
+        epoch=trainer.current_epoch, config=model_config))
     print(f"Model saved to: {model_path}")
     return str(model_path), trainer
 
@@ -212,8 +231,9 @@ def train_robust_model(model_config: ModelConfig, data_config: DataConfig,
     for scenario, m in results.items():
         print(f"{scenario}: Accuracy={m['accuracy']:.3f}, F1={m['f1_macro']:.3f}")
     robust_path = Path(model_config.save_path) / "robust_model"
-    save_checkpoint(str(robust_path), robust_model, trainer.state, trainer.optimizer,
-                    metrics={}, epoch=trainer.current_epoch, config=model_config)
+    trainer.mesh.on_rank0(lambda: save_checkpoint(
+        str(robust_path), robust_model, trainer.state, trainer.optimizer, metrics={},
+        epoch=trainer.current_epoch, config=model_config))
     return results
 
 
@@ -251,7 +271,7 @@ def train_knowledge_distillation(model_config: ModelConfig, data_config: DataCon
     )
     trainer.train()
     student_path = Path(model_config.save_path) / "distilled_student_model"
-    save_params(str(student_path), model.student)
+    trainer.mesh.on_rank0(lambda: save_params(str(student_path), model.student))
     print(f"Distilled model saved to: {student_path}")
     return str(student_path), trainer
 
@@ -366,7 +386,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["tiny", "half", "base"],
                         help="Encoder backbone scale")
     parser.add_argument("--mesh", type=str, default="1,1",
-                        help="JAX device mesh 'data,model': recorded, not read")
+                        help="Mesh 'data,model': data = the number of processes "
+                             "(torchrun --nproc_per_node), one a card; model must be 1")
     parser.add_argument("--episodes", type=int, default=100,
                         help="Few-shot episodes per n_shot")
     parser.add_argument("--few_shot_samples", type=int, nargs="+", default=None,
@@ -390,6 +411,12 @@ def main(argv=None) -> Dict:
     if args.mode == "distillation" and not args.teacher_model:
         print("Error: Teacher model path required for distillation")
         return {"mode": args.mode}
+    from simple_multimodal_tpu_torch.parallel.mesh import (initialize_distributed, mesh_axes,
+                                                           process_index)
+
+    mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+    initialize_distributed(device="cpu" if args.device == "cpu" else "cuda")
+    mesh_axes(mesh_shape)  # raises before any data loads on a shape the processes do not make
     device = resolve_device(args.device)
     set_seed(args.seed)
 
@@ -401,7 +428,7 @@ def main(argv=None) -> Dict:
     model_config.use_wandb = args.use_wandb
     model_config.fusion_type = args.fusion_type
     model_config.encoder_preset = args.preset
-    model_config.mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+    model_config.mesh_shape = mesh_shape
     model_config.flash_attention = args.flash_attention
     model_config.flash_attention_train = args.flash_attention_train
     model_config.remat_encoders = ("auto" if args.remat == "auto" else args.remat == "1")
@@ -447,15 +474,21 @@ def main(argv=None) -> Dict:
         result.update(results=results, errors=errors)
 
     config_save_path = Path(args.save_path) / "final_config.json"
-    with open(config_save_path, "w") as f:
-        json.dump({
-            "model_config": config_to_dict(model_config),
-            "data_config": config_to_dict(data_config),
-            "experiment_config": config_to_dict(experiment_config),
-        }, f, indent=2)
-    print(f"Configuration saved to: {config_save_path}")
+    if process_index() == 0:
+        with open(config_save_path, "w") as f:
+            json.dump({
+                "model_config": config_to_dict(model_config),
+                "data_config": config_to_dict(data_config),
+                "experiment_config": config_to_dict(experiment_config),
+            }, f, indent=2)
+        print(f"Configuration saved to: {config_save_path}")
     return result
 
 
 if __name__ == "__main__":
-    main()
+    from simple_multimodal_tpu_torch.parallel.mesh import shutdown_distributed
+
+    try:
+        main()
+    finally:
+        shutdown_distributed()
