@@ -177,7 +177,33 @@ Needs one NVIDIA H100 (sm_90a) and nvcc. Phases, each ending in
     and parameters equal on every rank, rank 0 alone writing
     ``best_model/`` and ``final_model_hierarchical/``; each rank's ms/step
     and peak memory printed. ``python3 chip_smoke.py --data-parallel`` runs
-    the build and this phase alone (the four-card call).
+    the build and this phase alone (the four-card call);
+25. tensor parallel (``parallel/tensor.py``, the mesh's model axis): first
+    ``deberta_attention`` at the per-rank shapes of a model axis of 2 and 4
+    ([8,512,6,64] and [8,512,3,64], bf16, tables [512, 384] and [512, 192])
+    with hash dropout 0.1 seeded as ``kernel_seed(model_axis=True)`` seeds
+    shard (1, 1) of a (2, 2) mesh, forward and backward against the plain
+    version (bf16 bounds of phases 2 and 3), timed; then the base
+    hierarchical model, B=8, dropout and augmentation off, the contrastive
+    loss on, in one process without a process group in bf16 and f32 (TF32
+    off, cuDNN deterministic): eval logits, two train steps and a validation
+    batch (the references); at mesh (1, 2) on this one card, two processes
+    started as torchrun starts a rank and joined by
+    ``initialize_distributed`` over gloo, each holding its shards of the
+    parameters and Adam moments and taking the whole batch: in bf16 and
+    f32 the eval logits (f32 within 1e-4; bf16 their probabilities within
+    2^-5, phase 24's bound) and the two steps and the validation batch held to the
+    references (``DP_BOUNDS``), every step and batch launching 23/35/12 both
+    ways, the replicated parameters bit-identical on both ranks after each
+    step; one bf16 step with each planted fault (the gathered weights'
+    gradients summed over the model group; the clip norm over local shards),
+    which must fail those bounds; the collectives called; then
+    ``train_advanced_torch.main --mesh 1,2 --epochs 1`` on 17's files on
+    both ranks, as phase 24's CLI, and the saved model loaded into this
+    process giving the ranks' logits. Where there are four cards or more,
+    the same at mesh (2, 2) under ``torchrun`` over NCCL, a card a rank.
+    ``python3 chip_smoke.py --tensor-parallel`` runs the build and this
+    phase alone.
 
 Phases 2 and 3 also run the half preset's widths: attention_block at
 [240,197,384] and [8,499,384] (6 heads), ffn_block at E 384 / F 1536
@@ -261,6 +287,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2763,26 +2790,32 @@ def _dp_batch(cfg, dev):
     return _train_batch(np.random.default_rng(13), cfg, dev)
 
 
-def _dp_run(model, cfg, batch, mesh, tag):
-    """DP_STEPS train steps (augmentation and dropout off, the contrastive
-    loss on) on this rank's rows of ``batch`` and one validation batch
-    through the data-parallel path under ``mesh`` (None: one process, no
-    mesh), in the model's compute dtype: the eval step's predictions,
-    probabilities and loss gathered or averaged over the ranks as the
-    trainer's ``_predict`` does. Every step and the validation batch with the
-    counters set to 0 just before and read just after. Returns a dict:
-    per-step metrics, the parameters after the steps (host), the validation
-    outputs, host ms per step, peak device GiB."""
+def _dp_run(model, cfg, batch, mesh, tag, steps=DP_STEPS, validate=True):
+    """``steps`` train steps (augmentation and dropout off, the contrastive
+    loss on) on this rank's rows of ``batch`` and (``validate``) one
+    validation batch through the mesh's path under ``mesh`` (None: one
+    process, no mesh), in the model's compute dtype: the eval step's
+    predictions, probabilities and loss gathered or averaged over the data
+    shards as the trainer's ``_predict`` does. Under a model axis the model
+    comes sharded (``shard_module``, every rank from the same seed); else it
+    is broadcast from rank 0 here. Every step and the validation batch with
+    the counters set to 0 just before and read just after. Returns a dict:
+    per-step metrics, the whole parameters after the steps (host), the
+    digest of this rank's replicated parameters after each step (model axis
+    only), the validation outputs, host ms per step, peak device GiB."""
     import torch
 
     from simple_multimodal_tpu_torch.ops import hopper
     from simple_multimodal_tpu_torch.parallel.mesh import replicated
+    from simple_multimodal_tpu_torch.parallel.tensor import gather_state_dict, placement
     from simple_multimodal_tpu_torch.train.optim import make_optimizer
     from simple_multimodal_tpu_torch.train.state import TrainState
     from simple_multimodal_tpu_torch.train.steps import make_eval_step, make_train_step
 
+    sharded = mesh is not None and mesh.model > 1
     if mesh is not None:
-        replicated(model, mesh)
+        if not sharded:
+            replicated(model, mesh)
         rows = mesh.rows(B)
         batch = {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict)
                      else v[rows]) for k, v in batch.items()}
@@ -2790,9 +2823,9 @@ def _dp_run(model, cfg, batch, mesh, tag):
     step = make_train_step(model, opt, cfg, augment=False, compute_contrastive_loss=True,
                            mesh=mesh)
     state = TrainState.create(0)
-    metrics, times = [], []
+    metrics, times, digests = [], [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(DP_STEPS):
+    for i in range(steps):
         sync()
         hopper.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2801,6 +2834,15 @@ def _dp_run(model, cfg, batch, mesh, tag):
         times.append((time.perf_counter() - t0) * 1e3)
         _expect(f"{tag} step {i}", hopper.launch_counts(), TRAIN_LAUNCHES)
         metrics.append({k: float(v) for k, v in parts.items()})
+        if sharded:
+            digests.append(_param_digest({n: p.detach().cpu() for n, p in model.named_parameters()
+                                          if placement(p) is None}))
+    run = {"metrics": metrics, "ms": times, "digests": digests,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": {n: p.detach().cpu() for n, p in gather_state_dict(
+               dict(model.named_parameters()), mesh).items()}}
+    if not validate:
+        return run
     hopper.reset_launch_counts()
     out = make_eval_step(model)(batch)
     gather = (lambda t: t) if mesh is None else mesh.gather
@@ -2808,13 +2850,11 @@ def _dp_run(model, cfg, batch, mesh, tag):
     if mesh is not None:
         mesh.all_reduce_mean_([loss])
         mesh.barrier()  # where the trainer's rank-0 writes wait
-    val = {"predictions": gather(out["predictions"]).cpu(),
-           "probs": gather(out["probs"].float()).cpu(), "loss": loss.cpu()}
+    run["val"] = {"predictions": gather(out["predictions"]).cpu(),
+                  "probs": gather(out["probs"].float()).cpu(), "loss": loss.cpu()}
     sync()
     _expect(f"{tag} validation batch", hopper.launch_counts(), EXPECTED_LAUNCHES)
-    return {"metrics": metrics, "val": val, "ms": times,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+    return run
 
 
 def _dp_faults(run, ref, init, bounds, travel):
@@ -2870,12 +2910,14 @@ def _dp_faults(run, ref, init, bounds, travel):
             faults.append(f"{sum(strays.values())} elements beyond the f32 bound, "
                           f"more than {DP_F32_STRAYS}")
     order = sorted(updates.items(), key=lambda kv: -kv[1])
-    probs_err = float((run["val"]["probs"] - ref["val"]["probs"]).abs().max())
-    same_predictions = torch.equal(run["val"]["predictions"], ref["val"]["predictions"])
-    if probs_err > bounds["probs"]:
-        faults.append(f"validation probabilities {probs_err:.3e} apart")
-    if bounds["predictions"] and not same_predictions:
-        faults.append("validation predictions differ")
+    probs_err, same_predictions = None, None
+    if "val" in run:
+        probs_err = float((run["val"]["probs"] - ref["val"]["probs"]).abs().max())
+        same_predictions = torch.equal(run["val"]["predictions"], ref["val"]["predictions"])
+        if probs_err > bounds["probs"]:
+            faults.append(f"validation probabilities {probs_err:.3e} apart")
+        if bounds["predictions"] and not same_predictions:
+            faults.append("validation predictions differ")
     info = {"loss_rel": worst["loss"], "grad_norm_rel": worst["grad_norm"],
             "first_step": {k: abs(run["metrics"][0][k] - ref["metrics"][0][k])
                            / abs(ref["metrics"][0][k]) for k in ("total_loss", "grad_norm")},
@@ -2918,19 +2960,24 @@ def _dp_files(tmp: str) -> str:
 def _dp_cli(spec: dict, rank: int) -> dict:
     """The user's entry point on this rank: ``train_advanced_torch.main``
     with ``--mode standard --preset base --fusion_type hierarchical
-    --batch_size 8 --epochs 1 --mesh W,1`` on phase 17's files, every train
+    --batch_size 8 --epochs 1 --mesh D,M`` on phase 17's files, every train
     step and eval batch held to its launches (``_run_cli``), the set cached
     on the card under the mesh (``DeviceCachedLoader(mesh=)``), the
-    checkpoint writes recorded."""
+    checkpoint writes recorded. Under a model axis also the trained model's
+    logits of the phase's batch (the global batch's, gathered over the data
+    shards), which the parent holds against the saved model in one process."""
     import importlib
 
     import torch
 
+    from simple_multimodal_tpu_torch.parallel.tensor import gather_state_dict
     from simple_multimodal_tpu_torch.train import checkpoint
     from simple_multimodal_tpu_torch.train import trainer as trainer_module
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step
 
     cli = importlib.import_module("train_advanced_torch")
-    world, writes = spec["world"], []
+    world, m, writes = spec["world"], spec.get("model", 1), []
+    d = world // m
     saved = checkpoint.save_checkpoint
 
     def recorded(path, *a, **kw):
@@ -2939,31 +2986,39 @@ def _dp_cli(spec: dict, rank: int) -> dict:
 
     checkpoint.save_checkpoint = trainer_module.save_checkpoint = recorded
     argv = ["--mode", "standard", "--preset", "base", "--fusion_type", "hierarchical",
-            "--batch_size", str(B), "--epochs", "1", "--mesh", f"{world},1",
+            "--batch_size", str(B), "--epochs", "1", "--mesh", f"{d},{m}",
             "--data_path", spec["data"], "--save_path", os.path.join(spec["out"], "ck")]
     record = {"ms": []}
     torch.cuda.reset_peak_memory_stats()
     try:
         with _in_dir(os.path.join(spec["out"], "cwd")):
             out, wall = _run_cli(cli, argv, DP_FILES_STEPS, DP_FILES_EVALS,
-                                 f"data parallel CLI world {world} rank {rank}", record=record)
+                                 f"mesh ({d}, {m}) CLI rank {rank}", record=record)
     finally:
         checkpoint.save_checkpoint = trainer_module.save_checkpoint = saved
     t = out["trainer"]
-    if not t.device_cached or t.mesh.shape != {"data": world, "model": 1} \
+    if not t.device_cached or t.mesh.shape != {"data": d, "model": m} \
             or t.state.step != DP_FILES_STEPS:
-        raise AssertionError(f"data parallel CLI rank {rank}: cached={t.device_cached} mesh="
+        raise AssertionError(f"mesh ({d}, {m}) CLI rank {rank}: cached={t.device_cached} mesh="
                              f"{t.mesh.shape} step={t.state.step}")
     launches = {}
     for counts in record["train"] + record["eval"]:
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
-    return {"writes": writes, "launches": launches, "ms": record["ms"], "wall_s": wall,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "train_losses": t.train_losses, "val_losses": t.val_losses,
-            "val_f1": t.val_f1_scores, "val_accuracy": t.val_accuracies,
-            "digest": _param_digest({n: p.detach().cpu()
-                                     for n, p in t.model.named_parameters()})}
+    whole = gather_state_dict(dict(t.model.named_parameters()), t.mesh)
+    result = {"writes": writes, "launches": launches, "ms": record["ms"], "wall_s": wall,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "train_losses": t.train_losses, "val_losses": t.val_losses,
+              "val_f1": t.val_f1_scores, "val_accuracy": t.val_accuracies,
+              "digest": _param_digest({n: p.detach().cpu() for n, p in whole.items()}),
+              "path": out["path"]}
+    if m > 1:
+        batch = _dp_batch(t.config, t.device)
+        batch = {k: ({kk: vv[t.mesh.rows(B)] for kk, vv in v.items()} if isinstance(v, dict)
+                     else v[t.mesh.rows(B)]) for k, v in batch.items()}
+        result["logits"] = t.mesh.gather(make_eval_step(t.model)(batch)["logits"]).float() \
+            .cpu().tolist()
+    return result
 
 
 def _dp_rank(spec: dict) -> None:
@@ -2975,7 +3030,8 @@ def _dp_rank(spec: dict) -> None:
     ``_dp_run`` on its rows in bf16, in bf16 with the contrastive term
     rank-local (the planted fault: the bounds must see it) and in f32, each
     from the seed-0 parameters and held to the parent's one-process runs
-    (``ref``); then ``_dp_cli``. Writes a JSON summary."""
+    (``ref``); then ``_dp_cli``. Writes a JSON summary. A spec with a model
+    axis (phase 25) runs ``_tp_rank`` instead."""
     import torch
 
     from simple_multimodal_tpu_torch.models import fusion
@@ -2983,6 +3039,8 @@ def _dp_rank(spec: dict) -> None:
                                                            local_device, make_mesh,
                                                            shutdown_distributed)
 
+    if spec.get("model", 1) > 1:
+        return _tp_rank(spec)
     rank = int(os.environ["RANK"])
     out_path = os.path.join(spec["out"], f"rank{rank}.json")
     try:
@@ -3043,19 +3101,41 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_dp_world(world: int, backend, tmp: str, ref_path: str, data: str) -> list:
-    """``_dp_rank`` on ``world`` processes, their summaries in rank order:
-    with ``backend`` "gloo" two spawned processes on cuda:0 (LOCAL_RANK 0
-    each, a local rendezvous), else ``torchrun --standalone
-    --nproc_per_node=world chip_smoke.py --dp-rank`` over NCCL, a card a
-    rank. Every process is joined, or killed at DP_TIMEOUT_S."""
+SCRATCH_FREE_BYTES = 64 * 2 ** 30  # RAM the mesh phases' transient files may take
+
+
+@contextlib.contextmanager
+def _scratch(tmp: str):
+    """A directory for a mesh phase's large transient files (the references
+    its ranks read, the checkpoints of their CLI runs: ~10 GB a phase that
+    no later phase reads), removed when the phase ends: in RAM (/dev/shm)
+    where it has SCRATCH_FREE_BYTES free, which keeps them off the disk, else
+    under ``tmp``."""
+    shm = "/dev/shm"
+    ram = os.path.isdir(shm) and shutil.disk_usage(shm).free >= SCRATCH_FREE_BYTES
+    path = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=shm if ram else tmp)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _run_dp_world(world: int, backend, tmp: str, ref_path: str, data: str,
+                  model: int = 1) -> list:
+    """``_dp_rank`` on ``world`` processes at mesh (world / model, model),
+    their summaries in rank order: with ``backend`` "gloo" two spawned
+    processes on cuda:0 (LOCAL_RANK 0 each, a local rendezvous), else
+    ``torchrun --standalone --nproc_per_node=world chip_smoke.py --dp-rank``
+    over NCCL, a card a rank. Their outputs (the CLI's checkpoints included)
+    go beside ``ref_path``. Every process is joined, or killed at
+    DP_TIMEOUT_S."""
     import multiprocessing
     import signal
 
-    out = os.path.join(tmp, f"dp_{backend or 'nccl'}_{world}")
+    out = os.path.join(os.path.dirname(ref_path), f"dp_{backend or 'nccl'}_{world}_{model}")
     os.makedirs(out, exist_ok=True)
-    spec = {"world": world, "backend": backend, "tmp": tmp, "ref": ref_path, "data": data,
-            "out": out}
+    spec = {"world": world, "model": model, "backend": backend, "tmp": tmp, "ref": ref_path,
+            "data": data, "out": out}
     outs = [os.path.join(out, f"rank{r}.json") for r in range(world)]
     if backend == "gloo":
         env = {"WORLD_SIZE": str(world), "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
@@ -3090,7 +3170,7 @@ def _run_dp_world(world: int, backend, tmp: str, ref_path: str, data: str) -> li
                 launch.wait(10)
     errors = [open(o + ".err").read() for o in outs if os.path.exists(o + ".err")]
     if errors or any(c != 0 for c in codes):
-        raise AssertionError(f"data parallel world {world} ({backend or 'nccl'}): exit codes "
+        raise AssertionError(f"mesh ({world // model}, {model}) ({backend or 'nccl'}): exit codes "
                              f"{codes}\n" + "\n".join(errors))
     return [json.load(open(o)) for o in outs]
 
@@ -3248,22 +3328,383 @@ def phase_data_parallel(dev, tmp: str):
     torch.cuda.empty_cache()
 
     schedule = make_schedule(cfg.learning_rate, 100)
-    ref_path = os.path.join(tmp, "dp_reference.pt")
     travel = sum(schedule(c) for c in range(DP_STEPS))
-    torch.save({**{d: {k: r[k] for k in ("metrics", "params", "val")} for d, r in ref.items()},
-                "travel": travel}, ref_path)
-    del ref
-    _report_dp(_run_dp_world(2, "gloo", tmp, ref_path, data),
-               "data parallel: world 2 on one card over gloo")
-    cards = torch.cuda.device_count()
-    if cards >= 2:
-        world = min(cards, DP_WORLD_MAX)
-        _report_dp(_run_dp_world(world, None, tmp, ref_path, data),
-                   f"data parallel: torchrun world {world} over NCCL, one card a rank")
-    else:
-        log(f"data parallel across cards: not run: {cards} card")
-    os.remove(ref_path)
+    with _scratch(tmp) as scratch:
+        ref_path = os.path.join(scratch, "dp_reference.pt")
+        torch.save({**{d: {k: r[k] for k in ("metrics", "params", "val")}
+                       for d, r in ref.items()}, "travel": travel}, ref_path)
+        del ref
+        _report_dp(_run_dp_world(2, "gloo", tmp, ref_path, data),
+                   "data parallel: world 2 on one card over gloo")
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            world = min(cards, DP_WORLD_MAX)
+            _report_dp(_run_dp_world(world, None, tmp, ref_path, data),
+                       f"data parallel: torchrun world {world} over NCCL, one card a rank")
+        else:
+            log(f"data parallel across cards: not run: {cards} card")
     log(f"data parallel phase in {time.perf_counter() - t_phase:.1f} s; {smi_line()}")
+
+
+# ------------------------------------------------------------- tensor parallel
+
+TP_MODEL = 2  # the model axis of phase 25: 12 DeBERTa heads, 6 a rank
+TP_LOGITS_F32 = 1e-4  # tests/test_multidevice.py::test_tp_matches_replicated
+TP_FAULTS = {
+    # each gathered weight's gradient summed over the model group: m times the whole
+    "bf16 gathered gradients summed": "gather_param_sums",
+    # the clip's global norm over this rank's shards alone
+    "bf16 clip norm over local shards": "clip_norm_local",
+}
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """One of TP_FAULTS planted in the package for the block (None: none)."""
+    from simple_multimodal_tpu_torch.parallel import tensor
+    from simple_multimodal_tpu_torch.train import optim
+
+    if fault is None:
+        yield
+        return
+    if fault == "gather_param_sums":
+        owner, attr = tensor._GatherParam, "backward"
+
+        def bad(ctx, g):
+            mesh = ctx.mesh
+            whole = tensor.model_sum(g, mesh)
+            return tensor.split(whole, ctx.spec, mesh.model, mesh.model_index), None, None
+
+        bad = staticmethod(bad)
+    else:
+        owner, attr = optim, "global_norm"
+        local = optim.global_norm
+
+        def bad(grads, params=None):
+            return local(grads)
+
+    saved = owner.__dict__[attr]
+    setattr(owner, attr, bad)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def _logits_err(got, want, dtype: str):
+    """(error, bound, within) of eval logits against a reference's: in f32
+    the logits within TP_LOGITS_F32; in bf16 their probabilities (softmaxed
+    in f32) within phase 24's bf16 bound on its validation probabilities,
+    DP_BOUNDS["bf16"]["probs"] (the logits' own distance is printed)."""
+    import torch
+
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    if dtype == "f32":
+        err, bound = float((got - want).abs().max()), TP_LOGITS_F32
+    else:
+        err = float((got.softmax(-1) - want.softmax(-1)).abs().max())
+        bound = DP_BOUNDS["bf16"]["probs"]
+    return err, bound, err <= bound, float((got - want).abs().max())
+
+
+def _tp_rank(spec: dict) -> None:
+    """One rank of phase 25's mesh (world / m, m), started as ``_dp_rank``
+    is and joined through ``initialize_distributed``: the seed-0 base model
+    (the same on every rank) sharded over the model axis; in bf16 and f32
+    its eval logits on the phase's batch and ``_dp_run`` on its rows (the
+    replicated parameters' digest after each step), then one bf16 step
+    under each planted fault (TP_FAULTS), each from the seed-0 parameters
+    and held to the parent's one-process runs (``ref``); the collectives
+    called; then ``_dp_cli`` at ``--mesh D,M``. Writes a JSON summary."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops import hopper
+    from simple_multimodal_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                           local_device, make_mesh,
+                                                           shutdown_distributed)
+    from simple_multimodal_tpu_torch.parallel.tensor import shard_module, shard_state_dict
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step
+
+    rank = int(os.environ["RANK"])
+    out_path = os.path.join(spec["out"], f"rank{rank}.json")
+    world, m = spec["world"], spec["model"]
+    try:
+        dev = local_device("cuda")
+        torch.cuda.set_device(dev)
+        set_tf32(False)
+        initialize_distributed(backend=spec["backend"])
+        try:
+            cfg = _base_config(spec["tmp"])
+            model = _dp_model(cfg, dev)
+            init = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+            batch = _dp_batch(cfg, dev)
+            mesh = make_mesh((world // m, m), dev)
+            shard_module(model, mesh)
+            rows = mesh.rows(B)
+            local = {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict)
+                         else v[rows]) for k, v in batch.items()}
+            ref = torch.load(spec["ref"], weights_only=False, mmap=True)
+            summary = {"rank": rank, "device": str(dev), "mesh": [world // m, m]}
+            counts = {}
+            torch.backends.cudnn.deterministic = True  # as the references ran
+            runs = [("bf16", "bf16", None, DP_STEPS)]
+            runs += [(name, "bf16", fault, 1) for name, fault in TP_FAULTS.items()]
+            runs += [("f32", "f32", None, DP_STEPS)]
+            with _counted_collectives(counts):
+                for run_name, dtype, fault, steps in runs:
+                    model.load_state_dict(shard_state_dict(init, mesh))
+                    model.dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+                    tag = f"mesh ({world // m}, {m}) rank {rank} {run_name}"
+                    entry = {}
+                    if fault is None:  # eval first, on the seed-0 parameters
+                        hopper.reset_launch_counts()
+                        logits = mesh.gather(make_eval_step(model)(local)["logits"])
+                        sync()
+                        _expect(f"{tag} eval", hopper.launch_counts(), EXPECTED_LAUNCHES)
+                        entry["logits"] = _logits_err(logits.cpu(), ref[dtype]["logits"], dtype)
+                    with _planted(fault):
+                        run = _dp_run(model, cfg, batch, mesh, tag, steps=steps,
+                                      validate=fault is None)
+                    faults, info = _dp_faults(run, ref[dtype], init, DP_BOUNDS[dtype],
+                                              ref["travel"])
+                    summary[run_name] = dict(entry, metrics=run["metrics"], ms=run["ms"],
+                                             peak_gib=run["peak_gib"], faults=faults,
+                                             info=info, digests=run["digests"],
+                                             digest=_param_digest(run["params"]))
+                    del run
+            summary["collectives"] = counts
+            del model, init, batch, local, ref
+            torch.cuda.empty_cache()
+            torch.backends.cudnn.deterministic = False  # the CLI as users run it
+            summary["cli"] = _dp_cli(spec, rank)
+        finally:
+            shutdown_distributed()
+        with open(out_path, "w") as f:
+            json.dump(summary, f)
+    except BaseException:
+        with open(out_path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _report_tp(results, label, dev) -> dict:
+    """Every rank's runs printed; the eval logits within their bounds of one
+    process; each faithful run within DP_BOUNDS of one process, its
+    replicated parameters bit-identical on every rank after each step and
+    its whole parameters equal on every rank; each planted fault beyond the
+    bounds; the CLI's epoch: launches, losses, validation and parameters
+    equal on every rank, rank 0 alone writing, and the saved model loaded
+    into this process giving the ranks' logits. Raises, after printing
+    everything, on any failure. Returns rank 0's faithful bf16 run."""
+    import torch
+
+    from simple_multimodal_tpu_torch.models.multimodal_model import load_pretrained_model
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step
+
+    errors = []
+    for run_name in ("bf16", *TP_FAULTS, "f32"):
+        dtype = "f32" if run_name == "f32" else "bf16"
+        for r in results:
+            run = r[run_name]
+            log(f"{label} {run_name} rank {r['rank']} on {r['device']}: "
+                + (f"eval logits {run['logits'][3]:.3e} from one process, "
+                   f"{'logits' if dtype == 'f32' else 'probabilities'} {run['logits'][0]:.3e} "
+                   f"(bound {run['logits'][1]:.3e}); " if "logits" in run else "")
+                + " ".join(f"step {i} {ms:.1f} ms loss={m['total_loss']!r} "
+                           f"grad_norm={m['grad_norm']!r}"
+                           for i, (ms, m) in enumerate(zip(run["ms"], run["metrics"])))
+                + f"; peak {run['peak_gib']:.2f} GiB"
+                + ("" if run_name in TP_FAULTS else f"; against one process: {run['info']}"))
+            if "logits" in run and not run["logits"][2]:
+                errors.append(f"{run_name} rank {r['rank']}: eval logits {run['logits'][0]:.3e} "
+                              f"beyond {run['logits'][1]:.3e}")
+        faults = [f for r in results for f in r[run_name]["faults"]]
+        if run_name in TP_FAULTS:
+            if all(r[run_name]["faults"] for r in results):
+                log(f"{label} {run_name} (planted fault): beyond the bounds "
+                    f"{DP_BOUNDS[dtype]} as it must be: {faults[:3]}")
+            else:
+                errors.append(f"{run_name}: the planted fault is within the bounds "
+                              f"{DP_BOUNDS[dtype]}")
+        elif faults:
+            errors.append(f"{run_name}: {len(faults)} beyond the bounds {DP_BOUNDS[dtype]}, "
+                          f"e.g. {faults[:10]}")
+        elif len({json.dumps(r[run_name]["digests"]) for r in results}) != 1 \
+                or len({r[run_name]["digest"] for r in results}) != 1:
+            errors.append(f"{run_name}: the ranks' parameters differ")
+        else:
+            log(f"{label} {run_name}: within the bounds {DP_BOUNDS[dtype]} of one process; the "
+                f"replicated parameters bit-identical on every rank after each step, the whole "
+                f"parameters equal (sha256 {results[0][run_name]['digest'][:16]})")
+    log(f"{label} collectives called a rank over the runs: "
+        + "; ".join(f"rank {r['rank']} {r['collectives']}" for r in results))
+    mesh = results[0]["mesh"]
+    for r in results:
+        c = r["cli"]
+        log(f"{label} train_advanced_torch --mesh {mesh[0]},{mesh[1]} rank {r['rank']}: "
+            f"launches {_launch_str(c['launches'])}; steps "
+            + " ".join(f"{ms:.1f}" for ms in c["ms"])
+            + f" ms; run {c['wall_s']:.1f} s; peak {c['peak_gib']:.2f} GiB; train losses "
+            f"{c['train_losses']}; val loss {c['val_losses']} F1 {c['val_f1']}; writes "
+            f"{c['writes']}")
+    keys = ("launches", "train_losses", "val_losses", "val_f1", "val_accuracy", "digest",
+            "logits")
+    first = results[0]["cli"]
+    differ = sorted({k for r in results[1:] for k in keys if r["cli"][k] != first[k]})
+    if differ:
+        errors.append(f"CLI: the ranks differ in {differ}")
+    elif not {"best_model", "final_model_hierarchical"} <= set(first["writes"]) \
+            or any(r["cli"]["writes"] for r in results[1:]):
+        errors.append(f"CLI: writes by rank {[r['cli']['writes'] for r in results]}")
+    else:
+        model, cfg = load_pretrained_model(first["path"], device=dev)
+        logits = make_eval_step(model)(_dp_batch(cfg, dev))["logits"].float().cpu()
+        err, bound, ok, dist_logits = _logits_err(first["logits"], logits, "bf16")
+        log(f"{label} CLI: launches, losses, validation and parameters equal on every rank; "
+            f"rank 0 alone wrote {first['writes']}; {first['path']} loaded into one process: "
+            f"logits {dist_logits:.3e}, probabilities {err:.3e} from the ranks' (bound "
+            f"{bound:.3e})")
+        if not ok:
+            errors.append(f"CLI: the saved model's probabilities {err:.3e} from the ranks' "
+                          f"(bound {bound:.3e})")
+        del model
+        torch.cuda.empty_cache()
+    if errors:
+        raise AssertionError(f"{label}: " + "; ".join(errors))
+    return results[0]["bf16"]
+
+
+def _check_head_split_kernel(dev) -> dict:
+    """deberta_attention at the per-rank shape of a model axis of 2 and 4
+    ([8, 512, 12/m, 64], bf16, tables [512, 64·12/m]), hash dropout 0.1
+    with the seed that ``kernel_seed(model_axis=True)`` gives shard (1, 1)
+    of a (2, 2) mesh: forward and forward+backward against the plain version
+    on the same inputs and seed (bf16 bounds of phases 2 and 3), with
+    CUDA-event medians of both and the bound of the forward. Returns
+    {heads: line}."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops import hopper
+    from simple_multimodal_tpu_torch.ops.attention import kernel_seed
+    from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
+    from simple_multimodal_tpu_torch.parallel.mesh import Mesh, use_mesh
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    with use_mesh(Mesh(data=2, model=2, rank=3)):
+        rate, seed = kernel_seed(g, DROP_RATE, True, dev, model_axis=True)
+    span, lines = 256, {}
+    for m in (2, 4):
+        H = 12 // m
+        q, k, v = (torch.randn(B, 512, H, 64, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        pk, pq = (torch.randn(2 * span, H * 64, generator=g, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        mask = torch.ones(B, 512, dtype=torch.int32, device=dev)
+        mask[1, 300:] = 0
+        kw = dict(span=span, max_position=512, dropout_rate=rate, dropout_seed=seed)
+        ins = [q, k, v, pk, pq]
+        gy = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+
+        def both(fn, ts):
+            ts = [t.detach().clone().requires_grad_() for t in ts]
+            out = fn(*ts, mask, **kw)
+            return [out] + list(torch.autograd.grad(out, ts, gy.to(out.dtype)))
+
+        hopper.reset_launch_counts()
+        got = both(da.deberta_attention, ins)
+        want = both(da.deberta_attention_plain, [t.float() for t in ins])
+        sync()
+        _expect(f"head split m={m}", hopper.launch_counts(),
+                dict(NO_LAUNCHES, deberta_attention=1, deberta_attention_bwd=1))
+        errs = []
+        for i, (a, b) in enumerate(zip(got, want)):
+            err = float((a.float() - b).abs().max())
+            errs.append(err)
+            tol = ATOL_BF16 * (1 + float(b.abs().max())) if i == 0 \
+                else GRAD_TOL_BF16 * float(b.abs().max())
+            if not err <= tol:
+                raise AssertionError(f"head split m={m} [{B},512,{H},64] output {i}: {err:.3e} "
+                                     f"beyond {tol:.3e}")
+        with torch.no_grad():
+            fwd = lambda fn, ts: fn(*ts, mask, **kw)  # noqa: E731
+            t_kern = time_ms(lambda: fwd(da.deberta_attention, ins), 20)
+            t_plain = time_ms(lambda: fwd(da.deberta_attention_plain, ins), 5)
+        t_both = time_ms(lambda: both(da.deberta_attention, ins), 10)
+        t_both_plain = time_ms(lambda: both(da.deberta_attention_plain, ins), 3)
+        b_fwd = bound("deberta_attention", ins + [mask], got[0])
+        b_both = bound("deberta_attention", ins, got[0], backward=True)
+        lines[H] = {"max_abs_err": errs[0], "grad_errs": errs[1:],
+                    "ms": median(t_kern), "plain_ms": median(t_plain),
+                    "fwd_bwd_ms": median(t_both), "plain_fwd_bwd_ms": median(t_both_plain),
+                    "fwd_bwd_bound_ms": b_both["bound_ms"], **b_fwd}
+        log(f"tensor parallel: deberta_attention head split m={m} [{B},512,{H},64] bf16, "
+            f"seed of shard (1, 1) {int(seed)}: forward {errs[0]:.3e}, gradients "
+            + ", ".join(f"{e:.3e}" for e in errs[1:])
+            + f" from plain (f32 on the same inputs); forward {median(t_kern):.3f} ms "
+            f"(plain {median(t_plain):.3f}), fwd+bwd {median(t_both):.3f} ms (plain "
+            f"{median(t_both_plain):.3f}); bounds: forward {b_fwd['bound_ms']:.4f} ms "
+            f"({b_fwd['bound_by']}), fwd+bwd {b_both['bound_ms']:.4f} ms ({b_both['bound_by']}); "
+            f"{smi_line()}")
+    return lines
+
+
+def phase_tensor_parallel(dev, tmp: str):
+    """Phase 25, tensor parallelism at base width (hierarchical, B=8,
+    dropout and augmentation off, the contrastive loss on): the head-split
+    ``deberta_attention`` at its per-rank shapes (``_check_head_split_kernel``);
+    the references in one process without a process group, in bf16 and in
+    f32 (TF32 off, cuDNN deterministic): eval logits, then ``_dp_run``; the
+    mesh (1, 2) on this one card (two ranks over gloo, as phase 24's world
+    2, each taking the whole batch), held to them (``_tp_rank``,
+    ``_report_tp``); where the machine has four cards or more, the mesh
+    (2, 2) under torchrun over NCCL, a card a rank."""
+    import torch
+
+    from simple_multimodal_tpu_torch.train.optim import make_schedule
+    from simple_multimodal_tpu_torch.train.steps import make_eval_step
+
+    t_phase = time.perf_counter()
+    data = _dp_files(tmp)
+    t_files = time.perf_counter() - t_phase
+    _check_head_split_kernel(dev)
+    cfg = _base_config(tmp)
+    model = _dp_model(cfg, dev)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = _dp_batch(cfg, dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ref = {}
+    try:
+        for dtype in ("bf16", "f32"):
+            model.load_state_dict(init)
+            model.dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+            logits = make_eval_step(model)(batch)["logits"].float().cpu()
+            ref[dtype] = _dp_run(model, cfg, batch, None, f"tensor parallel: one process {dtype}")
+            ref[dtype]["logits"] = logits
+            _log_run(f"tensor parallel: one process {dtype}, no process group", ref[dtype])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del model, init, batch
+    torch.cuda.empty_cache()
+    travel = sum(make_schedule(cfg.learning_rate, 100)(c) for c in range(DP_STEPS))
+    with _scratch(tmp) as scratch:
+        ref_path = os.path.join(scratch, "tp_reference.pt")
+        torch.save({**{d: {k: r[k] for k in ("metrics", "params", "val", "logits")}
+                       for d, r in ref.items()}, "travel": travel}, ref_path)
+        del ref
+        t_ranks = time.perf_counter()
+        results = _run_dp_world(2, "gloo", tmp, ref_path, data, model=TP_MODEL)
+        t_ranks = time.perf_counter() - t_ranks
+        _report_tp(results, f"tensor parallel: mesh (1, {TP_MODEL}) on one card over gloo", dev)
+        cards = torch.cuda.device_count()
+        if cards >= 4:
+            _report_tp(_run_dp_world(4, None, tmp, ref_path, data, model=TP_MODEL),
+                       f"tensor parallel: mesh (2, {TP_MODEL}) under torchrun over NCCL, one "
+                       "card a rank", dev)
+        else:
+            log(f"tensor parallel across cards: not run: {cards} card")
+    log(f"tensor parallel phase in {time.perf_counter() - t_phase:.1f} s (the sample set "
+        f"{t_files:.1f} s, the mesh (1, {TP_MODEL}) ranks {t_ranks:.1f} s); {smi_line()}")
 
 
 def _report_profile(prof, tag: str, wall_ms: float, reps: int, top: int = 40):
@@ -3856,9 +4297,10 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_profile if "--profile" in argv else phase_timings)(dev, tmp)
             return 0
-        if "--data-parallel" in argv:
+        if "--data-parallel" in argv or "--tensor-parallel" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-                phase_data_parallel(dev, tmp)
+                (phase_data_parallel if "--data-parallel" in argv
+                 else phase_tensor_parallel)(dev, tmp)
             return 0
         phase_gemm(dev)
         phase_ffn_bwd_kernels(dev)
@@ -3884,7 +4326,7 @@ def main() -> int:
                           phase_half, phase_families_f32, phase_train_from_files,
                           phase_distillation_from_files, phase_ablation_from_files,
                           phase_all_from_files, phase_evaluate_from_files, phase_web_server,
-                          phase_weights_io, phase_data_parallel):
+                          phase_weights_io, phase_data_parallel, phase_tensor_parallel):
                 t0 = time.perf_counter()
                 phase(dev, tmp)
                 torch.cuda.empty_cache()

@@ -16,6 +16,17 @@ the caller passes.
 
 Only the fused path's semantics are ported (keys masked with -1e30, query
 rows not masked); the JAX package's one-hot bias path is a TPU workaround.
+
+Under a mesh with a model axis m > 1 (``parallel/tensor.py``) the attention
+splits its heads over the model group, as the JAX kernel's ``shard_map``
+does: the q/k/v projections (on their weights gathered whole) give this
+process's H/m heads and their head-sharded position tables (the heads'
+gradients gathered back in the backward),
+``deberta_attention`` runs on them with its seed offset by the data and
+model indices, and the heads' outputs are gathered for the output
+projection; the word embeddings are vocab-parallel. The FFN takes its
+weights gathered whole. So every product computes the bits one process
+computes, and only the kernel's dropout masks are the mesh's.
 """
 import dataclasses
 from typing import Optional
@@ -26,6 +37,7 @@ import torch.nn as nn
 from ..ops.attention import dropout, fused_weights, kernel_seed, layer_norm, linear
 from ..ops.hopper.deberta_attention import deberta_attention
 from ..ops.hopper.ffn_block import ffn_block
+from ..parallel.tensor import Shard, gather_param, placement, scatter_to_model, vocab_lookup
 from ._util import Group
 
 
@@ -72,25 +84,37 @@ class DebertaLayer(nn.Module):
             output=Group(dense=nn.Linear(E, E), LayerNorm=nn.LayerNorm(E, eps=eps)))
         self.intermediate = Group(dense=nn.Linear(E, Fd))
         self.output = Group(dense=nn.Linear(Fd, E), LayerNorm=nn.LayerNorm(E, eps=eps))
+        self.split_heads_of = cfg.num_heads  # the model axis splits these
 
     def forward(self, hidden, rel_embeddings, attention_mask, dtype, gen=None):
         cfg = self.cfg
         B, S, E = hidden.shape
-        H = cfg.num_heads
         train, dev = self.training, hidden.device
         sa = getattr(self.attention, "self")
-        q = linear(hidden, sa.query_proj, dtype).reshape(B, S, H, E // H)
-        k = linear(hidden, sa.key_proj, dtype).reshape(B, S, H, E // H)
-        v = linear(hidden, sa.value_proj, dtype).reshape(B, S, H, E // H)
+        projs = (sa.query_proj, sa.key_proj, sa.value_proj)
+        tp = placement(sa.query_proj.weight)
+        mesh = None if tp is None else tp.mesh  # None: every head on this process
+        H = cfg.num_heads // (1 if mesh is None else mesh.model)
+        D = E // cfg.num_heads
         rel_embeddings = dropout(rel_embeddings, cfg.hidden_dropout, gen, train,
                                  batch_axis=False)  # one table, no batch axis
-        pos_k = linear(rel_embeddings, sa.key_proj, dtype)  # share_att_key
-        pos_q = linear(rel_embeddings, sa.query_proj, dtype)
-        rate, seed = kernel_seed(gen, cfg.attention_dropout, train, dev)
+
+        def proj(x, layer):  # under the model axis this process's heads of it
+            y = linear(x, layer, dtype)
+            return y if mesh is None else scatter_to_model(y, Shard(y.ndim - 1), mesh)
+
+        q = proj(hidden, sa.query_proj).reshape(B, S, H, D)
+        k = proj(hidden, sa.key_proj).reshape(B, S, H, D)
+        v = proj(hidden, sa.value_proj).reshape(B, S, H, D)
+        pos_k = proj(rel_embeddings, sa.key_proj)  # share_att_key
+        pos_q = proj(rel_embeddings, sa.query_proj)
+        rate, seed = kernel_seed(gen, cfg.attention_dropout, train, dev, model_axis=True)
         ctx = deberta_attention(q, k, v, pos_k, pos_q, attention_mask,
                                 span=cfg.position_buckets,
                                 max_position=cfg.max_position_embeddings,
                                 dropout_rate=rate, dropout_seed=seed)
+        if mesh is not None:  # every head's output, on every process
+            ctx = gather_param(ctx, Shard(2), mesh)
         attn = linear(ctx.reshape(B, S, E), self.attention.output.dense, dtype)
         attn = dropout(attn, cfg.hidden_dropout, gen, train)
         hidden = layer_norm(attn + hidden, self.attention.output.LayerNorm, dtype)
@@ -127,7 +151,12 @@ class DebertaModel(nn.Module):
         B, S = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones((B, S), dtype=torch.int32, device=input_ids.device)
-        emb = self.embeddings.word_embeddings.weight.to(dtype)[input_ids.long()]
+        table = self.embeddings.word_embeddings.weight
+        tp = placement(table)
+        if tp is None:
+            emb = table.to(dtype)[input_ids.long()]
+        else:  # vocab-parallel
+            emb = vocab_lookup(table, input_ids.long(), dtype, tp.mesh)
         if prompt_embeds is not None:
             P = prompt_embeds.shape[-2]
             if prompt_embeds.dim() == 2:

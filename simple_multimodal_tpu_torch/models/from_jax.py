@@ -10,6 +10,10 @@ re-packed into ``in_proj_*``, ``[L, ...]`` layer stacks un-stacked, conv
 kernels back to [out, in, *k], and each LSTM bias (the converter sums
 ``bias_ih + bias_hh``) put whole into ``bias_ih`` with zeros in ``bias_hh``.
 Loading orbax checkpoints needs jax and is not done here.
+
+Under a mesh's model axis, ``parallel/tensor.py::shard_state_dict`` of this
+state gives each process what JAX's ``params_shardings`` places on its
+device (tests/test_torch_tensor_parallel.py).
 """
 from typing import Dict
 

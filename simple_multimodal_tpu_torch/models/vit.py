@@ -29,6 +29,7 @@ from ..ops.attention import (compact_scores, dropout, fused_weights, gelu, kerne
                              layer_norm, linear)
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
+from ..parallel.tensor import weight
 from ._util import Group
 
 
@@ -149,7 +150,7 @@ class ViTModel(nn.Module):
         N, E = pixel_values.shape[0], cfg.hidden_size
         emb = self.embeddings
         conv = emb.patch_embeddings.projection
-        x = F.conv2d(pixel_values.to(dtype).permute(0, 3, 1, 2), conv.weight.to(dtype),
+        x = F.conv2d(pixel_values.to(dtype).permute(0, 3, 1, 2), weight(conv.weight, dtype),
                      conv.bias.to(dtype), stride=cfg.patch_size)
         x = x.flatten(2).transpose(1, 2)  # [N, P, E], patches row-major
         cls = emb.cls_token.to(dtype).expand(N, 1, E)

@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.mesh import draw_rows, kernel_seed_offset
+from ..parallel.tensor import weight
 from .hopper.flash_attention import flash_attention
 
 FLASH_MIN_LENGTH = 512  # queries and keys beyond this go through flash_attention
@@ -53,9 +54,10 @@ def gelu(x: torch.Tensor, dtype) -> torch.Tensor:
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """A Linear layer computed in ``dtype`` from its f32 params (the flax
-    ``nn.Dense(dtype=...)`` cast)."""
+    ``nn.Dense(dtype=...)`` cast; a weight sharded over the mesh's model
+    axis gathered whole, ``parallel/tensor.py::weight``)."""
     b = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), b)
+    return F.linear(x.to(dtype), weight(layer.weight, dtype), b)
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype) -> torch.Tensor:
@@ -85,21 +87,23 @@ def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
 
 
 def kernel_seed(gen: Optional[torch.Generator], rate: float, training: bool,
-                device) -> Tuple[float, Optional[torch.Tensor]]:
+                device, model_axis: bool = False) -> Tuple[float, Optional[torch.Tensor]]:
     """(rate, seed) for a fused kernel's hash dropout: an int32 [1] seed in
     [0, 2³¹ − 1) drawn from ``gen`` on the device (no host sync), as the
     JAX ``kernel_dropout_seed`` draws it; (0.0, None) in eval mode or at
-    rate 0, without a draw. Under a data-parallel mesh the draw is the same
-    on every rank and rank r adds r · 1000003 (int32 wrap-around), as the
-    JAX kernels do inside their ``shard_map``: the kernels hash local batch
-    indices, so no rank repeats another's masks."""
+    rate 0, without a draw. Under a mesh the draw is the same on every rank
+    and the rank at data index i adds i · 1000003 (int32 wrap-around), and
+    with ``model_axis`` (a kernel that splits heads over ``model``) model
+    index j adds j · 7919 too, as the JAX kernels do inside their
+    ``shard_map``: the kernels hash local batch and head indices, so no
+    shard repeats another's masks."""
     if not training or not rate:
         return 0.0, None
     if gen is None:
         raise ValueError("dropout in training mode needs a torch.Generator")
     seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device,
                          dtype=torch.int32)
-    offset = kernel_seed_offset()
+    offset = kernel_seed_offset(model_axis)
     if offset:
         seed = ((seed.long() + offset + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
     return float(rate), seed
@@ -107,10 +111,11 @@ def kernel_seed(gen: Optional[torch.Generator], rate: float, training: bool,
 
 def fused_weights(layers, dtype):
     """(w, b) per Linear in flax layout ([in, out] as a transposed view, so
-    the kernel wrappers take it without a copy), cast to ``dtype``."""
+    the kernel wrappers take it without a copy), cast to ``dtype`` (and
+    gathered whole where the weight is sharded)."""
     out = []
     for layer in layers:
-        out += [layer.weight.to(dtype).t(), layer.bias.to(dtype)]
+        out += [weight(layer.weight, dtype).t(), layer.bias.to(dtype)]
     return out
 
 
@@ -141,7 +146,7 @@ class MultiHeadAttention(nn.Module):
         E, H = self.embed_dim, self.num_heads
         Dh = E // H
         B, Q, K = query.shape[0], query.shape[1], key.shape[1]
-        w = self.in_proj_weight.to(dtype)
+        w = weight(self.in_proj_weight, dtype)
         b = self.in_proj_bias.to(dtype)
         q = F.linear(query.to(dtype), w[:E], b[:E]).reshape(B, Q, H, Dh)
         k = F.linear(key.to(dtype), w[E:2 * E], b[E:2 * E]).reshape(B, K, H, Dh)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.tensor import weight
 from .attention import dropout
 
 
@@ -36,7 +37,9 @@ class LSTM(nn.LSTM):
         out = x.float()
         for layer in range(self.num_layers):
             h0 = out.new_zeros(nd, out.shape[0], self.hidden_size)
-            weights = self._flat_weights[layer * per_layer:(layer + 1) * per_layer]
+            # weight_ih sharded over the mesh's model axis is gathered whole
+            weights = [weight(w, torch.float32)
+                       for w in self._flat_weights[layer * per_layer:(layer + 1) * per_layer]]
             # train=True keeps cuDNN's state for a backward, needed whenever
             # gradients flow, eval mode included (the dropout here is 0)
             out = torch._VF.lstm(out, (h0, h0), weights, self.bias, 1, 0.0,

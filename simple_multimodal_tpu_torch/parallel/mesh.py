@@ -1,31 +1,37 @@
 """The (data, model) mesh over ``torch.distributed`` (port of
 simple_multimodal_tpu/parallel/mesh.py:25-76).
 
-One process per card, launched by ``torchrun`` (which sets ``RANK``,
-``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``)::
+One process per card, d·m processes in all, launched by ``torchrun``
+(which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``)::
 
-    torchrun --standalone --nproc_per_node=N train_advanced_torch.py --mesh N,1 ...
+    torchrun --standalone --nproc_per_node=D*M train_advanced_torch.py --mesh D,M ...
 
-The JAX mesh's semantics are kept exactly, so that ``--mesh d,1`` on d
+Rank r sits at data index r // m and model index r % m, as JAX lays its
+devices out (``np.array(devices).reshape(d, m)``). The ranks of one model
+index form a data group, those of one data index a model group.
+
+The JAX mesh's semantics are kept exactly, so that ``--mesh d,m`` on d·m
 processes trains the same model, step for step, as ``--mesh 1,1`` on one:
 
-- the loader yields the global batch and each process keeps its rows,
-  ``[rank·B/d, (rank+1)·B/d)`` (``Mesh.rows``: JAX's ``batch_sharding`` and
-  ``pipeline.py:186-193``);
-- the parameters are replicated: broadcast from rank 0 once
-  (``replicated``); every rank then applies the same averaged gradients, so
-  they stay bit-identical;
+- the loader yields the global batch and each process keeps its data
+  shard's rows, ``[i·B/d, (i+1)·B/d)`` for data index i (``Mesh.rows``:
+  JAX's ``batch_sharding`` and ``pipeline.py:186-193``); the m processes of
+  a data index hold the same rows;
+- the parameters start replicated: broadcast from rank 0 once
+  (``replicated``); with m > 1 each process then keeps its shards of the
+  parameters that JAX's ``param_partition_spec`` shards over ``model``
+  (``parallel/tensor.py``); the gradients are averaged over the data group,
+  so every process of a model index applies the same update;
 - a random draw with a batch axis is made at the global batch size from a
-  generator that is identical on every rank, and each rank keeps its rows
-  (``draw_rows``), as ``jax.random`` draws under SPMD; the fused kernels'
-  hash seeds are offset by ``rank · 1000003`` (``kernel_seed_offset``), as
-  the JAX kernels offset theirs by ``axis_index("data")`` inside their
-  ``shard_map``;
+  generator that is identical on every rank, and each rank keeps its data
+  shard's rows (``draw_rows``), as ``jax.random`` draws under SPMD; the
+  fused kernels' hash seeds are offset by ``data index · 1000003``, and
+  DeBERTa's head-split attention's further by ``model index · 7919``
+  (``kernel_seed_offset``), as the JAX kernels offset theirs by
+  ``axis_index`` inside their ``shard_map``;
 - the contrastive loss's in-batch negatives are the global batch
-  (``gather_rows``).
-
-Only the ``data`` axis is ported: a ``model`` axis above 1 (tensor
-parallelism, JAX ``param_partition_spec``) raises ``NotImplementedError``.
+  (``gather_rows``, over the data group).
 
 The backend is NCCL for CUDA tensors and gloo for CPU ones; gloo also
 takes CUDA tensors (``initialize_distributed(backend="gloo")``), which puts
@@ -41,8 +47,7 @@ import torch
 import torch.distributed as dist
 
 KERNEL_SEED_STRIDE = 1000003  # the JAX kernels' per-shard seed offset on the data axis
-TENSOR_PARALLEL_ITEM = ("ROADMAP.md Queue 1, tensor parallelism: the 'model' axis "
-                        "(JAX param_partition_spec, params_shardings)")
+MODEL_SEED_STRIDE = 7919  # deberta_attention's further offset on the model axis
 DEFAULT_TIMEOUT = timedelta(minutes=10)
 
 
@@ -58,14 +63,27 @@ def local_device(device="cuda") -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This process's place on a (data, model) mesh: the axis sizes, its
-    index on the data axis, its device and the data axis's process group
-    (None when no process group is up: then no collective runs)."""
+    rank, its device and the process groups: ``group`` the world (None
+    when no process group is up: then no collective runs), ``data_group``
+    the ranks of this model index (the world when m = 1, None when d = 1 <
+    m), ``model_group`` the ranks of this data index (None when m = 1).
+    A collective over a group that is None is skipped."""
 
     data: int
     model: int = 1
     rank: int = 0
     device: torch.device = torch.device("cpu")
     group: Optional[object] = None
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def shape(self) -> dict:
@@ -79,24 +97,28 @@ class Mesh:
     def distributed(self) -> bool:
         return self.group is not None
 
+    @property
+    def data_distributed(self) -> bool:
+        return self.data_group is not None
+
     def rows(self, batch: int) -> slice:
-        """This rank's rows of a global batch of ``batch``."""
+        """This rank's rows of a global batch of ``batch``: its data shard's."""
         if batch % self.data:
             raise ValueError(f"a global batch of {batch} does not split over the mesh's "
                              f"data axis of {self.data}")
         n = batch // self.data
-        return slice(self.rank * n, (self.rank + 1) * n)
+        return slice(self.data_index * n, (self.data_index + 1) * n)
 
     def all_reduce_mean_(self, tensors: Iterable[Optional[torch.Tensor]]) -> None:
-        """Replace each tensor by its mean over the ranks, in place, through
-        one all-reduce of their concatenation (Nones are skipped: every rank
-        must pass the same list)."""
+        """Replace each tensor by its mean over the data group, in place,
+        through one all-reduce of their concatenation (Nones are skipped:
+        every rank must pass the same list)."""
         ts = [t for t in tensors if t is not None]
-        if not self.distributed or not ts:
+        if not self.data_distributed or not ts:
             return
         with torch.no_grad():
             flat = torch.cat([t.reshape(-1) for t in ts])
-            dist.all_reduce(flat, group=self.group)
+            dist.all_reduce(flat, group=self.data_group)
             _unflatten(flat.div_(self.data), ts)
 
     def broadcast_(self, tensors: Sequence[torch.Tensor]) -> None:
@@ -113,13 +135,13 @@ class Mesh:
                 _unflatten(flat, ts)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``x`` concatenated along the first axis in rank
-        order (no gradient): [d·n, ...] from [n, ...]."""
-        if not self.distributed:
+        """Every data shard's ``x`` concatenated along the first axis in
+        data-index order (no gradient): [d·n, ...] from [n, ...]."""
+        if not self.data_distributed:
             return x
         src = x.detach().contiguous()
         parts = [torch.empty_like(src) for _ in range(self.data)]
-        dist.all_gather(parts, src, group=self.group)
+        dist.all_gather(parts, src, group=self.data_group)
         return torch.cat(parts)
 
     def barrier(self) -> None:
@@ -208,21 +230,28 @@ def shutdown_distributed() -> None:
 
 def mesh_axes(mesh_shape: Tuple[int, int] = (1, 1)) -> Tuple[int, int]:
     """The (data, model) sizes of ``mesh_shape`` for the processes that are
-    up: ``data == -1`` fills with the world size; otherwise it must equal
-    the world size (one process per data shard). ``model > 1`` is not
-    ported."""
+    up: ``data == -1`` fills with the world size over ``model``; otherwise
+    data · model must equal the world size (one process a shard)."""
     d, m = (int(x) for x in mesh_shape)
-    if m != 1:
-        raise NotImplementedError(f"mesh {tuple(mesh_shape)}: the 'model' axis is not ported "
-                                  f"yet; see {TENSOR_PARALLEL_ITEM}")
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if d == -1:
-        d = world
-    if d != world:
-        raise ValueError(f"mesh {tuple(mesh_shape)}: the data axis is {d} but the world size "
-                         f"is {world}; launch one process per data shard "
-                         f"(torchrun --nproc_per_node={d} ... --mesh {d},1)")
+    if d == -1 and m >= 1 and world % m == 0:
+        d = world // m
+    if d < 1 or m < 1 or d * m != world:
+        raise ValueError(f"mesh {tuple(mesh_shape)}: the mesh needs data x model processes "
+                         f"but the world size is {world}; launch one process a shard "
+                         f"(torchrun --nproc_per_node=<data x model> ... --mesh {d},{m})")
     return d, m
+
+
+def _axis_groups(d: int, m: int, rank: int):
+    """(data group, model group) of ``rank``. Every rank makes every group,
+    in the same order (``new_group`` is collective): the data groups, one a
+    model index, then the model groups, one a data index."""
+    if m == 1:
+        return dist.group.WORLD, None
+    data = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)] if d > 1 else None
+    model = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    return (data[rank % m] if data else None), model[rank // m]
 
 
 def make_mesh(mesh_shape: Tuple[int, int] = (1, 1), device="cuda") -> Mesh:
@@ -230,8 +259,11 @@ def make_mesh(mesh_shape: Tuple[int, int] = (1, 1), device="cuda") -> Mesh:
     current."""
     d, m = mesh_axes(mesh_shape)
     up = dist.is_initialized()
-    mesh = Mesh(data=d, model=m, rank=dist.get_rank() if up else 0,
-                device=local_device(device), group=dist.group.WORLD if up else None)
+    rank = dist.get_rank() if up else 0
+    data_group, model_group = _axis_groups(d, m, rank) if up else (None, None)
+    mesh = Mesh(data=d, model=m, rank=rank, device=local_device(device),
+                group=dist.group.WORLD if up else None, data_group=data_group,
+                model_group=model_group)
     set_current_mesh(mesh)
     return mesh
 
@@ -244,7 +276,11 @@ def process_index() -> int:
 
 def replicated(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Rank 0's parameters and buffers on every rank (one broadcast per
-    dtype, once, before training)."""
+    dtype, once, before training and before any sharding: rank 0's shards
+    are not the others')."""
+    if any(getattr(p, "tp", None) is not None for p in module.parameters()):
+        raise ValueError("replicated: the module holds shards over a model axis; broadcast "
+                         "it whole, before parallel/tensor.py::shard_module")
     mesh.broadcast_([t for t in module.state_dict().values()])
     return module
 
@@ -260,23 +296,28 @@ def draw_rows(draw: Callable, shape: Sequence[int], **kw) -> torch.Tensor:
         return draw(tuple(shape), **kw)
     n = shape[0]
     full = draw((n * mesh.data,) + tuple(shape[1:]), **kw)
-    return full[mesh.rank * n:(mesh.rank + 1) * n]
+    i = mesh.data_index
+    return full[i * n:(i + 1) * n]
 
 
-def kernel_seed_offset() -> int:
-    """What the fused kernels add to their hash seed on this rank:
-    ``rank · 1000003`` (the JAX ``axis_index("data") · 1000003``; DeBERTa's
-    ``axis_index("model") · 7919`` is 0 while the model axis is 1)."""
+def kernel_seed_offset(model_axis: bool = False) -> int:
+    """What the fused kernels add to their hash seed on this rank: the JAX
+    ``axis_index("data") · 1000003``, and with ``model_axis`` (the kernel
+    that splits heads over ``model``: deberta_attention) also
+    ``axis_index("model") · 7919``."""
     mesh = current_mesh()
-    return 0 if mesh is None else mesh.rank * KERNEL_SEED_STRIDE
+    if mesh is None:
+        return 0
+    offset = mesh.data_index * KERNEL_SEED_STRIDE
+    return offset + mesh.model_index * MODEL_SEED_STRIDE if model_axis else offset
 
 
 class _GatherRows(torch.autograd.Function):
-    """All ranks' rows, in rank order; the backward sums the rows'
-    cotangents over the ranks and keeps this rank's. Every rank's loss holds
-    the same global term of the gathered rows and the gradients are then
-    averaged over the ranks, so the summed cotangent is the one that, after
-    averaging, gives the single-process gradient."""
+    """All data shards' rows, in data-index order; the backward sums the
+    rows' cotangents over the data group and keeps this rank's. Every rank's
+    loss holds the same global term of the gathered rows and the gradients
+    are then averaged over the data group, so the summed cotangent is the
+    one that, after averaging, gives the single-process gradient."""
 
     @staticmethod
     def forward(ctx, x, mesh):
@@ -287,7 +328,7 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         mesh = ctx.mesh
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=mesh.group)
+        dist.all_reduce(g, group=mesh.data_group)
         return g[mesh.rows(g.shape[0])], None
 
 
@@ -296,6 +337,6 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     current mesh, with the gradient reaching the rank that owns each row;
     ``x`` itself without a process group."""
     mesh = current_mesh()
-    if mesh is None or not mesh.distributed:
+    if mesh is None or not mesh.data_distributed:
         return x
     return _GatherRows.apply(x, mesh)

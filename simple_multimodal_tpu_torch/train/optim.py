@@ -24,6 +24,8 @@ from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..parallel.tensor import model_sum, placement
+
 # The JAX markers: a pair of consecutive names anywhere in a parameter's
 # path (under ``student.``, ``teacher.`` or ``base_model.`` too), in the
 # port's state-dict names, which models/from_jax.py maps the JAX paths to.
@@ -75,10 +77,24 @@ def make_schedule(learning_rate: float, total_steps: int,
     return schedule
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ g²) over every gradient, in f32, on the gradients' device."""
+def global_norm(grads: List[torch.Tensor], params: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """sqrt(Σ g²) over every gradient, in f32, on the gradients' device.
+    Where ``params`` (aligned with ``grads``) holds parameters sharded over
+    a mesh's model axis, their gradients are this process's shards: their
+    squares are summed over the model group and each replicated gradient,
+    the same on every model process, is counted once, so every process
+    clips by the whole model's norm."""
     norms = torch._foreach_norm([g.float() for g in grads])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    tps = [placement(p) for p in params] if params is not None else []
+    if not any(tps):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sharded = torch.stack([n for n, tp in zip(norms, tps) if tp]).square().sum()
+    whole = [n for n, tp in zip(norms, tps) if not tp]
+    total = model_sum(sharded, next(tp for tp in tps if tp).mesh)
+    if whole:
+        total = total + torch.stack(whole).square().sum()
+    return total.sqrt()
 
 
 class AdamWChain:
@@ -102,12 +118,13 @@ class AdamWChain:
         self.count = 0
 
     @torch.no_grad()
-    def update(self, grads: List[Optional[torch.Tensor]]) -> None:
+    def update(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
         """One step from ``grads`` (aligned with ``params``; None counts as
-        zero, as JAX's gradient of an unused parameter)."""
+        zero, as JAX's gradient of an unused parameter). Returns the
+        gradients' global norm before clipping."""
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(self.params, grads)]
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.params)
         coef = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                            self.clip_norm / norm)
         torch._foreach_mul_(grads, coef)
@@ -128,6 +145,7 @@ class AdamWChain:
         if bb:
             torch._foreach_mul_(bb, self.backbone_lr_scale)
         torch._foreach_add_(self.params, upd, alpha=-lr)
+        return norm
 
 
 def make_optimizer(config, model: torch.nn.Module, total_steps: int,

@@ -15,9 +15,13 @@ single-process step computes on the whole batch, as under the JAX mesh:
 the step's generators are the same on every rank, every draw with a batch
 axis is the global batch's (this rank's rows kept), the contrastive loss
 takes the global batch's negatives, the gradients are averaged over the
-ranks (one all-reduce of their concatenation) before the norm, the clip and
-the update, and the reported loss parts are the global batch's. Without a
-process group none of that adds a collective or a larger draw.
+data group (one all-reduce of their concatenation) before the norm, the
+clip and the update, and the reported loss parts are the global batch's.
+Under a model axis (``parallel/tensor.py``) the gradients of sharded
+parameters are this process's shards, the norm sums their squares over the
+model group, and the replicated parameters' gradients are made the same on
+every model process (``sync_replicated_``). Without a process group none of
+that adds a collective or a larger draw.
 """
 from typing import Callable, Dict, Optional, Sequence
 
@@ -26,8 +30,9 @@ import torch
 from ..data.augment import augment_batch
 from ..data.video_wire import decode_video_wire
 from ..parallel.mesh import Mesh, use_mesh
+from ..parallel.tensor import sync_replicated_
 from .losses import cross_entropy, total_loss
-from .optim import AdamWChain, global_norm
+from .optim import AdamWChain
 from .state import TrainState
 
 
@@ -82,8 +87,7 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
         parts = {k: v.detach() for k, v in parts.items()}
         if mesh is not None:
             mesh.all_reduce_mean_(parts.values())
-        parts["grad_norm"] = global_norm([g for g in grads if g is not None])
-        optimizer.update(grads)
+        parts["grad_norm"] = optimizer.update(grads)
         return TrainState(step=state.step + 1, generator=state.generator), parts
 
     return step
@@ -92,7 +96,8 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
 def _backward(loss: torch.Tensor, optimizer: AdamWChain, mesh: Optional[Mesh] = None) -> list:
     """The gradients of ``loss`` for the optimizer's parameters (None where
     none reaches one; the same on every rank, whose graphs are the same),
-    averaged over the mesh's ranks, leaving no ``.grad`` behind."""
+    averaged over the mesh's data group, the replicated parameters' the
+    same over its model group, leaving no ``.grad`` behind."""
     for p in optimizer.params:
         p.grad = None
     loss.backward()
@@ -101,6 +106,7 @@ def _backward(loss: torch.Tensor, optimizer: AdamWChain, mesh: Optional[Mesh] = 
         p.grad = None
     if mesh is not None:
         mesh.all_reduce_mean_(grads)
+        sync_replicated_(grads, optimizer.params, mesh)
     return grads
 
 

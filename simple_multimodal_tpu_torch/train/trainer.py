@@ -33,6 +33,16 @@ prints the epochs and writes checkpoints, ``best_model/`` and plots, the
 others waiting at a barrier after each write. ``RobustnessTrainer`` and the
 distillation trainer inherit this; ``FewShotTrainer`` ignores the mesh, as
 the JAX one does.
+
+Tensor parallelism (JAX ``trainer.py:98-105, 128-137, 177-185``): with a
+``model`` axis m > 1 the d·m processes keep their shards of the parameters
+the JAX rule shards (``parallel/tensor.py::shard_module``) after the
+broadcast, and the optimizer's moments are shards too. The m processes of a
+data index take the same rows; validation gathers over the data group.
+Every write gathers the whole state on every process first
+(``write_checkpoint``), then rank 0 writes it; a resume cuts the whole
+state to this process's shards, so checkpoints resume across meshes.
+``num_params`` counts the whole model.
 """
 import time
 from pathlib import Path
@@ -45,7 +55,8 @@ from ..data.pipeline import (DeviceCachedLoader, DistributedLoader, estimate_bat
                              prefetch_to_device, to_device)
 from ..eval.metrics import accuracy_f1, classification_report, confusion_matrix
 from ..parallel.mesh import make_mesh, replicated
-from .checkpoint import restore_checkpoint, save_checkpoint
+from ..parallel.tensor import gather_state_dict, shard_module
+from .checkpoint import optimizer_state, restore_checkpoint, save_checkpoint
 from .optim import (TRAINABLE_MARKERS, freeze, is_trainable_name, make_optimizer,
                     make_trainable_only_optimizer)
 from .state import TrainState
@@ -99,6 +110,7 @@ class AdvancedTrainer:
         self.num_params = sum(p.numel() for p in model.parameters())
         self.mesh = make_mesh(getattr(config, "mesh_shape", (1, 1)), self.device)
         replicated(model, self.mesh)
+        shard_module(model, self.mesh)
 
         # the loaders yield global batches: OneCycle counts global steps
         total_steps = max(len(train_loader) * config.num_epochs, 2)
@@ -106,7 +118,8 @@ class AdvancedTrainer:
         self.state = TrainState.create(seed)
         self.start_epoch = 0
         if resume_from:
-            payload = restore_checkpoint(resume_from, model, self.optimizer, self.state)
+            payload = restore_checkpoint(resume_from, model, self.optimizer, self.state,
+                                         mesh=self.mesh)
             epoch = payload["meta"].get("epoch")
             if epoch is not None:
                 self.start_epoch = int(epoch) + 1
@@ -287,9 +300,8 @@ class AdvancedTrainer:
         if self._best_snapshot is not None:
             best_epoch, best_metrics, best_params = self._best_snapshot
             path = Path(self.config.save_path) / "best_model"
-            self.mesh.on_rank0(lambda: save_checkpoint(
-                str(path), state=self.state, metrics=best_metrics, epoch=best_epoch,
-                config=self.config, state_dict=best_params))
+            self.write_checkpoint(path, state_dict=best_params, optimizer=False,
+                                  metrics=best_metrics, epoch=best_epoch)
             self._log(f"Checkpoint saved: {path} (best epoch {best_epoch + 1})")
 
         if self.test_loader:
@@ -321,10 +333,21 @@ class AdvancedTrainer:
     # ------------------------------------------------------------- checkpoint
     def save_checkpoint(self, filename: str, epoch: int, metrics: Dict):
         path = Path(self.config.save_path) / filename
-        self.mesh.on_rank0(lambda: save_checkpoint(
-            str(path), self.model, self.state, self.optimizer, metrics=metrics, epoch=epoch,
-            config=self.config))
+        self.write_checkpoint(path, metrics=metrics, epoch=epoch)
         self._log(f"Checkpoint saved: {path}")
+
+    def write_checkpoint(self, path, state_dict=None, optimizer: bool = True,
+                         metrics: Optional[Dict] = None, epoch: Optional[int] = None) -> None:
+        """Every process: the whole state of the model (or ``state_dict``,
+        a snapshot of it) and, with ``optimizer``, of the optimizer, each
+        process's shards gathered over the model group; then rank 0 alone
+        writes it with the train state and the config, the others waiting."""
+        sd = gather_state_dict(self.model.state_dict() if state_dict is None else state_dict,
+                               self.mesh)
+        opt = optimizer_state(self.optimizer, self.mesh) if optimizer else None
+        self.mesh.on_rank0(lambda: save_checkpoint(
+            str(path), state=self.state, optimizer=opt, metrics=metrics, epoch=epoch,
+            config=self.config, state_dict=sd))
 
     # ------------------------------------------------------------------ plots
     def plot_confusion_matrix(self, targets, predictions, epoch: int):

@@ -1,4 +1,4 @@
-"""Process groups for the port's data-parallel tests: ``world`` spawned
+"""Process groups for the port's mesh tests: ``world`` spawned
 processes on the CPU over gloo, joined through a ``file://`` store (no TCP
 port: the suite runs under several xdist workers), one thread each, a
 timeout on the group and on every child. Imports torch and the port only:
@@ -13,6 +13,7 @@ rank order, raising a child's traceback if one failed. The ``*_rank``
 functions below are the children's bodies; their helpers build the tiny
 port model and batches the parent builds too.
 """
+import contextlib
 import importlib.util
 import multiprocessing
 import os
@@ -144,24 +145,83 @@ def rows_of(batch, rows):
             for k, v in batch.items()}
 
 
+def digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def train_two_steps(cfg, batch, mesh=None):
     """Two train steps of the tiny hierarchical model (contrastive loss on,
-    dropout and augmentation off) on ``batch``: (losses, grad norms,
-    state_dict)."""
+    dropout and augmentation off) on ``batch``, its parameters sharded over
+    ``mesh``'s model axis: (losses, grad norms, the whole state_dict after
+    them, the digest of this process's replicated parameters after each
+    step)."""
+    from simple_multimodal_tpu_torch.parallel.tensor import (gather_state_dict, placement,
+                                                             shard_module)
     from simple_multimodal_tpu_torch.train.optim import make_optimizer
     from simple_multimodal_tpu_torch.train.state import TrainState
     from simple_multimodal_tpu_torch.train.steps import make_train_step
 
     model = tiny_model(cfg)
+    if mesh is not None:
+        shard_module(model, mesh)
     opt = make_optimizer(cfg, model, total_steps=10)
     step = make_train_step(model, opt, cfg, augment=False, compute_contrastive_loss=True,
                            mesh=mesh)
-    state, losses, norms = TrainState.create(3), [], []
+    state, losses, norms, digests = TrainState.create(3), [], [], []
     for _ in range(2):
         state, parts = step(state, batch)
         losses.append(float(parts["total_loss"]))
         norms.append(float(parts["grad_norm"]))
-    return losses, norms, {k: v.clone() for k, v in model.state_dict().items()}
+        digests.append(digest(p for p in model.parameters() if placement(p) is None))
+    whole = gather_state_dict(model.state_dict(), mesh)
+    return losses, norms, {k: v.clone() for k, v in whole.items()}, digests
+
+
+def is_key_bias(name: str) -> bool:
+    return name.endswith(("key.bias", "k_proj.bias", "in_proj_bias"))
+
+
+def param_faults(got, want, travel):
+    """Parameters off ``want`` beyond 1e-4 of their largest magnitude (and
+    beyond 1e-4), key biases beyond ``travel`` (the k third of a packed
+    in_proj_bias; its q and v thirds as any parameter)."""
+    faults = []
+    for name, w in want.items():
+        g = got[name]
+        if not w.is_floating_point():
+            assert torch.equal(g, w), name
+            continue
+        pieces = [(name, g, w, is_key_bias(name))]
+        if name.endswith("in_proj_bias"):
+            E = w.shape[0] // 3
+            pieces = [(f"{name}[{part}]", g[i * E:(i + 1) * E], w[i * E:(i + 1) * E],
+                       part == "k") for i, part in enumerate("qkv")]
+        for label, a, b, key_bias in pieces:
+            err = float((a - b).abs().max())
+            tol = 2 * travel if key_bias else min(1e-4 * float(b.abs().max()), 1e-4)
+            if err > tol:
+                faults.append((label, err, tol))
+    return faults
+
+
+def step_faults(got, want):
+    """What keeps a run of ``train_two_steps`` on a mesh from the world-1
+    one: loss and gradient norm beyond 1e-5 relative, ``param_faults``."""
+    from simple_multimodal_tpu_torch.train.optim import make_schedule
+
+    faults = []
+    for what, a, b in (("loss", got[0], want[0]), ("grad_norm", got[1], want[1])):
+        if not np.allclose(a, b, rtol=1e-5, atol=0):
+            faults.append((what, a, b))
+    schedule = make_schedule(tiny_config(".").learning_rate, 10)
+    travel = sum(schedule(c) for c in range(2))  # the two steps' Σ lr
+    return faults + param_faults(got[2], want[2], travel)
 
 
 def load_cli():
@@ -214,8 +274,8 @@ def dp_step_rank(rank, world, tmp):
 TRAINER_BATCH = 10
 
 
-def port_trainer(tmp, weights, data, world: int, resume_from=None):
-    """The port's AdvancedTrainer at mesh (world, 1), one epoch of batches of
+def port_trainer(tmp, weights, data, world: int, resume_from=None, model_axis: int = 1):
+    """The port's AdvancedTrainer at mesh (world / model_axis, model_axis), one epoch of batches of
     ``TRAINER_BATCH``, from ``weights`` on the sample set ``data``, as
     tests/test_torch_trainer.py's parity run: dropout off (eval mode), the
     clip norm above every gradient norm, the LSTM's bias_hh frozen."""
@@ -224,7 +284,7 @@ def port_trainer(tmp, weights, data, world: int, resume_from=None):
     from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
 
     cfg = tiny_config(tmp, num_epochs=1, gradient_clip_norm=1e6, batch_size=TRAINER_BATCH,
-                      mesh_shape=(world, 1))
+                      mesh_shape=(world // model_axis, model_axis))
     for d in (cfg.save_path, cfg.log_path):
         Path(d).mkdir(parents=True, exist_ok=True)
     model = eval_mode(MultimodalEmotionModel(cfg))
@@ -242,7 +302,12 @@ def port_trainer(tmp, weights, data, world: int, resume_from=None):
 
 
 def state_of(trainer):
-    return {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    """The trainer's whole state_dict (gathered over its mesh's model axis:
+    every process calls it)."""
+    from simple_multimodal_tpu_torch.parallel.tensor import gather_state_dict
+
+    whole = gather_state_dict(trainer.model.state_dict(), trainer.mesh)
+    return {k: v.clone() for k, v in whole.items()}
 
 
 def trainer_rank(rank, world, tmp, weights, data, ck1):
@@ -263,8 +328,8 @@ def trainer_rank(rank, world, tmp, weights, data, ck1):
             "resumed": (resumed.state.step, resumed.start_epoch, state_of(resumed))}
 
 
-def cli_rank(rank, world, tmp, data):
-    """``train_advanced_torch.main`` at ``--device cpu --mesh world,1``, tiny
+def cli_rank(rank, world, tmp, data, model_axis: int = 1):
+    """``train_advanced_torch.main`` at ``--device cpu --mesh world/m,m``, tiny
     media sizes, started as torchrun starts a rank (``own_group``): main's
     ``initialize_distributed`` reads the rank and the world size from the
     environment and makes the gloo group, at a ``file://`` store here in
@@ -279,10 +344,94 @@ def cli_rank(rank, world, tmp, data):
     cli.ModelConfig = lambda **kw: tiny_config(tmp, **kw)
     writes = []
     record_writes(rank, writes)
-    out = cli.main(["--device", "cpu", "--preset", "tiny", "--mesh", f"{world},1",
+    mesh = f"{world // model_axis},{model_axis}"
+    out = cli.main(["--device", "cpu", "--preset", "tiny", "--mesh", mesh,
                     "--fusion_type", "early", "--data_path", data,
                     "--save_path", str(Path(tmp) / "cli"), "--epochs", "1",
                     "--batch_size", "4"])
     t = out["trainer"]
     return {"path": out["path"], "step": t.state.step, "train_losses": t.train_losses,
             "val_f1": t.val_f1_scores, "writes": writes, "state_dict": state_of(t)}
+
+
+# ------------------------------------------------------ tensor parallelism
+
+FAULTS = ("gather_param_sums", "clip_norm_local")
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """A fault the tensor-parallel checks must see: ``gather_param_sums``
+    sums the gathered weights' gradients over the model group in the
+    backward (each is then m times the whole gradient); ``clip_norm_local``
+    takes the clip's global norm over this process's shards alone."""
+    from simple_multimodal_tpu_torch.parallel import tensor
+    from simple_multimodal_tpu_torch.train import optim
+
+    if fault == "gather_param_sums":
+        owner, attr = tensor._GatherParam, "backward"
+
+        def bad(ctx, g):
+            mesh = ctx.mesh
+            whole = tensor.model_sum(g, mesh)
+            return tensor.split(whole, ctx.spec, mesh.model, mesh.model_index), None, None
+
+        bad = staticmethod(bad)
+    else:
+        owner, attr = optim, "global_norm"
+        local = optim.global_norm
+
+        def bad(grads, params=None):
+            return local(grads)
+
+    saved = owner.__dict__[attr]
+    setattr(owner, attr, bad)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)
+
+
+def tp_logits(cfg, weights, batch, mesh):
+    """The tiny model in eval mode on ``weights``, its parameters sharded over
+    ``mesh``'s model axis: the logits of this rank's rows of ``batch``,
+    gathered over the data group (the global batch's)."""
+    from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel
+    from simple_multimodal_tpu_torch.parallel.tensor import shard_module
+
+    model = MultimodalEmotionModel(cfg).eval()
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    shard_module(model, mesh)
+    rows = rows_of(batch, mesh.rows(len(batch["emotion"])))
+    with torch.no_grad():
+        out = model(rows["text"], rows["audio"], rows["video"])
+    return mesh.gather(out["emotion_logits"])
+
+
+def tp_rank(rank, world, tmp, model_axis, weights, data=None, ck1=None):
+    """At mesh (world / model_axis, model_axis): the eval logits of the
+    global batch on ``weights``; two train steps (``train_two_steps``) on
+    this rank's rows, faithful and with each planted fault; with ``ck1`` (a
+    world-1 trainer's checkpoint after its first epoch) the trainer resumed
+    from it at this mesh, its second epoch and a checkpoint ``ck2``."""
+    from simple_multimodal_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((world // model_axis, model_axis), "cpu")
+    cfg = tiny_config(tmp)
+    batch = global_batch()
+    rows = rows_of(batch, mesh.rows(8))
+    out = {"logits": tp_logits(cfg, weights, batch, mesh),
+           "steps": train_two_steps(cfg, rows, mesh)}
+    for fault in FAULTS:
+        with planted(fault):
+            out[fault] = train_two_steps(cfg, rows, mesh)
+    if ck1:
+        t = port_trainer(Path(tmp) / "resume", weights, data, world, resume_from=ck1,
+                         model_axis=model_axis)
+        out["resumed"] = (t.state.step, t.start_epoch, state_of(t))
+        t.current_epoch = 1
+        out["epoch2"] = t.train_epoch()
+        t.save_checkpoint("ck2", 1, {})
+        out["after"] = (t.state.step, state_of(t))
+        out["ck2"] = str(Path(t.config.save_path) / "ck2")
+    return out

@@ -814,3 +814,49 @@ def test_nccl_world_1_steps_are_bit_equal_to_steps_without_a_group(cuda, tmp_pat
     assert got[0] == want[0]
     for name, v in want[1].items():
         assert torch.equal(got[1][name], v), name
+
+
+@pytest.mark.parametrize("H", [6, 3])
+def test_cuda_deberta_head_split_matches_plain(cuda, H, monkeypatch):
+    """The per-process shape of DeBERTa's attention under a model axis (12
+    heads over 2 and 4: H = 6 and 3), bf16 at head width 64, with the
+    seed ``kernel_seed(model_axis=True)`` gives each (data, model) shard of
+    a (2, 2) mesh (a draw near 2³¹ that wraps): the kernel's forward and
+    gradients against the plain version on the same inputs and seed, within
+    the bf16 bounds of ``test_cuda_backward_kernels_match_autograd_of_plain``."""
+    from simple_multimodal_tpu_torch.ops.attention import kernel_seed
+    from simple_multimodal_tpu_torch.parallel.mesh import (KERNEL_SEED_STRIDE,
+                                                           MODEL_SEED_STRIDE, Mesh, use_mesh)
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, S, D, span = 2, 512, 64, 256
+    draw = 2 ** 31 - 5000
+    monkeypatch.setattr(torch, "randint",
+                        lambda *a, **kw: torch.tensor([draw], dtype=torch.int32,
+                                                      device=kw.get("device")))
+    mask = torch.ones(B, S, dtype=torch.int32, device=cuda)
+    mask[1, 300:] = 0
+    hopper.reset_launch_counts()
+    for r in range(4):
+        with use_mesh(Mesh(data=2, model=2, rank=r)):
+            rate, seed = kernel_seed(g, 0.1, True, cuda, model_axis=True)
+        i, j = divmod(r, 2)
+        offset = i * KERNEL_SEED_STRIDE + j * MODEL_SEED_STRIDE
+        assert int(seed) == (draw + offset + 2 ** 31) % 2 ** 32 - 2 ** 31
+        assert (int(seed) < 0) == (r > 0)  # every offset but shard (0, 0)'s wraps
+        q, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda).to(torch.bfloat16)
+                   for _ in range(3))
+        pk, pq = (torch.randn(2 * span, H * D, generator=g, device=cuda).to(torch.bfloat16)
+                  for _ in range(2))
+        kw = dict(span=span, max_position=512, dropout_rate=rate, dropout_seed=seed)
+        ts = [t.clone().requires_grad_() for t in (q, k, v, pk, pq)]
+        out = da.deberta_attention(*ts, mask, **kw)
+        gy = torch.randn(out.shape, generator=g, device=cuda).to(torch.bfloat16)
+        got = [out] + list(torch.autograd.grad(out, ts, gy))
+        t32 = [t.detach().float().requires_grad_() for t in ts]
+        want = da.deberta_attention_plain(*t32, mask, **kw)
+        want = [want] + list(torch.autograd.grad(want, t32, gy.float()))
+        for n, (a, b) in enumerate(zip(got, want)):
+            tol = 3e-2 if n == 0 else 5e-2
+            assert float((a.float() - b).abs().max()) <= tol * float(b.abs().max()), (H, r, n)
+    assert hopper.launch_counts() == _counts(deberta_attention=4, deberta_attention_bwd=4)

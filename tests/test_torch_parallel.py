@@ -140,44 +140,9 @@ def runs(tiny_config, tmp_path_factory):
                 jstate=state_dict_from_jax(jparams, td.tiny_config(root)))
 
 
-def _is_key_bias(name: str) -> bool:
-    return name.endswith(("key.bias", "k_proj.bias", "in_proj_bias"))
-
-
-def _param_faults(got, want, travel):
-    """Parameters off ``want`` beyond 1e-4 of their largest magnitude (and
-    beyond 1e-4), key biases beyond ``travel`` (the k third of a packed
-    in_proj_bias; its q and v thirds as any parameter)."""
-    faults = []
-    for name, w in want.items():
-        g = got[name]
-        if not w.is_floating_point():
-            assert torch.equal(g, w), name
-            continue
-        pieces = [(name, g, w, _is_key_bias(name))]
-        if name.endswith("in_proj_bias"):
-            E = w.shape[0] // 3
-            pieces = [(f"{name}[{part}]", g[i * E:(i + 1) * E], w[i * E:(i + 1) * E],
-                       part == "k") for i, part in enumerate("qkv")]
-        for label, a, b, key_bias in pieces:
-            err = float((a - b).abs().max())
-            tol = 2 * travel if key_bias else min(1e-4 * float(b.abs().max()), 1e-4)
-            if err > tol:
-                faults.append((label, err, tol))
-    return faults
-
-
-def _step_faults(got, want):
-    """What keeps a world-2 run of td.train_two_steps from the world-1 one."""
-    from simple_multimodal_tpu_torch.train.optim import make_schedule
-
-    faults = []
-    for what, a, b in (("loss", got[0], want[0]), ("grad_norm", got[1], want[1])):
-        if not np.allclose(a, b, rtol=1e-5, atol=0):
-            faults.append((what, a, b))
-    schedule = make_schedule(td.tiny_config(".").learning_rate, 10)
-    travel = sum(schedule(c) for c in range(2))  # the two steps' Σ lr
-    return faults + _param_faults(got[2], want[2], travel)
+_is_key_bias = td.is_key_bias
+_param_faults = td.param_faults
+_step_faults = td.step_faults
 
 
 def test_two_steps_at_world_2_equal_world_1(runs):
@@ -277,11 +242,14 @@ def test_cli_trains_under_a_two_process_launch(runs):
     assert (Path(a["path"]).parent / "final_config.json").exists()
 
 
-@pytest.mark.parametrize("mesh,error", [("1,2", NotImplementedError), ("2,1", ValueError)])
-def test_cli_refuses_a_mesh_the_processes_do_not_make(mesh, error, tmp_path):
-    """--mesh 1,2: the model axis is not ported; --mesh 2,1 in one process:
-    the data axis must equal the number of processes."""
-    with pytest.raises(error, match="Queue 1" if mesh == "1,2" else "world size is 1"):
+@pytest.mark.parametrize("mesh,error,match", [
+    ("1,2", ValueError, "world size is 1"), ("2,1", ValueError, "world size is 1"),
+    ("1,5", ValueError, "does not divide DeBERTa's 12 attention heads")])
+def test_cli_refuses_a_mesh_the_processes_do_not_make(mesh, error, match, tmp_path):
+    """--mesh 1,2 and --mesh 2,1 in one process: data x model must equal the
+    number of processes; --mesh 1,5: the model axis must divide the base
+    DeBERTa's 12 heads, checked before any process group or data."""
+    with pytest.raises(error, match=match):
         td.load_cli().main(["--device", "cpu", "--mesh", mesh, "--data_path",
                             str(tmp_path), "--save_path", str(tmp_path / "ck")])
 

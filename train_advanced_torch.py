@@ -12,18 +12,22 @@ Runs on the card: ``--device`` defaults to ``cuda``; ``auto`` means
 ``cuda`` too, and both raise without a CUDA device. ``--device cpu`` runs
 on the CPU (bf16 compute on the card, f32 on the CPU).
 
-``--mesh d,1`` trains data-parallel over d processes, one a card, launched
-by ``torchrun`` (NCCL on the cards, gloo with ``--device cpu``):
-``--batch_size`` stays the global batch, each process takes its rows, the
-gradients are averaged over the processes and the schedule counts global
-steps, so the run trains the same model, step for step, as ``--mesh 1,1``
-on one card. Under ``torchrun``, ``--device cuda`` is ``cuda:LOCAL_RANK``
-and rank 0 alone writes checkpoints and reports. ``d`` must equal the
-number of processes; a ``model`` axis above 1 is not ported yet and raises
-``NotImplementedError``. Without ``torchrun``, ``--mesh 1,1`` (the default)
-is one process on one card::
+``--mesh d,m`` trains over d·m processes, one a card, launched by
+``torchrun --nproc_per_node=d·m`` (NCCL on the cards, gloo with ``--device
+cpu``): data-parallel over d (``--batch_size`` stays the global batch, each
+data shard takes its rows, the gradients are averaged over the data shards
+and the schedule counts global steps) and tensor-parallel over m (the
+parameters and Adam moments that the JAX rule shards are stored sharded
+over the m processes of a data shard, gathered whole for the blocks, and
+DeBERTa's attention heads split over them), so the run trains the same
+model, step for step, as ``--mesh 1,1`` on one card. Under ``torchrun``,
+``--device cuda`` is ``cuda:LOCAL_RANK`` and rank 0 alone writes
+checkpoints (the whole state, which resumes under any mesh) and reports.
+d·m must equal the number of processes, and m must divide DeBERTa's 12
+heads (and the sharded widths: m in 1, 2, 3, 4, 6 at ``base``). Without
+``torchrun``, ``--mesh 1,1`` (the default) is one process on one card::
 
-    torchrun --standalone --nproc_per_node=8 train_advanced_torch.py --mesh 8,1 \\
+    torchrun --standalone --nproc_per_node=8 train_advanced_torch.py --mesh 4,2 \\
         --data_path data/sample --preset base --batch_size 16 --epochs 2
 
 Every mode of ``train_advanced.py`` runs: ``standard``, ``few_shot``,
@@ -118,7 +122,6 @@ def train_standard_model(model_config: ModelConfig, data_config: DataConfig, dev
                          resume_from: str = None):
     """Train, then save ``final_model_<fusion>``; returns (path, trainer)."""
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
-    from simple_multimodal_tpu_torch.train.checkpoint import save_checkpoint
     from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
 
     print(f"=== Training Standard Model with {fusion_type} fusion ===")
@@ -133,9 +136,7 @@ def train_standard_model(model_config: ModelConfig, data_config: DataConfig, dev
     )
     trainer.train()
     model_path = Path(model_config.save_path) / f"final_model_{fusion_type}"
-    trainer.mesh.on_rank0(lambda: save_checkpoint(
-        str(model_path), model, trainer.state, trainer.optimizer, metrics={},
-        epoch=trainer.current_epoch, config=model_config))
+    trainer.write_checkpoint(model_path, metrics={}, epoch=trainer.current_epoch)
     print(f"Model saved to: {model_path}")
     return str(model_path), trainer
 
@@ -207,7 +208,6 @@ def train_robust_model(model_config: ModelConfig, data_config: DataConfig,
                        experiment_config: ExperimentConfig, device,
                        seed: int = 0) -> Dict[str, Dict[str, float]]:
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
-    from simple_multimodal_tpu_torch.train.checkpoint import save_checkpoint
     from simple_multimodal_tpu_torch.train.trainer import RobustnessTrainer
 
     print("=== Robustness Training ===")
@@ -231,9 +231,7 @@ def train_robust_model(model_config: ModelConfig, data_config: DataConfig,
     for scenario, m in results.items():
         print(f"{scenario}: Accuracy={m['accuracy']:.3f}, F1={m['f1_macro']:.3f}")
     robust_path = Path(model_config.save_path) / "robust_model"
-    trainer.mesh.on_rank0(lambda: save_checkpoint(
-        str(robust_path), robust_model, trainer.state, trainer.optimizer, metrics={},
-        epoch=trainer.current_epoch, config=model_config))
+    trainer.write_checkpoint(robust_path, metrics={}, epoch=trainer.current_epoch)
     return results
 
 
@@ -243,6 +241,7 @@ def train_knowledge_distillation(model_config: ModelConfig, data_config: DataCon
     teacher restored from ``teacher_model_path``; the student alone saved
     to ``distilled_student_model``. Returns (path, trainer)."""
     from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+    from simple_multimodal_tpu_torch.parallel.tensor import gather_state_dict
     from simple_multimodal_tpu_torch.train.checkpoint import (read_meta, restore_params,
                                                               save_params)
     from simple_multimodal_tpu_torch.train.trainer import AdvancedTrainer
@@ -271,7 +270,8 @@ def train_knowledge_distillation(model_config: ModelConfig, data_config: DataCon
     )
     trainer.train()
     student_path = Path(model_config.save_path) / "distilled_student_model"
-    trainer.mesh.on_rank0(lambda: save_params(str(student_path), model.student))
+    student = gather_state_dict(model.student.state_dict(), trainer.mesh)  # every rank
+    trainer.mesh.on_rank0(lambda: save_params(str(student_path), student))
     print(f"Distilled model saved to: {student_path}")
     return str(student_path), trainer
 
@@ -386,8 +386,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["tiny", "half", "base"],
                         help="Encoder backbone scale")
     parser.add_argument("--mesh", type=str, default="1,1",
-                        help="Mesh 'data,model': data = the number of processes "
-                             "(torchrun --nproc_per_node), one a card; model must be 1")
+                        help="Mesh 'data,model': data x model processes "
+                             "(torchrun --nproc_per_node=data*model), one a card; model "
+                             "must divide DeBERTa's heads")
     parser.add_argument("--episodes", type=int, default=100,
                         help="Few-shot episodes per n_shot")
     parser.add_argument("--few_shot_samples", type=int, nargs="+", default=None,
@@ -411,16 +412,24 @@ def main(argv=None) -> Dict:
     if args.mode == "distillation" and not args.teacher_model:
         print("Error: Teacher model path required for distillation")
         return {"mode": args.mode}
+    from simple_multimodal_tpu_torch.models.deberta import DebertaConfig
     from simple_multimodal_tpu_torch.parallel.mesh import (initialize_distributed, mesh_axes,
                                                            process_index)
+    from simple_multimodal_tpu_torch.parallel.tensor import check_heads
 
     mesh_shape = tuple(int(x) for x in args.mesh.split(","))
+    # raise before anything is written or loaded on a shape the model or the
+    # processes do not make (the preset's DeBERTa heads, as resolve_backbone_configs)
+    text = {"tiny": DebertaConfig.tiny, "half": DebertaConfig.half}.get(args.preset,
+                                                                         DebertaConfig.base)()
+    check_heads(mesh_shape[1], text.num_heads, "DeBERTa")
     initialize_distributed(device="cpu" if args.device == "cpu" else "cuda")
-    mesh_axes(mesh_shape)  # raises before any data loads on a shape the processes do not make
+    mesh_axes(mesh_shape)
     device = resolve_device(args.device)
     set_seed(args.seed)
 
     model_config = ModelConfig(data_path=args.data_path, save_path=args.save_path)
+
     model_config.batch_size = args.batch_size
     model_config.num_epochs = args.epochs
     model_config.learning_rate = args.learning_rate
