@@ -16,6 +16,11 @@ dropout are drawn.
 All seven fusion types are ported. ``late`` fusion has no ``classifier``
 (its logits are the fused per-modality logits) and feeds the auxiliary
 heads the mean of the three features, as in the JAX model.
+
+While a profiler records, ``MultimodalEmotionModel.forward`` opens a span
+around each encoder (``smm.encode.text``, ``.audio``, ``.video``) and one
+around the rest (``smm.fuse``: modality dropout, fusion, classifier and
+heads), through ``utils/profiling.py``'s ``annotate``.
 """
 import functools
 import math
@@ -28,6 +33,7 @@ from ..data.video_wire import decode_video_wire
 from ..ops.adapters import AdapterLayer
 from ..ops.attention import dropout, linear, require_device, resolve_dtype
 from ..parallel.mesh import draw_rows
+from ..utils.profiling import annotate
 from .encoders import AudioEncoder, TextEncoder, VideoEncoder
 from .fusion import (AdaptiveFusion, ContrastiveFusion, EarlyFusion, GraphFusion,
                      HierarchicalFusion, LateFusion, MultimodalTransformer)
@@ -123,9 +129,18 @@ class MultimodalEmotionModel(nn.Module):
             if "video" in missing_modalities:
                 video_input = torch.zeros_like(video_input)
 
-        text = self.text_encoder(input_ids, attention_mask, dt, gen)["features"]
-        audio = self.audio_encoder(audio_input, dt, gen)["features"]
-        video = self.video_encoder(video_input, dt, gen)["features"]
+        with annotate("smm.encode.text"):
+            text = self.text_encoder(input_ids, attention_mask, dt, gen)["features"]
+        with annotate("smm.encode.audio"):
+            audio = self.audio_encoder(audio_input, dt, gen)["features"]
+        with annotate("smm.encode.video"):
+            video = self.video_encoder(video_input, dt, gen)["features"]
+        with annotate("smm.fuse"):
+            return self._fuse(text, audio, video, dt, compute_contrastive_loss, gen)
+
+    def _fuse(self, text, audio, video, dt, compute_contrastive_loss, gen) -> Dict:
+        """Modality dropout, the fusion layer, the classifier and the
+        auxiliary heads over the three encoders' features."""
         if self.training:
             text, audio, video = modality_dropout(text, audio, video, 0.1, gen)
 

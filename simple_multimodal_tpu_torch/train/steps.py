@@ -22,6 +22,12 @@ parameters are this process's shards, the norm sums their squares over the
 model group, and the replicated parameters' gradients are made the same on
 every model process (``sync_replicated_``). Without a process group none of
 that adds a collective or a larger draw.
+
+While a profiler records, a train step is the span ``smm.train_step`` and
+its phases the spans ``smm.forward`` (generators through the loss),
+``smm.backward`` (the gradients, with the mesh's reductions) and
+``smm.optimizer`` (norm, clip, update), through ``utils/profiling.py``'s
+``annotate``; with none recording they cost a check each.
 """
 from typing import Callable, Dict, Optional, Sequence
 
@@ -31,6 +37,7 @@ from ..data.augment import augment_batch
 from ..data.video_wire import decode_video_wire
 from ..parallel.mesh import Mesh, use_mesh
 from ..parallel.tensor import sync_replicated_
+from ..utils.profiling import annotate
 from .losses import cross_entropy, total_loss
 from .optim import AdamWChain
 from .state import TrainState
@@ -60,10 +67,22 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
     compute_dtype = model.dtype
 
     def step(state: TrainState, batch: Dict):
-        with use_mesh(mesh):
+        with use_mesh(mesh), annotate("smm.train_step"):
             return _step(state, batch)
 
     def _step(state: TrainState, batch: Dict):
+        with annotate("smm.forward"):
+            loss, parts = _forward(state, batch)
+        with annotate("smm.backward"):
+            grads = _backward(loss, optimizer, mesh)
+            parts = {k: v.detach() for k, v in parts.items()}
+            if mesh is not None:
+                mesh.all_reduce_mean_(parts.values())
+        with annotate("smm.optimizer"):
+            parts["grad_norm"] = optimizer.update(grads)
+        return TrainState(step=state.step + 1, generator=state.generator), parts
+
+    def _forward(state: TrainState, batch: Dict):
         device = next(model.parameters()).device
         g_aug, g_drop, g_miss = _device_generators(state, device, 3)
         audio = batch["audio"]
@@ -81,14 +100,7 @@ def make_train_step(model, optimizer: AdamWChain, config, augment: bool = False,
         model.train()
         outputs = model(text, audio, video, compute_contrastive_loss=compute_contrastive_loss,
                         gen=g_drop)
-        loss, parts = total_loss(outputs, batch["emotion"], label_smoothing=0.1,
-                                 logits_key=logits_key)
-        grads = _backward(loss, optimizer, mesh)
-        parts = {k: v.detach() for k, v in parts.items()}
-        if mesh is not None:
-            mesh.all_reduce_mean_(parts.values())
-        parts["grad_norm"] = optimizer.update(grads)
-        return TrainState(step=state.step + 1, generator=state.generator), parts
+        return total_loss(outputs, batch["emotion"], label_smoothing=0.1, logits_key=logits_key)
 
     return step
 

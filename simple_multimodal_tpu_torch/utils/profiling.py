@@ -1,18 +1,17 @@
-"""Tracing and step-time instrumentation (port of
-simple_multimodal_tpu/utils/profiling.py).
+"""Tracing instrumentation (port of simple_multimodal_tpu/utils/profiling.py).
 
 ``trace(log_dir)`` records the enclosed region with ``torch.profiler`` (CPU
 activity, and CUDA activity where a card is present) and writes a Chrome
 trace (viewable in Perfetto or chrome://tracing) into ``log_dir``; it
 yields the profiler, whose ``key_averages()`` sum the time by kernel.
-``annotate(name)`` names a region in such a trace (``record_function``)
-and, on the card, as an NVTX range. ``StepTimer`` keeps rolling step-time
-statistics on the host clock; ``memory_stats`` reads each card's memory.
+``annotate(name)`` is the program's one way to open a span: a region of
+such a trace, on the clock of the kernels it launches. ``memory_stats``
+reads each card's memory.
 """
 import contextlib
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
@@ -32,49 +31,19 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
-@contextlib.contextmanager
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region that shows up in captured traces (and in NVTX on the card)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-class StepTimer:
-    """Rolling step-time stats on the host clock. ``tick`` reads the clock
-    only; on the card, synchronise before a tick for device-complete times."""
-
-    def __init__(self, window: int = 100):
-        self.window = window
-        self._times: List[float] = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            self._times.append(now - self._last)
-            if len(self._times) > self.window:
-                self._times.pop(0)
-        self._last = now
-
-    def summary(self) -> Dict[str, float]:
-        if not self._times:
-            return {}
-        ts = sorted(self._times)
-        n = len(ts)
-        return {
-            "steps": n,
-            "mean_s": sum(ts) / n,
-            "p50_s": ts[n // 2],
-            "p90_s": ts[min(int(n * 0.9), n - 1)],
-            "max_s": ts[-1],
-        }
+    """A span named ``name``: ``record_function(name)`` while a profiler
+    records, so the span is a host event in the profiler's own stream and
+    shares the clock of the device activity it launches; with no profiler
+    recording it costs one check and enters nothing. Under
+    ``torch.autograd.profiler.emit_nvtx()`` the profiler records too, and
+    ``record_function`` opens the span as an NVTX range for ``nsys``."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return record_function(name)
 
 
 def memory_stats() -> Dict[str, Dict[str, int]]:

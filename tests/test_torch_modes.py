@@ -3,7 +3,7 @@ at the tiny preset and the media sizes of tests/conftest.py:
 ``train_advanced_torch.py --mode distillation | ablation | all`` against
 ``train_advanced.py`` on the same argv (the JAX side run only as far as the
 decision under test: its trainers are stubbed), and
-``utils/profiling.py`` against the JAX package's.
+``utils/profiling.py``.
 """
 import dataclasses
 import importlib.util
@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from simple_multimodal_tpu import config as jconfig
-from simple_multimodal_tpu.utils import profiling as jprofiling
 from simple_multimodal_tpu_torch import config as pconfig
 from simple_multimodal_tpu_torch.models import multimodal_model as pmodel
 from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel
@@ -278,17 +277,6 @@ def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "smm_region" for e in events)
     assert any(e.key == "smm_region" for e in prof.key_averages())
-
-
-def test_step_timer_summary_has_the_jax_keys():
-    got, want = profiling.StepTimer(window=3), jprofiling.StepTimer(window=3)
-    assert got.summary() == want.summary() == {}
-    for timer in (got, want):
-        for _ in range(6):
-            timer.tick()
-    s = got.summary()
-    assert set(s) == set(want.summary()) == {"steps", "mean_s", "p50_s", "p90_s", "max_s"}
-    assert s["steps"] == 3 and 0 <= s["p50_s"] <= s["max_s"]
 
 
 def test_memory_stats_is_empty_without_a_card():
