@@ -265,6 +265,20 @@ versions at the same tolerances,
 and time ``F.scaled_dot_product_attention`` beside flash_attention as a
 yardstick the port never calls.
 
+After phase 3, the positional conv phase holds wav2vec2's grouped 'same'
+convolution (``grouped_conv_same``, ``csrc/pos_conv.cu``, a kernel that
+replaces no TPU kernel) at [8,499,768] and [8,999,768] (K = 128, 16 groups)
+and the half width [8,499,384]: forward against the plain version (bf16
+3e-2, f32 1e-3), the input, weight and bias gradients against autograd of
+the plain version (5e-2 or 1e-3 of the largest magnitude), dx bit-equal
+between two runs; ``pos_conv`` lines give the kernel's forward and input
+gradient alone, cuDNN's weight gradient, the layer's forward+backward
+through the wrapper, the plain forward, cuDNN's ``F.conv1d`` forward and
+backward (a yardstick the port never calls) and the bound, and the device
+time by kernel of one forward+backward, which must show the wgmma kernel
+and no cuDNN ``dgrad``. ``python3 chip_smoke.py --pos-conv`` runs the build
+and this phase alone.
+
 ``python3 chip_smoke.py --profile`` runs none of the checks: after the build
 it prints, for the 10 s and the 20 s model, the device time by kernel over
 two B=8 forwards and two B=8 train steps, with the device's busy share of
@@ -347,10 +361,17 @@ SOURCES["deberta_attention_bwd"] = (
     "simple_multimodal_tpu_torch/csrc/deberta_attention_bwd_dkv_wgmma.cu")
 # the front end's backward kernels live beside its forward
 SOURCES["wav_frontend_bwd"] = "simple_multimodal_tpu_torch/csrc/wav_frontend.cu"
-NO_LAUNCHES = dict.fromkeys(REPLACES, 0)
+# kernels that replace no TPU kernel: wav2vec2's positional conv, which the JAX package
+# leaves to XLA (forward and input gradient)
+NEW_KERNELS = {"grouped_conv_same": "none: simple_multimodal_tpu/models/wav2vec2.py "
+                                    "PositionalConvEmbedding, lax.conv_general_dilated"}
+SOURCES["grouped_conv_same"] = "simple_multimodal_tpu_torch/csrc/pos_conv.cu"
+NO_LAUNCHES = dict.fromkeys([*REPLACES, *NEW_KERNELS, "grouped_conv_same_bwd"], 0)
 # one B=8 forward (serve) and one B=8 train step, at 10 s and at 20 s of audio
-FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12}
-BACKWARD_LAUNCHES = {"attention_block_bwd": 23, "ffn_block_bwd": 35, "deberta_attention_bwd": 12}
+FORWARD_LAUNCHES = {"attention_block": 23, "ffn_block": 35, "deberta_attention": 12,
+                    "grouped_conv_same": 1}
+BACKWARD_LAUNCHES = {"attention_block_bwd": 23, "ffn_block_bwd": 35, "deberta_attention_bwd": 12,
+                     "grouped_conv_same_bwd": 1}
 EXPECTED_LAUNCHES = {**NO_LAUNCHES, **FORWARD_LAUNCHES}
 TRAIN_LAUNCHES = {**EXPECTED_LAUNCHES, **BACKWARD_LAUNCHES}
 LONG_FORWARD_LAUNCHES = dict(EXPECTED_LAUNCHES, flash_attention=1, wav_frontend=1)
@@ -368,9 +389,9 @@ FEWSHOT_LAUNCHES = {**NO_LAUNCHES, **{k: 2 * v for k, v in FORWARD_LAUNCHES.item
 # the half preset, 6 layers a backbone: attention ViT 5 (its last layer is CLS-only, plain) +
 # wav2vec2 6; FFN ViT 5 + wav2vec2 6 + DeBERTa 6; DeBERTa's attention 6
 HALF_FORWARD_LAUNCHES = {**NO_LAUNCHES, "attention_block": 11, "ffn_block": 17,
-                         "deberta_attention": 6}
+                         "deberta_attention": 6, "grouped_conv_same": 1}
 HALF_TRAIN_LAUNCHES = {**HALF_FORWARD_LAUNCHES, "attention_block_bwd": 11, "ffn_block_bwd": 17,
-                       "deberta_attention_bwd": 6}
+                       "deberta_attention_bwd": 6, "grouped_conv_same_bwd": 1}
 FAMILY_STEPS = 3  # measured steps (episodes) of the family phases
 
 
@@ -3930,6 +3951,8 @@ WGMMA_KERNELS = {
     "deberta_fwd_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(2)),
     "deberta_bwd_dq_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(0)),
     "deberta_bwd_dkv_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(1)),
+    # <group width P, 64-row tiles a warpgroup>: wav2vec2's positional conv, P = 16 ... 128
+    "pos_conv_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_pos_conv_smem(n)),
 }
 
 
@@ -4055,6 +4078,101 @@ def _report_wgmma_kernels(_build):
     log(f"host cost of one TMA tensor map: {ns} ns (cuTensorMapEncodeTiled, mean of 2000; a "
         f"wgmma GEMM launch encodes 4, the attention core 3: ffn_block 8 per call = "
         f"{8 * ns / 1e3:.2f} us, attention_block 11 = {11 * ns / 1e3:.2f} us)")
+
+
+# -------------------------------------------------- the positional conv phase
+
+# (B, L, E, G, K): the main path's positional conv at 10 s and 20 s, and the half width
+POS_CONV_SHAPES = ((B, 499, 768, 16, 128), (B, 999, 768, 16, 128), (B, 499, 384, 16, 128))
+
+
+def _with_grads(fn, inputs, gy):
+    """fn(*inputs) and the gradient of sum(out * gy) for every input."""
+    import torch
+
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ins)
+    return [out.detach()] + list(torch.autograd.grad(out, ins, gy))
+
+
+def phase_pos_conv(dev) -> dict:
+    """wav2vec2's positional conv (``grouped_conv_same``, ``csrc/pos_conv.cu``)
+    at the main path's shapes: the forward in bf16 against the plain version
+    (f32 on the same rounded inputs, 3e-2), the input gradient (the kernel
+    on the mirrored taps), the weight gradient (cuDNN) and the bias
+    gradient against autograd of the plain version (5e-2 of the largest
+    magnitude), dx bit-equal between two runs, and f32 at 1e-3; then the
+    times (``pos_conv`` lines): the kernel's forward and input gradient
+    alone, the weight gradient alone, the layer's forward and backward
+    through the wrapper, the plain version, cuDNN's ``F.conv1d`` forward and
+    backward (a yardstick the port never calls) and the bound; and the
+    device time by kernel of one forward and backward through the wrapper."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import pos_conv as pc
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for Bn, L, E, G, K in POS_CONV_SHAPES:
+        cg = E // G
+        tag = f"pos_conv [{Bn},{L},{E}] G={G} K={K}"
+        for dtype, tol, gtol in ((torch.float32, ATOL_F32, ATOL_F32),
+                                 (torch.bfloat16, ATOL_BF16, GRAD_TOL_BF16)):
+            x = torch.randn(Bn, L, E, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(E, cg, K, generator=gen, device=dev) * (cg * K) ** -0.5).to(dtype)
+            bias = (torch.randn(E, generator=gen, device=dev) * 0.1).to(dtype)
+            gy = torch.randn(Bn, L, E, generator=gen, device=dev).to(dtype)
+            f32 = [t.float() for t in (x, w, bias)]
+            runs = [_with_grads(lambda *a: pc.grouped_conv_same(*a, G), [x, w, bias], gy)
+                    for _ in range(2)]
+            want = _with_grads(lambda *a: pc.grouped_conv_same_plain(*a, G), f32, gy.float())
+            sync()
+            errs = [float((a.float() - b).abs().max()) for a, b in zip(runs[0], want)]
+            scales = [float(b.abs().max()) for b in want]
+            bit = torch.equal(runs[0][1], runs[1][1])
+            log(f"{tag} {str(dtype)[6:]}: errors y/dx/dW/db "
+                + " ".join(f"{e:.2e}" for e in errs) + " of max "
+                + " ".join(f"{m:.3f}" for m in scales) + f", dx bit_equal={bit}")
+            if not torch.allclose(runs[0][0].float(), want[0], atol=tol, rtol=tol):
+                raise AssertionError(f"{tag} {dtype}: the forward disagrees with the plain version")
+            if not bit or any(e > gtol * m for e, m in zip(errs[1:], scales[1:])):
+                raise AssertionError(f"{tag} {dtype}: gradients {errs[1:]} beyond {gtol} of "
+                                     f"{scales[1:]}, or dx not bit-equal ({bit})")
+        taps, back = pc.tap_layout(w, G), pc.tap_layout(w, G, backward=True)
+        flop = 2.0 * Bn * L * E * cg * K
+        fwd = _back_to_back_ms(lambda: pc._launch(x, taps, bias, G, K // 2))
+        dx = _back_to_back_ms(lambda: pc._launch(gy, back, None, G, K - 1 - K // 2))
+        dw = _back_to_back_ms(lambda: pc.weight_grad(x, gy, w.shape, G))
+        xr, wr, br = (t.detach().clone().requires_grad_(True) for t in (x, w, bias))
+
+        def layer(fn):
+            def run():
+                y = fn(xr, wr, br, G)
+                y.backward(gy)
+            return run
+        both = median(time_ms(layer(pc.grouped_conv_same), 10))
+        plain = median(time_ms(lambda: pc.grouped_conv_same_plain(x, w, bias, G), 5))
+        library = median(time_ms(layer(pc.grouped_conv_same_plain), 3))
+        log(f"{tag} bf16 ms: kernel forward {fwd:.4f} ({flop / fwd / 1e9:.0f} TFLOP/s), input "
+            f"gradient {dx:.4f} ({flop / dx / 1e9:.0f} TFLOP/s), weight gradient (cuDNN) {dw:.4f}; "
+            f"forward+backward through the wrapper {both:.4f}; plain forward {plain:.4f}; "
+            f"library (cuDNN F.conv1d forward+backward) {library:.3f}; bound one product "
+            f"{flop / PEAK_FLOPS * 1e3:.4f}, forward+input gradient {2 * flop / PEAK_FLOPS * 1e3:.4f}")
+        if (Bn, L, E) == POS_CONV_SHAPES[0][:3]:
+            names = _log_device_times(f"{tag} forward+backward", layer(pc.grouped_conv_same),
+                                      top=8)
+            if not any("pos_conv_wgmma_kernel" in n for n in names) or any(
+                    "dgrad" in n for n in names):
+                raise AssertionError(f"{tag}: the wrapper's fwd+bwd ran {sorted(names)}")
+            out["grouped_conv_same"] = {
+                "max_abs_err": errs[0], "ms": fwd, "plain_ms": plain,
+                "bound_ms": flop / PEAK_FLOPS * 1e3, "bound_by": "operations",
+                "library_ms": library}
+        del x, w, gy, runs, want
+        torch.cuda.empty_cache()
+    log(f"pos_conv times: device time per call in a run of 10 back-to-back calls (kernel, weight "
+        f"gradient), CUDA-event medians of a call (the rest), on {smi_line()}")
+    return out
 
 
 # ------------------------------------------------------------ the GEMM phase
@@ -4297,6 +4415,9 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_profile if "--profile" in argv else phase_timings)(dev, tmp)
             return 0
+        if "--pos-conv" in argv:
+            phase_pos_conv(dev)
+            return 0
         if "--data-parallel" in argv or "--tensor-parallel" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_data_parallel if "--data-parallel" in argv
@@ -4306,6 +4427,7 @@ def main() -> int:
         phase_ffn_bwd_kernels(dev)
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))
+        kern.update(phase_pos_conv(dev))
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             _, demo = phase_serve_and_count(dev, tmp)
             phase_full_width_f32(demo)
@@ -4337,11 +4459,11 @@ def main() -> int:
         return 1
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
-        "replaces": REPLACES[name], "launches": counts[name],
+        "replaces": replaces, "launches": counts[name],
         "max_abs_err": kern[name]["max_abs_err"], "ms": kern[name]["ms"],
         "plain_ms": kern[name]["plain_ms"], "bound_ms": kern[name]["bound_ms"],
         "bound_by": kern[name]["bound_by"], "library_ms": kern[name]["library_ms"],
-    } for name in REPLACES]
+    } for name, replaces in {**REPLACES, **NEW_KERNELS}.items()]
     log(json.dumps({"kernels": kernels}))
     log(smi_line())
     log(json.dumps({"ok": True, "device": {

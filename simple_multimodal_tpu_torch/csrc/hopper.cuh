@@ -92,6 +92,17 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t atom_s
   return smem_desc(addr, atom_stride_bytes, 8 * SW, SwizzleCode<SW>::value);
 }
 
+// Either operand in the no-swizzle (interleaved) layout: a core matrix is 8
+// rows of 16 bytes stored as 128 contiguous bytes, so `addr` needs only
+// 16-byte alignment and a shift by one row is a shift of 16 bytes. K-major:
+// `k_stride_bytes` = from one 8-column core matrix to the next along the
+// contraction (the leading offset), `row_stride_bytes` = from one 8-row
+// group to the next (the stride offset).
+__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr, uint32_t k_stride_bytes,
+                                                    uint32_t row_stride_bytes) {
+  return smem_desc(addr, k_stride_bytes, row_stride_bytes, 0);
+}
+
 // ------------------------------------------------------------ wgmma control
 
 // Before the first wgmma of a batch, and after any thread-side write to
@@ -153,11 +164,15 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 #define SMM_ACC8(d, o)                                                                  \
   "+f"((d)[o]), "+f"((d)[o + 1]), "+f"((d)[o + 2]), "+f"((d)[o + 3]), "+f"((d)[o + 4]), \
       "+f"((d)[o + 5]), "+f"((d)[o + 6]), "+f"((d)[o + 7])
+#define SMM_ACC8A(d) SMM_ACC8(d, 0)
 #define SMM_ACC16(d) SMM_ACC8(d, 0), SMM_ACC8(d, 8)
+#define SMM_ACC24(d) SMM_ACC16(d), SMM_ACC8(d, 16)
 #define SMM_ACC32(d) SMM_ACC16(d), SMM_ACC8(d, 16), SMM_ACC8(d, 24)
 #define SMM_ACC48(d) SMM_ACC32(d), SMM_ACC8(d, 32), SMM_ACC8(d, 40)
 #define SMM_ACC64(d) SMM_ACC48(d), SMM_ACC8(d, 48), SMM_ACC8(d, 56)
-#define SMM_REG16 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define SMM_REG8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define SMM_REG16 SMM_REG8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define SMM_REG24 SMM_REG16 ", %16, %17, %18, %19, %20, %21, %22, %23"
 #define SMM_REG32 \
   SMM_REG16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define SMM_REG48 \
@@ -189,6 +204,9 @@ __device__ __forceinline__ void setmaxnreg_dec() {
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d), "n"(TB));              \
   }
 
+SMM_DEFINE_WGMMA(16, SMM_REG8, SMM_ACC8A, 8, 9, 10, 11, 12, 13, 14)
+SMM_DEFINE_WGMMA(32, SMM_REG16, SMM_ACC16, 16, 17, 18, 19, 20, 21, 22)
+SMM_DEFINE_WGMMA(48, SMM_REG24, SMM_ACC24, 24, 25, 26, 27, 28, 29, 30)
 SMM_DEFINE_WGMMA(64, SMM_REG32, SMM_ACC32, 32, 33, 34, 35, 36, 37, 38)
 SMM_DEFINE_WGMMA(96, SMM_REG48, SMM_ACC48, 48, 49, 50, 51, 52, 53, 54)
 SMM_DEFINE_WGMMA(128, SMM_REG64, SMM_ACC64, 64, 65, 66, 67, 68, 69, 70)
@@ -198,7 +216,11 @@ SMM_DEFINE_WGMMA(128, SMM_REG64, SMM_ACC64, 64, 65, 66, 67, 68, 69, 70)
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 96 || N == 128, "wgmma width not instantiated");
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128,
+                "wgmma width not instantiated");
+  if constexpr (N == 16) wgmma_ss_n16<TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_ss_n32<TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 48) wgmma_ss_n48<TB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_ss_n64<TB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 96) wgmma_ss_n96<TB>(d, desc_a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_ss_n128<TB>(d, desc_a, desc_b, scale_d);
@@ -285,6 +307,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One thread copies `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) of contiguous device memory into shared memory at `dst`, counted
+// on `bar` when they have landed: TMA's one-dimensional form, no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -27,6 +27,7 @@ from ..ops.attention import dropout, fused_weights, gelu, kernel_seed, layer_nor
 from ..parallel.mesh import draw_rows
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
+from ..ops.hopper.pos_conv import grouped_conv_same
 from ..ops.hopper.wav_frontend import wav_frontend
 from ._util import Group
 
@@ -122,7 +123,8 @@ class FeatureEncoder(nn.Module):
 
 class PositionalConvEmbedding(nn.Module):
     """Grouped conv with weight norm (torch ``weight_norm(dim=2)``: one
-    scale per kernel position, the direction normed over (out, in))."""
+    scale per kernel position, the direction normed over (out, in)),
+    through ``grouped_conv_same`` on the NWC frames."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -133,15 +135,13 @@ class PositionalConvEmbedding(nn.Module):
                           bias=nn.Parameter(torch.zeros(E)))
 
     def forward(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
-        K, G = self.cfg.pos_conv_kernel, self.cfg.pos_conv_groups
         v = self.conv.weight_v.float()
         norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
         w = (self.conv.weight_g * v / norm.clamp_min(1e-12)).to(dtype)
-        out = F.conv1d(hidden.to(dtype).transpose(1, 2), w, self.conv.bias.to(dtype),
-                       padding=K // 2, groups=G)
-        if K % 2 == 0:  # SamePad: drop the trailing extra frame
-            out = out[..., :-1]
-        return gelu(out, dtype).transpose(1, 2)
+        # 'same' padding, the trailing extra frame of an even K dropped (SamePad)
+        out = grouped_conv_same(hidden.to(dtype), w, self.conv.bias.to(dtype),
+                                self.cfg.pos_conv_groups)
+        return gelu(out, dtype)
 
 
 class Wav2Vec2EncoderLayer(nn.Module):

@@ -2,21 +2,24 @@
 
 Each wrapper (``attention_block.attention_block``, ``ffn_block.ffn_block``,
 ``deberta_attention.deberta_attention``, ``flash_attention.flash_attention``,
-``wav_frontend.wav_frontend``) runs its plain version for CPU tensors and,
-for CUDA tensors, a ``torch.autograd.Function`` whose forward and backward
-launch CUDA kernels (built from ``csrc/`` at first use). The forward
+``wav_frontend.wav_frontend``, ``pos_conv.grouped_conv_same``) runs its
+plain version for CPU tensors and, for CUDA tensors, a
+``torch.autograd.Function`` whose forward and backward launch CUDA kernels
+(built from ``csrc/`` at first use; ``grouped_conv_same``'s backward leaves
+the weight gradient to cuDNN). The forward
 launches count in the wrapper's ``launches`` attribute, the backward ones
 in the ``launches`` of ``*_bwd``. ``gemm`` holds the GEMM
 with fused epilogues that the two blocks' chains launch, on its own, for
 checks and timings; no model path calls it and it has no counter.
 """
-from . import attention_block, deberta_attention, ffn_block, flash_attention, wav_frontend
+from . import attention_block, deberta_attention, ffn_block, flash_attention, pos_conv, wav_frontend
 
 KERNELS = (attention_block.attention_block, ffn_block.ffn_block,
            deberta_attention.deberta_attention, flash_attention.flash_attention,
-           wav_frontend.wav_frontend, attention_block.attention_block_bwd,
-           ffn_block.ffn_block_bwd, deberta_attention.deberta_attention_bwd,
-           flash_attention.flash_attention_bwd, wav_frontend.wav_frontend_bwd)
+           wav_frontend.wav_frontend, pos_conv.grouped_conv_same,
+           attention_block.attention_block_bwd, ffn_block.ffn_block_bwd,
+           deberta_attention.deberta_attention_bwd, flash_attention.flash_attention_bwd,
+           wav_frontend.wav_frontend_bwd, pos_conv.grouped_conv_same_bwd)
 
 
 def reset_launch_counts() -> None:

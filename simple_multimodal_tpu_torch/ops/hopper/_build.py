@@ -82,6 +82,12 @@ SIGNATURES = {
     # which (0 dq, 1 dk/dv, 2 the re-run forward) -> bytes of dynamic shared memory of
     # deberta_attention's wgmma backward kernels
     "smm_deberta_bwd_wgmma_smem": [_I],
+    # dtype; x, w (the tap layout), bias (f32) or null, y; B, L, E, G, K, pad; stream
+    "smm_pos_conv": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # channels a group -> the wgmma width it is padded to, or 0
+    "smm_pos_conv_width": [_I],
+    # wgmma width -> bytes of dynamic shared memory of pos_conv_wgmma_kernel
+    "smm_pos_conv_smem": [_I],
     # base, rows, K, repetitions -> host nanoseconds per tensor map
     "smm_tensor_map_ns": [_P, _I, _I, _I],
     # N; a, bt, v, c, o; stream

@@ -15,6 +15,7 @@ from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
 from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
+from simple_multimodal_tpu_torch.ops.hopper import pos_conv as pc
 from simple_multimodal_tpu_torch.ops.hopper import wav_frontend as wf
 from simple_multimodal_tpu_torch.train.losses import total_loss
 from simple_multimodal_tpu_torch.train.optim import is_backbone_name, make_optimizer
@@ -229,7 +230,8 @@ def test_tiny_slice_on_cuda_matches_cpu(cuda, tmp_path):
         want = cpu(text, audio, video)
     L = 2  # tiny preset: two layers per backbone, the ViT's last one CLS-only
     assert hopper.launch_counts() == _counts(attention_block=(L - 1) + L,
-                                             ffn_block=(L - 1) + L + L, deberta_attention=L)
+                                             ffn_block=(L - 1) + L + L, deberta_attention=L,
+                                             grouped_conv_same=1)
     for key in ("text_features", "audio_features", "video_features",
                 "emotion_logits", "valence", "arousal"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-3, rtol=1e-3)
@@ -276,6 +278,8 @@ def test_tiny_train_steps_on_cuda_match_cpu(cuda, tmp_path):
     assert runs["cuda"][2]["attention_block_bwd"] == 2 * ((L - 1) + L)
     assert runs["cuda"][2]["ffn_block_bwd"] == 2 * ((L - 1) + L + L)
     assert runs["cuda"][2]["deberta_attention_bwd"] == 2 * L
+    assert runs["cuda"][2]["grouped_conv_same"] == 2
+    assert runs["cuda"][2]["grouped_conv_same_bwd"] == 2
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-4)
     for k, v in runs["cpu"][1].items():
         torch.testing.assert_close(runs["cuda"][1][k], v, atol=1e-4, rtol=1e-4, msg=k)
@@ -475,6 +479,92 @@ def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
         wf.wav_frontend(wav, kern[..., :8].repeat(1, 1, 3), gs[:24], gb[:24], 5)
 
 
+# (B, L, E, G, K): wav2vec2's positional conv at the base width (10 s and 20 s),
+# the half width and the tiny preset
+POS_CONV_SHAPES = [(8, 499, 768, 16, 128), (8, 999, 768, 16, 128), (8, 499, 384, 16, 128),
+                   (2, 37, 32, 2, 8)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 3e-2)])
+def test_cuda_pos_conv_matches_plain(cuda, dtype, tol):
+    """grouped_conv_same's kernel against the plain version (f32, on the same
+    rounded inputs) at the main path's shapes: the forward within ``tol``;
+    the input gradient (the kernel on the mirrored taps), the weight
+    gradient (cuDNN) and the bias gradient each within 5e-2 (bf16) or 1e-3
+    (f32) of the largest magnitude of its plain counterpart; the input
+    gradient bit-equal between two runs. One forward launch a call, one
+    backward launch a backward."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    gtol = 1e-3 if dtype == torch.float32 else 5e-2
+    hopper.reset_launch_counts()
+    for B, L, E, G, K in POS_CONV_SHAPES:
+        cg = E // G
+        x = torch.randn(B, L, E, generator=g, device=cuda).to(dtype)
+        w = (torch.randn(E, cg, K, generator=g, device=cuda) * (cg * K) ** -0.5).to(dtype)
+        bias = (torch.randn(E, generator=g, device=cuda) * 0.1).to(dtype)
+        with torch.no_grad():
+            y = pc.grouped_conv_same(x, w, bias, G)
+        want = pc.grouped_conv_same_plain(x.float(), w.float(), bias.float(), G)
+        assert y.dtype == dtype and y.shape == (B, L, E)
+        torch.testing.assert_close(y.float(), want, atol=tol, rtol=tol)
+        gy = torch.randn(B, L, E, generator=g, device=cuda).to(dtype)
+        runs = [_with_grads(lambda *a: pc.grouped_conv_same(*a, G), [x, w, bias], gy)
+                for _ in range(2)]
+        assert torch.equal(runs[0][1], runs[1][1])
+        plain = _with_grads(lambda *a: pc.grouped_conv_same_plain(*a, G),
+                            [x.float(), w.float(), bias.float()], gy.float())
+        for i, (a, b) in enumerate(zip(runs[0], plain)):
+            assert a.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
+            err = float((a.float() - b).abs().max())
+            assert err <= (tol if i == 0 else gtol) * float(b.abs().max()) + (
+                tol if i == 0 else 0.0), ((B, L, E, G, K), i, err)
+    n = len(POS_CONV_SHAPES)
+    assert hopper.launch_counts() == _counts(grouped_conv_same=3 * n, grouped_conv_same_bwd=2 * n)
+    with pytest.raises(ValueError, match="C_g = 12"):
+        pc.grouped_conv_same(torch.zeros(1, 5, 36, device=cuda, dtype=dtype),
+                             torch.zeros(36, 12, 3, device=cuda, dtype=dtype), None, 3)
+
+
+def test_cuda_pos_conv_width_agrees_with_the_kernel(cuda):
+    """The wrapper's padded width (``tile_width``, which ``tap_layout`` lays
+    the weight out at) is the kernel's, for every group width."""
+    from simple_multimodal_tpu_torch.ops.hopper import _build
+
+    lib = _build.library()
+    assert [lib.smm_pos_conv_width(c) for c in range(0, 137, 4)] == [
+        pc.tile_width(c) for c in range(0, 137, 4)]
+
+
+def test_tiny_b8_train_step_launches_pos_conv_once_each_way(cuda, tmp_path):
+    """One B=8 ``make_train_step`` of the tiny model (bf16, dropout and
+    SpecAugment on) launches the positional conv's kernel once forward and
+    once backward."""
+    from simple_multimodal_tpu_torch.train.state import TrainState
+    from simple_multimodal_tpu_torch.train.steps import make_train_step
+
+    cfg = ModelConfig(encoder_preset="tiny", text_max_length=16, audio_max_length=3200,
+                      video_max_frames=4, video_frame_size=(32, 32), fusion_hidden_size=32,
+                      fusion_num_heads=4, graph_hidden_size=16,
+                      data_path=str(tmp_path / "d"), save_path=str(tmp_path / "c"),
+                      log_path=str(tmp_path / "l"))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"text": {"input_ids": torch.randint(1, 1000, (8, 16), generator=gen).to(cuda),
+                      "attention_mask": torch.ones(8, 16, dtype=torch.int32, device=cuda)},
+             "audio": torch.randn(8, 3200, generator=gen).to(cuda),
+             "video": torch.randint(0, 256, (8, 4, 32, 32, 3), generator=gen,
+                                    dtype=torch.uint8).to(cuda),
+             "emotion": torch.arange(8, device=cuda) % 7}
+    model = create_model(cfg, device=cuda, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0))
+    step = make_train_step(model, make_optimizer(cfg, model, total_steps=10), cfg,
+                           compute_contrastive_loss=True)
+    hopper.reset_launch_counts()
+    _, parts = step(TrainState.create(0), batch)
+    counts = hopper.launch_counts()
+    assert (counts["grouped_conv_same"], counts["grouped_conv_same_bwd"]) == (1, 1)
+    assert all(bool(torch.isfinite(v).all()) for v in parts.values())
+
+
 def test_tiny_long_clip_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     """The tiny model on a clip of 519 wav2vec2 frames with the fused front
     end on, f32, eval mode with gradients: card (flash_attention forward and
@@ -507,9 +597,10 @@ def test_tiny_long_clip_on_cuda_matches_cpu(cuda, tmp_path, monkeypatch):
     L = 2
     assert runs["cuda"][3] == _counts(
         attention_block=(L - 1) + L, ffn_block=(L - 1) + L + L, deberta_attention=L,
-        flash_attention=1, wav_frontend=1, attention_block_bwd=(L - 1) + L,
-        ffn_block_bwd=(L - 1) + L + L, deberta_attention_bwd=L, flash_attention_bwd=1,
-        wav_frontend_bwd=1)
+        flash_attention=1, wav_frontend=1, grouped_conv_same=1,
+        attention_block_bwd=(L - 1) + L, ffn_block_bwd=(L - 1) + L + L,
+        deberta_attention_bwd=L, flash_attention_bwd=1, wav_frontend_bwd=1,
+        grouped_conv_same_bwd=1)
     assert runs["cpu"][3] == _counts()
     for key in ("text_features", "audio_features", "video_features", "emotion_logits"):
         torch.testing.assert_close(runs["cuda"][0][key].detach().cpu(),
