@@ -237,7 +237,15 @@ and equal to ``dropout.ffn_keep``), with the device time of one call inside
 a run of back-to-back calls, the TFLOP/s that is, and ``F.linear`` in bf16
 timed the same way beside it: a yardstick the port never calls.
 
-After the GEMM phase, the FFN backward's two-product kernel alone
+After the GEMM phase, ``gemm_linear`` (the DeepSeek text tower's
+projections and experts on ``smm_gemm``, forward and both backward
+products) at the tower's shapes (``GEMM_LINEAR_SHAPES``: 8192 tokens, 771
+rows for an expert): the forward at 3e-2, dx and every stacked weight's dW
+within 5e-2 of the tensor's largest magnitude against autograd of the plain
+f32 version, and the device time of a forward and backward.
+``python3 chip_smoke.py --gemm-linear`` runs the build and this phase alone.
+
+After that, the FFN backward's two-product kernel alone
 (``smm_ffn_bwd_mm``, ``csrc/ffn_block_bwd_wgmma.cu``), with and without
 dropout, against a plain f32 expression at M in {47280, 3992,
 130} (``ffn_bwd two-product`` lines: h and dh_pre at 3e-2, db1 the fold of
@@ -4249,6 +4257,77 @@ def phase_gemm(dev):
         f"on {smi_line()}")
 
 
+# The DeepSeek text tower's linear layers at the moonlight.train cell's
+# shapes (8192 tokens; a held expert's ~768 rows, ragged): (rows, the
+# stacked weights' rows, K)
+GEMM_LINEAR_SHAPES = (
+    ("q_proj", 8192, (3072,), 2048), ("kv_a_proj_with_mqa", 8192, (576,), 2048),
+    ("kv_b_proj", 8192, (4096,), 512), ("o_proj", 8192, (2048,), 2048),
+    ("dense gate+up", 8192, (11264, 11264), 2048), ("dense down", 8192, (2048,), 11264),
+    ("shared gate+up", 8192, (2816, 2816), 2048), ("shared down", 8192, (2048,), 2816),
+    ("expert gate+up", 771, (1408, 1408), 2048), ("expert down", 771, (2048,), 1408),
+)
+
+
+def gemm_linear_errors(dev, rows, outs, K, gen):
+    """``gemm_linear`` forward, dx and each weight's dW on bf16 ``x`` [rows,
+    K] and f32 weights [n, K] (n in ``outs``, stacked), against autograd of
+    the plain f32 expression on the same bf16-rounded operands: (the forward's
+    largest abs error and whether it is within ATOL_BF16 (atol=rtol), the
+    gradients' largest error as a share of each tensor's largest magnitude,
+    a callable that runs forward and backward once)."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper.gemm import gemm_linear
+
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, K, generator=gen, device=dev).to(bf16).requires_grad_()
+    ws = [(torch.randn(n, K, generator=gen, device=dev) * K ** -0.5).requires_grad_()
+          for n in outs]
+    gy = torch.randn(rows, sum(outs), generator=gen, device=dev).to(bf16)
+    y = gemm_linear(x, *ws)
+    y.backward(gy)
+    xf = x.detach().float().requires_grad_()
+    wf = [w.detach().to(bf16).float().requires_grad_() for w in ws]
+    yf = xf @ torch.cat(wf).t()
+    yf.backward(gy.float())
+    sync()
+    y, yf = y.detach(), yf.detach()
+    err = float((y.float() - yf).abs().max())
+    ok = bool(torch.allclose(y.float(), yf, atol=ATOL_BF16, rtol=ATOL_BF16))
+    grad = max(float((g.float() - want).abs().max() / want.abs().max())
+               for g, want in [(x.grad, xf.grad)] + [(w.grad, v.grad) for w, v in zip(ws, wf)])
+
+    def once():
+        for t in [x] + ws:
+            t.grad = None
+        gemm_linear(x, *ws).backward(gy)
+
+    return err, ok, grad, once
+
+
+def phase_gemm_linear(dev):
+    """``gemm_linear`` (the DeepSeek tower's projections and experts) at the
+    tower's shapes: forward (bf16, atol=rtol=ATOL_BF16), dx and every dW
+    (within GRAD_TOL_BF16 of each tensor's largest magnitude) against the
+    plain f32 version, and the device time of a forward and backward."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for name, rows, outs, K in GEMM_LINEAR_SHAPES:
+        err, ok, grad, once = gemm_linear_errors(dev, rows, outs, K, gen)
+        ms = _back_to_back_ms(once, reps=5)
+        log(f"gemm_linear {name} [{rows}, {'+'.join(map(str, outs))}, {K}]: err={err:.2e} "
+            f"grad err/max={grad:.2e} fwd+bwd ms={ms:.4f}")
+        if not ok or not grad <= GRAD_TOL_BF16:
+            raise AssertionError(f"gemm_linear {name}: disagrees with the plain version (forward "
+                                 f"err {err:.3e}, tol {ATOL_BF16}; gradients {grad:.3e} of "
+                                 f"their largest magnitude, tol {GRAD_TOL_BF16})")
+        del once
+        torch.cuda.empty_cache()
+    log(f"gemm_linear times above: device time a forward and backward, on {smi_line()}")
+
+
 def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate):
     """One launch of the FFN backward's two-product kernel alone
     (``smm_ffn_bwd_mm``): (h, dhp, part, db1)."""
@@ -4418,12 +4497,16 @@ def main() -> int:
         if "--pos-conv" in argv:
             phase_pos_conv(dev)
             return 0
+        if "--gemm-linear" in argv:
+            phase_gemm_linear(dev)
+            return 0
         if "--data-parallel" in argv or "--tensor-parallel" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_data_parallel if "--data-parallel" in argv
                  else phase_tensor_parallel)(dev, tmp)
             return 0
         phase_gemm(dev)
+        phase_gemm_linear(dev)
         phase_ffn_bwd_kernels(dev)
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))

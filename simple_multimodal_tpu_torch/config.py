@@ -26,6 +26,12 @@ class ModelConfig:
     text_model_name: str = "microsoft/deberta-v3-base"
     text_hidden_size: int = 768
     text_max_length: int = 512
+    # The DeepSeek text tower's cut (text_model_name moonshotai/Moonlight-16B-A3B,
+    # models/deepseek.py): the layers kept (0: the published 27), and this
+    # process's share of each MoE layer's routed experts as (index, count):
+    # the index-th of count equal blocks, as one of count expert-parallel ranks.
+    text_num_layers: int = 0
+    text_expert_share: Tuple[int, int] = (0, 1)
 
     # Audio encoder
     audio_model_name: str = "facebook/wav2vec2-base-960h"
@@ -117,6 +123,8 @@ class ModelConfig:
             self.video_frame_size = tuple(self.video_frame_size)
         if isinstance(self.mesh_shape, list):
             self.mesh_shape = tuple(self.mesh_shape)
+        if isinstance(self.text_expert_share, list):
+            self.text_expert_share = tuple(self.text_expert_share)
         # Create directories (reference behavior, config.py:76-79)
         for p in (self.data_path, self.save_path, self.log_path):
             os.makedirs(p, exist_ok=True)

@@ -3,8 +3,14 @@ text (DeBERTa), audio (wav2vec2 + temporal attention) and video (ViT CLS
 per frame + biLSTM + facial attention), each projected into the fusion
 space.
 
+The text backbone follows ``text_model_name``: moonshotai/Moonlight-16B-A3B
+builds the DeepSeek-V3 decoder (``models/deepseek.py``; ``text_num_layers``
+keeps its first layers, ``text_expert_share`` names the block of experts
+this process holds), any other name DeBERTa, as before.
+
 Behaviour kept from the reference: text pools the CLS token because 'bert'
-is a substring of the backbone's model_type; audio arrives as int16 and is
+is a substring of the backbone's model_type, and takes the mask-weighted
+mean otherwise (the decoder's ``deepseek_v3``); audio arrives as int16 and is
 dequantized on the device; video arrives in any wire format and is decoded
 on the device.
 
@@ -34,6 +40,7 @@ from ..ops.adapters import AdapterLayer
 from ..ops.attention import MultiHeadAttention, dropout, linear
 from ..ops.lstm import LSTM
 from .deberta import DebertaConfig, DebertaModel
+from .deepseek import MOONLIGHT, DeepseekConfig, DeepseekModel
 from .vit import ViTConfig, ViTModel
 from .wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 
@@ -61,13 +68,30 @@ def resolve_backbone_configs(config):
     return text, audio, vit
 
 
+def text_backbone_config(config):
+    """The text backbone's config: the DeepSeek decoder's for Moonlight (the
+    ``tiny`` preset's with the hashing tokenizer's vocabulary, as DeBERTa's
+    tiny), cut to ``text_num_layers`` (0: all) and ``text_expert_share``;
+    otherwise the preset's DeBERTa."""
+    if getattr(config, "text_model_name", None) != MOONLIGHT:
+        return resolve_backbone_configs(config)[0]
+    if getattr(config, "encoder_preset", "base") == "tiny":
+        cfg = dataclasses.replace(DeepseekConfig.tiny(), vocab_size=128100)
+    else:
+        cfg = DeepseekConfig.moonlight()
+    return dataclasses.replace(
+        cfg, num_hidden_layers=getattr(config, "text_num_layers", 0) or cfg.num_hidden_layers,
+        expert_share=tuple(getattr(config, "text_expert_share", (0, 1))))
+
+
 class TextEncoder(nn.Module):
     def __init__(self, config, adapter: bool = False, prompt: bool = False):
         super().__init__()
-        text_cfg, _, _ = resolve_backbone_configs(config)
+        text_cfg = text_backbone_config(config)
         E = text_cfg.hidden_size
         self.text_cfg = text_cfg
-        self.model = DebertaModel(text_cfg)
+        self.model = (DeepseekModel(text_cfg) if isinstance(text_cfg, DeepseekConfig)
+                      else DebertaModel(text_cfg))
         self.prompt_embeddings = (nn.Parameter(torch.zeros(config.prompt_length, E))
                                   if prompt else None)
         self.adapter = AdapterLayer(E, config.adapter_size) if adapter else None
@@ -87,8 +111,9 @@ class TextEncoder(nn.Module):
         if "bert" in self.text_cfg.model_type:  # reference substring rule
             pooled = seq[:, 0]
         else:
-            mask = attention_mask[..., None].to(seq.dtype)
-            pooled = (seq * mask).sum(1) / mask.sum(1).clamp_min(1e-9)
+            # in f32: a bf16 count of more than 256 rows is rounded
+            mask = attention_mask[..., None].float()
+            pooled = ((seq.float() * mask).sum(1) / mask.sum(1).clamp_min(1e-9)).to(seq.dtype)
         features = dropout(linear(pooled, self.projection, dtype), self.drop, gen, self.training)
         return {"features": features, "sequence_output": seq, "attention_mask": attention_mask}
 

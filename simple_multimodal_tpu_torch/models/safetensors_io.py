@@ -13,9 +13,10 @@ same bytes as the JAX package's writer (which stores a 0-d array as [1]).
 ``model.safetensors``, or a sharded ``model.safetensors.index.json``, and
 strips an architecture prefix (``deberta.``, ``wav2vec2.``, ``vit.``, ...)
 that every key shares. ``load_pretrained_backbones`` loads HF checkpoints
-of DeBERTa-v2/v3, wav2vec2 and ViT into ``text_encoder.model``,
-``audio_encoder.model`` and ``video_encoder.vit``, whose parameter names
-are HF's: a missing or unexpected key raises, naming it.
+of DeBERTa-v2/v3 (or DeepSeek-V3, for the Moonlight tower), wav2vec2 and
+ViT into ``text_encoder.model``, ``audio_encoder.model`` and
+``video_encoder.vit``, whose parameter names are HF's: a missing or
+unexpected key raises, naming it.
 
     from simple_multimodal_tpu_torch.models.safetensors_io import load_pretrained_backbones
     load_pretrained_backbones(model, text="/ckpts/deberta-v3-base",
@@ -24,8 +25,9 @@ are HF's: a missing or unexpected key raises, naming it.
 """
 import json
 import os
+import re
 import struct
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -40,15 +42,17 @@ DTYPES = {
 _NAMES = {v: k for k, v in DTYPES.items()}
 
 
-def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """One .safetensors file → {name: CPU tensor}."""
+def load_safetensors(path: str, keep: Optional[Callable[[str], bool]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """One .safetensors file → {name: CPU tensor}; with ``keep``, only the
+    tensors whose name it accepts are read."""
     with open(path, "rb") as f:
         (header_len,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(header_len).decode("utf-8"))
     data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + header_len)
     out: Dict[str, torch.Tensor] = {}
     for name, info in header.items():
-        if name == "__metadata__":
+        if name == "__metadata__" or (keep is not None and not keep(name)):
             continue
         dtype = DTYPES.get(info["dtype"])
         if dtype is None:
@@ -112,11 +116,13 @@ def _strip_shared_prefix(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
     return sd
 
 
-def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+def load_state_dict(path: str, keep: Optional[Callable[[str], bool]] = None
+                    ) -> Dict[str, torch.Tensor]:
     """A safetensors checkpoint (a file, a directory holding
     ``model.safetensors``, a sharded ``model.safetensors.index.json``, or
     a directory of .safetensors files) with a shared architecture prefix
-    stripped."""
+    stripped; with ``keep``, only the tensors whose (file) name it accepts
+    are read."""
     if os.path.isdir(path):
         index = os.path.join(path, "model.safetensors.index.json")
         single = os.path.join(path, "model.safetensors")
@@ -132,9 +138,9 @@ def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
                 raise FileNotFoundError(f"{path}: no model.safetensors[.index.json] found")
         sd: Dict[str, torch.Tensor] = {}
         for name in files:
-            sd.update(load_safetensors(os.path.join(path, name)))
+            sd.update(load_safetensors(os.path.join(path, name), keep))
     else:
-        sd = load_safetensors(path)
+        sd = load_safetensors(path, keep)
     return _strip_shared_prefix(sd)
 
 
@@ -153,15 +159,48 @@ def hf_names(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+_LAYER = re.compile(r"^(?:model\.)?layers\.(\d+)\.")
+_EXPERT = re.compile(r"\.mlp\.experts\.(\d+)\.")
+
+
+def deepseek_state_dict(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """A DeepSeek-V3 checkpoint (``DeepseekV3ForCausalLM``'s names, under
+    ``model.``) as the tower of ``cfg`` (``models/deepseek.py``) holds it:
+    the first ``num_hidden_layers`` layers and, of each MoE layer's routed
+    experts, only the held ones (``cfg.held_experts``, by their global
+    indices); the LM head and every other tensor are never read."""
+    held = set(cfg.held_experts)
+
+    def keep(name: str) -> bool:
+        if name.startswith("lm_head."):
+            return False
+        layer = _LAYER.match(name)
+        if layer and int(layer.group(1)) >= cfg.num_hidden_layers:
+            return False
+        expert = _EXPERT.search(name)
+        return not expert or int(expert.group(1)) in held
+
+    sd = load_state_dict(path, keep)
+    return {k[len("model."):] if k.startswith("model.") else k: v for k, v in sd.items()}
+
+
 def load_pretrained_backbones(model, text: Optional[str] = None, audio: Optional[str] = None,
                               video: Optional[str] = None):
     """HF safetensors checkpoints into a port model's backbones in place:
-    ``text`` (DeBERTa-v2/v3) into ``text_encoder.model``, ``audio``
-    (wav2vec2) into ``audio_encoder.model``, ``video`` (ViT) into
+    ``text`` (DeBERTa-v2/v3, or a DeepSeek-V3 checkpoint such as
+    Moonlight-16B-A3B's where the tower is that decoder: its kept layers
+    and held experts, ``deepseek_state_dict``) into ``text_encoder.model``,
+    ``audio`` (wav2vec2) into ``audio_encoder.model``, ``video`` (ViT) into
     ``video_encoder.vit``. Every key must match: ``load_state_dict`` raises
     naming the missing and unexpected ones, and any shape that differs.
     Returns the model."""
-    for path, module in ((text, model.text_encoder.model), (audio, model.audio_encoder.model),
+    from .deepseek import DeepseekModel
+
+    tower = model.text_encoder.model
+    if text is not None and isinstance(tower, DeepseekModel):
+        tower.load_state_dict(deepseek_state_dict(text, tower.cfg), strict=True)
+        text = None
+    for path, module in ((text, tower), (audio, model.audio_encoder.model),
                          (video, model.video_encoder.vit)):
         if path is not None:
             module.load_state_dict(hf_names(load_state_dict(path)), strict=True)

@@ -10,7 +10,8 @@ the weight gradient to cuDNN). The forward
 launches count in the wrapper's ``launches`` attribute, the backward ones
 in the ``launches`` of ``*_bwd``. ``gemm`` holds the GEMM
 with fused epilogues that the two blocks' chains launch, on its own, for
-checks and timings; no model path calls it and it has no counter.
+checks and timings, and ``gemm_linear`` on it, the DeepSeek text tower's
+linear layers; it has no counter.
 """
 from . import attention_block, deberta_attention, ffn_block, flash_attention, pos_conv, wav_frontend
 

@@ -6,10 +6,13 @@ chain, on its own:
 ``gemm`` launches ``smm_gemm`` (``csrc/gemm_wgmma.cu``) on bf16 CUDA tensors:
 the wgmma/TMA kernel where ``gemm_route`` says so, the WMMA kernel of
 ``csrc/gemm.cuh`` otherwise. ``chip_smoke.py`` and the GPU tests hold it
-against ``gemm_plain``; no model path calls it (the blocks' C chains call
-the same ``launch_gemm`` directly). ``accumulator_owner`` mirrors the
-register layout of a wgmma accumulator, in which the kernel's epilogue and
-the attention core's dropout address their elements.
+against ``gemm_plain``; the blocks' C chains call the same ``launch_gemm``
+directly. ``gemm_linear`` is a bias-free linear layer on it whose backward's
+two products run on it too (over transposed copies of the operands): the
+DeepSeek text tower's projections and experts (``models/deepseek.py``) go
+through it. ``accumulator_owner`` mirrors the register layout of a wgmma
+accumulator, in which the kernel's epilogue and the attention core's
+dropout address their elements.
 """
 import math
 from typing import Optional
@@ -143,3 +146,50 @@ def gemm(a, w, bias=None, act: str = "none", dropout: Optional[tuple] = None,
                        _build.stream_ptr(a))
     _build.check(lib, err, "gemm")
     return out
+
+
+def _rows_padded_t(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [M, C] transposed to [C, M'] with zero columns up to M' (a
+    multiple of 64), so that M is the inner dimension of a product the
+    wgmma kernel takes; zero terms add nothing."""
+    M, C = t.shape
+    out = t.new_zeros((C, -(-M // 64) * 64))
+    out[:, :M] = t.t()
+    return out
+
+
+class _GemmLinear(torch.autograd.Function):
+    """y = x wᵀ for bf16 ``x`` [M, K] and the bf16 cast ``w`` [N, K] of f32
+    weights stacked by rows; dx = dy w and dW = dyᵀ x in f32, each one
+    ``gemm``; dW is split back to the weights' rows."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        w = torch.cat([p.to(x.dtype) for p in weights]) if len(weights) > 1 \
+            else weights[0].to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.rows = [p.shape[0] for p in weights]
+        return gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = gemm(dy, w.t().contiguous()) if ctx.needs_input_grad[0] else None
+        if not any(ctx.needs_input_grad[1:]):
+            return (dx,) + (None,) * len(ctx.rows)
+        dw = gemm(_rows_padded_t(dy), _rows_padded_t(x), out_dtype=torch.float32)
+        return (dx,) + tuple(dw.split(ctx.rows))
+
+
+def gemm_linear(x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] times the f32 weights [N_i, K] stacked by rows (one
+    product for several layers that read the same input), in ``x``'s dtype,
+    bias-free, forward and backward on ``gemm``: bf16 on the card (any other
+    dtype there raises, as ``gemm`` does), ``gemm_plain`` on the CPU."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+        raise TypeError(f"gemm_linear: no {x.dtype} kernel on the card; x must be bfloat16 "
+                        f"(the model's mixed_precision)")
+    y = _GemmLinear.apply(x.reshape(-1, K), *weights)
+    return y.reshape(*lead, y.shape[-1])

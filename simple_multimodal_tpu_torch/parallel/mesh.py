@@ -46,6 +46,8 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import annotate
+
 KERNEL_SEED_STRIDE = 1000003  # the JAX kernels' per-shard seed offset on the data axis
 MODEL_SEED_STRIDE = 7919  # deberta_attention's further offset on the model axis
 DEFAULT_TIMEOUT = timedelta(minutes=10)
@@ -76,6 +78,14 @@ class Mesh:
     group: Optional[object] = None
     data_group: Optional[object] = None
     model_group: Optional[object] = None
+    # bytes all_reduce_mean_ has reduced (a counter: one mutable cell in the frozen mesh)
+    reduced: list = dataclasses.field(default_factory=lambda: [0], compare=False, hash=False,
+                                      repr=False)
+
+    @property
+    def reduced_bytes(self) -> int:
+        """The bytes this mesh's ``all_reduce_mean_`` calls have reduced so far."""
+        return self.reduced[0]
 
     @property
     def data_index(self) -> int:
@@ -112,12 +122,15 @@ class Mesh:
     def all_reduce_mean_(self, tensors: Iterable[Optional[torch.Tensor]]) -> None:
         """Replace each tensor by its mean over the data group, in place,
         through one all-reduce of their concatenation (Nones are skipped:
-        every rank must pass the same list)."""
+        every rank must pass the same list). While a profiler records it is
+        the span ``smm.allreduce``; ``reduced_bytes`` counts what it
+        reduces."""
         ts = [t for t in tensors if t is not None]
         if not self.data_distributed or not ts:
             return
-        with torch.no_grad():
+        with annotate("smm.allreduce"), torch.no_grad():
             flat = torch.cat([t.reshape(-1) for t in ts])
+            self.reduced[0] += flat.numel() * flat.element_size()
             dist.all_reduce(flat, group=self.data_group)
             _unflatten(flat.div_(self.data), ts)
 

@@ -49,11 +49,14 @@ its group's first process's (``train/steps.py``, after the mean over the
 data group). The global norm sums the shards' squares over the model group
 (``train/optim.py::global_norm``).
 
-A dimension or head count that m does not divide raises a ``ValueError``
-naming it (the JAX kernels fall back to their XLA paths there,
-``ops/pallas/spmd.py:20-32``).
+The DeepSeek text tower (``models/deepseek.py``) has no rule here: a model
+axis above 1 refuses it, naming its parameters (``refuse_model_axis``);
+data parallelism runs it as any model. A dimension or head count that m
+does not divide raises a ``ValueError`` naming it (the JAX kernels fall
+back to their XLA paths there, ``ops/pallas/spmd.py:20-32``).
 """
 import dataclasses
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -283,14 +286,37 @@ def check_heads(m: int, heads: int, who: str) -> None:
                          f"heads, which the mesh splits over it")
 
 
+def name_patterns(names) -> List[str]:
+    """Parameter names with every numeric component as ``*``, in order, once each."""
+    out = []
+    for n in names:
+        p = re.sub(r"(^|\.)\d+(?=\.|$)", r"\1*", n)
+        if p not in out:
+            out.append(p)
+    return out
+
+
+def refuse_model_axis(m: int, who: str, names) -> None:
+    """Raise for a model axis m > 1 over a module that has no sharding rule,
+    naming its parameters (``names``, with layer and expert indices as *)."""
+    if m > 1:
+        raise ValueError(f"{who}: no rule splits its parameters over a model axis "
+                         f"({', '.join(name_patterns(names))}); the model axis of {m} refuses "
+                         f"it: run it on a mesh of d,1")
+
+
 def shard_module(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Keep this process's shard of each parameter the rule shards, in
     place, tagged with its placement; nothing when the model axis is 1.
     Every module that splits heads over the axis (``split_heads_of``
-    attribute: its head count) must have m divide them."""
+    attribute: its head count) must have m divide them; a module marked
+    ``refuses_model_axis`` (the DeepSeek text tower) raises."""
     if mesh.model == 1:
         return module
     for name, mod in module.named_modules():
+        if getattr(mod, "refuses_model_axis", False):
+            refuse_model_axis(mesh.model, name or type(mod).__name__,
+                              [n for n, _ in mod.named_parameters()])
         heads = getattr(mod, "split_heads_of", None)
         if heads is not None:
             check_heads(mesh.model, heads, name or type(mod).__name__)

@@ -431,13 +431,21 @@ def test_hash_tokenizer_ids_identical():
             np.testing.assert_array_equal(got[k], want[k])
 
 
+# the port's own fields: the DeepSeek text tower's cut, which the JAX package lacks
+PORT_ONLY = {"text_num_layers": 0, "text_expert_share": (0, 1)}
+
+
 def test_model_config_fields_and_defaults_match_jax(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)  # a config mkdirs data/, checkpoints/, logs/
     jf = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     pf = {f.name: f.default for f in dataclasses.fields(pconfig.ModelConfig)}
+    assert {k: pf.pop(k) for k in PORT_ONLY} == PORT_ONLY
     assert pf == jf
     j, p = ModelConfig(), pconfig.ModelConfig()
-    assert config_to_dict(p) == config_to_dict(j)
+    pd = config_to_dict(p)
+    assert {k: pd.pop(k) for k in PORT_ONLY} == {k: list(v) if isinstance(v, tuple) else v
+                                                 for k, v in PORT_ONLY.items()}
+    assert pd == config_to_dict(j)
 
 
 def test_model_config_json_round_trip(tmp_path):

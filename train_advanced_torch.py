@@ -4,7 +4,11 @@
 Takes ``train_advanced.py``'s flags: ``--mode``, ``--fusion_type``, the
 paths, batch size, epochs, learning rate, seed, wandb, ``--preset``,
 ``--episodes``, ``--few_shot_samples``, ``--resume``, ``--dataset``,
-``--mesh``. The JAX package's TPU-only flags (``--flash_attention``,
+``--mesh``. ``--text_model_name moonshotai/Moonlight-16B-A3B`` (with
+``--text_num_layers`` and ``--text_expert_share index,count``) trains the
+DeepSeek-V3 decoder as the text tower (``models/deepseek.py``); it runs
+under ``--mesh d,1`` and a model axis above 1 refuses it before anything is
+loaded. The JAX package's TPU-only flags (``--flash_attention``,
 ``--flash_attention_train``, ``--remat``) are accepted and written to
 ``final_config.json`` unread.
 
@@ -388,7 +392,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh", type=str, default="1,1",
                         help="Mesh 'data,model': data x model processes "
                              "(torchrun --nproc_per_node=data*model), one a card; model "
-                             "must divide DeBERTa's heads")
+                             "must divide DeBERTa's heads, and be 1 for the Moonlight tower")
+    parser.add_argument("--text_model_name", type=str, default="microsoft/deberta-v3-base",
+                        help="Text backbone: DeBERTa-v3, or moonshotai/Moonlight-16B-A3B for "
+                             "the DeepSeek-V3 decoder (models/deepseek.py)")
+    parser.add_argument("--text_num_layers", type=int, default=0,
+                        help="Moonlight: the decoder layers kept (0: the published 27)")
+    parser.add_argument("--text_expert_share", type=str, default="0,1",
+                        help="Moonlight: 'index,count', this process's block of each MoE "
+                             "layer's routed experts, as one of count expert-parallel ranks")
     parser.add_argument("--episodes", type=int, default=100,
                         help="Few-shot episodes per n_shot")
     parser.add_argument("--few_shot_samples", type=int, nargs="+", default=None,
@@ -413,22 +425,32 @@ def main(argv=None) -> Dict:
         print("Error: Teacher model path required for distillation")
         return {"mode": args.mode}
     from simple_multimodal_tpu_torch.models.deberta import DebertaConfig
+    from simple_multimodal_tpu_torch.models.deepseek import MOONLIGHT, DeepseekConfig, DeepseekModel
     from simple_multimodal_tpu_torch.parallel.mesh import (initialize_distributed, mesh_axes,
                                                            process_index)
-    from simple_multimodal_tpu_torch.parallel.tensor import check_heads
+    from simple_multimodal_tpu_torch.parallel.tensor import check_heads, refuse_model_axis
 
     mesh_shape = tuple(int(x) for x in args.mesh.split(","))
     # raise before anything is written or loaded on a shape the model or the
-    # processes do not make (the preset's DeBERTa heads, as resolve_backbone_configs)
-    text = {"tiny": DebertaConfig.tiny, "half": DebertaConfig.half}.get(args.preset,
-                                                                         DebertaConfig.base)()
-    check_heads(mesh_shape[1], text.num_heads, "DeBERTa")
+    # processes do not make (the preset's DeBERTa heads, as resolve_backbone_configs;
+    # the Moonlight tower has no model-axis rule)
+    if args.text_model_name == MOONLIGHT:
+        names = [n for n, _ in DeepseekModel(DeepseekConfig.tiny()).named_parameters()]
+        refuse_model_axis(mesh_shape[1], "text_encoder.model (Moonlight)", names)
+    else:
+        text = {"tiny": DebertaConfig.tiny, "half": DebertaConfig.half}.get(args.preset,
+                                                                             DebertaConfig.base)()
+        check_heads(mesh_shape[1], text.num_heads, "DeBERTa")
     initialize_distributed(device="cpu" if args.device == "cpu" else "cuda")
     mesh_axes(mesh_shape)
     device = resolve_device(args.device)
     set_seed(args.seed)
 
-    model_config = ModelConfig(data_path=args.data_path, save_path=args.save_path)
+    model_config = ModelConfig(data_path=args.data_path, save_path=args.save_path,
+                               text_model_name=args.text_model_name,
+                               text_num_layers=args.text_num_layers,
+                               text_expert_share=tuple(int(x) for x in
+                                                       args.text_expert_share.split(",")))
 
     model_config.batch_size = args.batch_size
     model_config.num_epochs = args.epochs
