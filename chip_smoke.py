@@ -245,6 +245,17 @@ within 5e-2 of the tensor's largest magnitude against autograd of the plain
 f32 version, and the device time of a forward and backward.
 ``python3 chip_smoke.py --gemm-linear`` runs the build and this phase alone.
 
+Then the optimizer update (``phase_adamw``) at the parameter lists of
+``portbench/configs/mer_base.json`` and ``mer_moonlight.json`` (models built
+on the meta device, f32 leaves filled from a seed): the two AdamW kernels
+(``csrc/adamw.cu``) against the chain of foreach passes (``adamw`` lines:
+the norm within 1e-6; at mer_base also m and v within 2e-6 and each leaf's
+change within 1e-5, relative in norm; one launch of each kernel), then the
+update's device time, chain, kernels, kernels, chain, beside the byte bound
+(32 B an element over 3.35 TB/s), the host's enqueue time and the device
+memory one update adds. ``python3 chip_smoke.py --adamw`` runs the build and
+this phase alone.
+
 After that, the FFN backward's two-product kernel alone
 (``smm_ffn_bwd_mm``, ``csrc/ffn_block_bwd_wgmma.cu``), with and without
 dropout, against a plain f32 expression at M in {47280, 3992,
@@ -3409,8 +3420,8 @@ def _planted(fault):
         owner, attr = optim, "global_norm"
         local = optim.global_norm
 
-        def bad(grads, params=None):
-            return local(grads)
+        def bad(grads, params=None, norms=None):
+            return local(grads, norms=norms)
 
     saved = owner.__dict__[attr]
     setattr(owner, attr, bad)
@@ -4328,6 +4339,177 @@ def phase_gemm_linear(dev):
     log(f"gemm_linear times above: device time a forward and backward, on {smi_line()}")
 
 
+# the benchmark configurations whose parameter lists the AdamW phase updates
+ADAMW_CONFIGS = ("mer_base", "mer_moonlight")
+ADAMW_BYTES = 32  # an element: g read twice (norm, update), p, m and v read and written once
+
+
+def _adamw_leaves(name: str) -> list:
+    """(name, shape) of every trainable parameter of ``portbench/configs/
+    <name>.json``'s model, built on the meta device (no memory, no
+    initialisation)."""
+    import torch
+
+    from simple_multimodal_tpu_torch.config import ModelConfig
+    from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                        f"{name}.json")
+    with open(path) as f:
+        program = dict(json.load(f)["program"])
+    fusion = program.pop("fusion_type")
+    config = ModelConfig(**program)
+    config.fusion_type = fusion
+    with torch.device("meta"):
+        model = MultimodalEmotionModel(config, dtype=torch.bfloat16)
+    return [(n, tuple(p.shape)) for n, p in model.named_parameters() if p.requires_grad]
+
+
+def _adamw_rel(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _adamw_subset(leaves: list) -> list:
+    """Indices of the leaves (``_adamw_leaves``) whose whole update
+    ``phase_adamw`` holds to the chain where a second state of every leaf
+    does not fit: the largest leaf (the token embedding, 5120 chunks), every
+    leaf of the last layer with routed experts (its router, held experts and
+    shared experts) and the table's last 64 leaves (the heads, down to one
+    element), so the chunks at both ends of the table."""
+    import math
+
+    sizes = [math.prod(s) for _, s in leaves]
+    names = [n for n, _ in leaves]
+    picked = {max(range(len(sizes)), key=sizes.__getitem__)}
+    experts = [n for n in names if ".mlp.experts." in n]
+    if experts:
+        layer = experts[-1].split(".mlp.")[0] + ".mlp."
+        picked.update(i for i, n in enumerate(names) if n.startswith(layer))
+    picked.update(range(max(len(names) - 64, 0), len(names)))
+    return sorted(picked)
+
+
+def _host_ms(fn, reps: int) -> list:
+    """The host's enqueue time (ms) of ``reps`` calls, each from an idle device."""
+    out = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    sync()
+    return out
+
+
+def phase_adamw(dev):
+    """The optimizer update at ``ADAMW_CONFIGS``' parameter lists (f32
+    parameters ~N(0, 0.02), gradients ~N(0, 1e-3), the clip engaged, lr
+    1e-3, so that a change is not lost in the rounding of p): one update of
+    the two kernels (``ops/hopper/adamw.py``) over every leaf against the
+    chain (``AdamWChain._chain``) from the same state: the norm within 1e-6,
+    and each compared leaf's m and v within 2e-6 and its change within 1e-5,
+    relative in norm. mer_base compares every leaf, its chain clipping by
+    its own norm; mer_moonlight, whose second state does not fit beside the
+    timings, the leaves of ``_adamw_subset``, its chain given the gradients
+    clipped by the kernels' norm (``clip = inf``). Then one launch of each
+    kernel and every element through them; the update's device time (CUDA
+    events, medians of 5: chain, kernels, kernels, chain) beside the byte
+    bound, the host's enqueue time and the device memory one update adds to
+    the state (parameters, gradients, moments); and the global norm from
+    ``torch._foreach_norm`` (the chain's) against the one from
+    ``foreach_sumsq``, device and host times."""
+    import math
+
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper import adamw
+    from simple_multimodal_tpu_torch.train.optim import AdamWChain, global_norm
+
+    for cfg_name in ADAMW_CONFIGS:
+        leaves = _adamw_leaves(cfg_name)
+        names = [n for n, _ in leaves]
+        gen = torch.Generator(device=dev).manual_seed(20)
+        init = [torch.randn(s, generator=gen, device=dev) * 0.02 for _, s in leaves]
+        grads = [torch.randn(s, generator=gen, device=dev) * 1e-3 for _, s in leaves]
+        opt = AdamWChain(zip(names, [torch.nn.Parameter(x) for x in init]),
+                         lambda count: 1e-3, 1.0, weight_decay=0.01)
+        del init
+        elements = sum(p.numel() for p in opt.params)
+        launches = (adamw.foreach_sumsq.launches, adamw.foreach_adamw.launches)
+        want_norm = global_norm(grads, opt.params)  # the chain's norm
+        whole = cfg_name == "mer_base"
+        picked = list(range(len(names))) if whole else _adamw_subset(leaves)
+        before = [opt.params[i].detach().clone() for i in picked]
+        want = AdamWChain(zip([names[i] for i in picked],
+                              [torch.nn.Parameter(p.clone()) for p in before]),
+                          lambda count: 1e-3, 1.0 if whole else math.inf, weight_decay=0.01)
+        norm = opt.update(grads)
+        # the chain's clip coefficient, of the kernels' norm where the chain sees a subset
+        coef = 1.0 if whole else torch.where(norm < 1.0, torch.ones_like(norm), 1.0 / norm)
+        want._chain([grads[i] * coef for i in picked])
+        errs = {"norm": abs(float(norm) / float(want_norm) - 1),
+                "m": max(_adamw_rel(opt.mu[i], b) for i, b in zip(picked, want.mu)),
+                "v": max(_adamw_rel(opt.nu[i], b) for i, b in zip(picked, want.nu)),
+                "change": max(_adamw_rel(opt.params[i].detach() - c, b.detach() - c)
+                              for i, b, c in zip(picked, want.params, before))}
+        compared = sum(b.numel() for b in before)
+        del want, before
+        sync()
+        got = (adamw.foreach_sumsq.launches - launches[0], adamw.foreach_adamw.launches -
+               launches[1])
+        log(f"adamw {cfg_name}: {len(names)} leaves, {elements} elements; norm {float(norm):.6g} "
+            f"(chain {float(want_norm):.6g}); update compared at {len(picked)} leaves, "
+            f"{compared} elements (leaves {picked[0]}..{picked[-1]}); relative errors " +
+            " ".join(f"{k}={v:.2e}" for k, v in errs.items()) + f"; launches {got}")
+        bounds = {"norm": 1e-6, "m": 2e-6, "v": 2e-6, "change": 1e-5}
+        if got != (1, 1) or any(not v <= bounds[k] for k, v in errs.items()):
+            raise AssertionError(f"adamw {cfg_name}: kernels disagree with the chain {errs} "
+                                 f"(bounds {bounds}) or launched {got} times")
+        if opt.fused_elements != elements:
+            raise AssertionError(f"adamw {cfg_name}: {opt.fused_elements} elements through the "
+                                 f"kernels of {elements}")
+        bound = ADAMW_BYTES * elements / 3.35e12 * 1e3
+        fns = {"chain": lambda: opt._chain(grads), "kernels": lambda: opt.update(grads)}
+        ms, host = {}, {}
+        for which in ("chain", "kernels", "kernels", "chain"):
+            ms.setdefault(which, []).append(median(time_ms(fns[which], 5)))
+            host.setdefault(which, []).append(median(_host_ms(fns[which], 3)))
+        mem = {}
+        for which in ("chain", "kernels"):
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = torch.cuda.memory_allocated(dev)
+            fns[which]()
+            sync()
+            mem[which] = (torch.cuda.max_memory_allocated(dev) - state, state)
+        for which in ("chain", "kernels"):
+            log(f"adamw {cfg_name} {which}: device ms " +
+                ", ".join(f"{x:.3f}" for x in ms[which]) +
+                f" (bound {bound:.3f} at {ADAMW_BYTES} B an element over 3.35 TB/s; "
+                f"{ADAMW_BYTES * elements / (median(ms[which]) * 1e-3) / 1e12:.2f} TB/s "
+                f"at that count); host enqueue ms " + ", ".join(f"{x:.2f}" for x in host[which])
+                + f"; one update adds {mem[which][0] / 1e9:.2f} GB to the state's "
+                f"{mem[which][1] / 1e9:.2f} GB")
+        table = opt.fused.grad_table(grads)
+        norm_fns = {
+            "foreach_norm": lambda: global_norm(grads, opt.params),
+            "foreach_sumsq": lambda: global_norm(grads, opt.params,
+                                                 norms=adamw.foreach_sumsq(opt.fused, table))}
+        ms, host = {}, {}
+        for which in ("foreach_norm", "foreach_sumsq", "foreach_sumsq", "foreach_norm"):
+            ms.setdefault(which, []).append(median(time_ms(norm_fns[which], 5)))
+            host.setdefault(which, []).append(median(_host_ms(norm_fns[which], 5)))
+        diff = abs(float(norm_fns["foreach_norm"]()) / float(norm_fns["foreach_sumsq"]()) - 1)
+        for which in ("foreach_norm", "foreach_sumsq"):
+            log(f"adamw {cfg_name} global norm from {which}: device ms " +
+                ", ".join(f"{x:.3f}" for x in ms[which]) + "; host enqueue ms " +
+                ", ".join(f"{x:.3f}" for x in host[which]) + f"; the two norms differ by "
+                f"{diff:.2e} relative")
+        del opt, grads, fns, norm_fns, table
+        torch.cuda.empty_cache()
+    log(f"adamw times above: on {smi_line()}")
+
+
 def _ffn_bwd_mm(a, dy0, w1t, b1, w2t, S, rate):
     """One launch of the FFN backward's two-product kernel alone
     (``smm_ffn_bwd_mm``): (h, dhp, part, db1)."""
@@ -4500,6 +4682,9 @@ def main() -> int:
         if "--gemm-linear" in argv:
             phase_gemm_linear(dev)
             return 0
+        if "--adamw" in argv:
+            phase_adamw(dev)
+            return 0
         if "--data-parallel" in argv or "--tensor-parallel" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 (phase_data_parallel if "--data-parallel" in argv
@@ -4507,6 +4692,7 @@ def main() -> int:
             return 0
         phase_gemm(dev)
         phase_gemm_linear(dev)
+        phase_adamw(dev)
         phase_ffn_bwd_kernels(dev)
         kern = phase_kernels(dev)
         kern.update(phase_backward(dev))

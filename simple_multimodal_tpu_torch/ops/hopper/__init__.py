@@ -11,7 +11,10 @@ launches count in the wrapper's ``launches`` attribute, the backward ones
 in the ``launches`` of ``*_bwd``. ``gemm`` holds the GEMM
 with fused epilogues that the two blocks' chains launch, on its own, for
 checks and timings, and ``gemm_linear`` on it, the DeepSeek text tower's
-linear layers; it has no counter.
+linear layers; it has no counter. ``adamw`` holds the optimizer's two
+kernels (``foreach_sumsq``, ``foreach_adamw``), which ``train/optim.py``'s
+``AdamWChain`` launches on the card; their counters are their own
+``launches`` attributes, one an update each, outside ``launch_counts()``.
 """
 from . import attention_block, deberta_attention, ffn_block, flash_attention, pos_conv, wav_frontend
 

@@ -90,6 +90,12 @@ SIGNATURES = {
     "smm_pos_conv_smem": [_I],
     # base, rows, K, repetitions -> host nanoseconds per tensor map
     "smm_tensor_map_ns": [_P, _I, _I, _I],
+    # grads, numel, chunk_leaf, chunk_begin; n_leaves, n_chunks, chunk; partial, ticket, norms,
+    # stream
+    "smm_foreach_sumsq": [_P] * 4 + [_I] * 3 + [_P] * 4,
+    # grads, params, mu, nu, backbone, numel, chunk_leaf, chunk_begin; n_chunks, chunk; norm;
+    # clip, lr, b1, b2, 1 - b1, 1 - b2, the two bias corrections, eps, wd, backbone scale; stream
+    "smm_foreach_adamw": [_P] * 8 + [_I] * 2 + [_P] + [_F] * 11 + [_P],
     # N; a, bt, v, c, o; stream
     "smm_hopper_selftest_mma": [_I] + [_P] * 6,
     # swizzle bytes; src, out; rows, cols, r0, c0; stream

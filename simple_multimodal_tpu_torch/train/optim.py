@@ -18,12 +18,18 @@ that require a gradient: no moments, no decay and no update for the rest,
 and the gradient norm and clip see what JAX sees, whose frozen gradients
 are exact zeros. ``make_trainable_only_optimizer`` is the few-shot
 episodes' plain AdamW.
+
+On the card the update runs in two hand-written launches
+(``ops/hopper/adamw.py``: the gradients' norms, then one fused
+clip-Adam-decay-update pass over every element); on the CPU it is the chain
+of ``torch._foreach_*`` passes below, its plain version.
 """
 import math
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 
+from ..ops.hopper import adamw
 from ..parallel.tensor import model_sum, placement
 
 # The JAX markers: a pair of consecutive names anywhere in a parameter's
@@ -77,18 +83,20 @@ def make_schedule(learning_rate: float, total_steps: int,
     return schedule
 
 
-def global_norm(grads: List[torch.Tensor], params: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], params: Optional[List[torch.Tensor]] = None,
+                norms: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sqrt(Σ g²) over every gradient, in f32, on the gradients' device.
     Where ``params`` (aligned with ``grads``) holds parameters sharded over
     a mesh's model axis, their gradients are this process's shards: their
     squares are summed over the model group and each replicated gradient,
     the same on every model process, is counted once, so every process
-    clips by the whole model's norm."""
-    norms = torch._foreach_norm([g.float() for g in grads])
+    clips by the whole model's norm. ``norms``: the gradients' own norms
+    [n], where the caller has them (the card's ``foreach_sumsq``)."""
+    if norms is None:
+        norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
     tps = [placement(p) for p in params] if params is not None else []
     if not any(tps):
-        return torch.linalg.vector_norm(torch.stack(norms))
+        return torch.linalg.vector_norm(norms)
     sharded = torch.stack([n for n, tp in zip(norms, tps) if tp]).square().sum()
     whole = [n for n, tp in zip(norms, tps) if not tp]
     total = model_sum(sharded, next(tp for tp in tps if tp).mesh)
@@ -99,7 +107,10 @@ def global_norm(grads: List[torch.Tensor], params: Optional[List[torch.Tensor]] 
 
 class AdamWChain:
     """clip → Adam → + wd·p → ×0.1 on backbones → ×(−lr(step)), updating
-    the parameters in place (the moments live here, one set per parameter)."""
+    the parameters in place (the moments live here, one set per parameter).
+    On CUDA parameters the tables of the two kernels are built here, once;
+    ``fused_elements`` counts the elements the last update put through them
+    (0 on the CPU)."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  schedule: Callable[[int], float], clip_norm: float, weight_decay: float,
@@ -116,12 +127,32 @@ class AdamWChain:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.fused = (adamw.AdamWTables(self.params, self.mu, self.nu, self.backbone)
+                      if self.params and self.params[0].is_cuda else None)
+        self.fused_elements = 0
 
     @torch.no_grad()
     def update(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
         """One step from ``grads`` (aligned with ``params``; None counts as
         zero, as JAX's gradient of an unused parameter). Returns the
-        gradients' global norm before clipping."""
+        gradients' global norm before clipping. On the card the gradients
+        are read, not written."""
+        if self.fused is None:
+            return self._chain(grads)
+        t = self.fused
+        table = t.grad_table(grads)
+        norm = global_norm(grads, self.params, norms=adamw.foreach_sumsq(t, table))
+        lr = self.schedule(self.count)
+        self.count += 1
+        adamw.foreach_adamw(t, table, norm, clip=self.clip_norm, lr=lr, b1=self.b1, b2=self.b2,
+                            count=self.count, eps=self.eps, weight_decay=self.weight_decay,
+                            backbone_scale=self.backbone_lr_scale)
+        self.fused_elements = t.elements
+        return norm
+
+    @torch.no_grad()
+    def _chain(self, grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+        """The plain version: 13 foreach passes, the gradients scaled in place."""
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(self.params, grads)]
         norm = global_norm(grads, self.params)

@@ -4,12 +4,14 @@ skips where there is no CUDA device. On the card, from the checkout root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu -q
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from simple_multimodal_tpu_torch.config import ModelConfig
-from simple_multimodal_tpu_torch.models.multimodal_model import create_model
+from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel, create_model
 from simple_multimodal_tpu_torch.ops import hopper
 from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
@@ -984,3 +986,104 @@ def test_cuda_gemm_linear_matches_plain_at_the_tower_shapes(cuda, rows, outs, K)
         assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())
     with pytest.raises(TypeError, match="bfloat16"):
         gemm_linear(x.detach().float(), *ws)
+
+
+def _adamw_leaves(case):
+    """(names, shapes, gradient layout) of the AdamW cases: the tiny model's
+    trainable parameters, or ragged leaves (1, 3, 4097, 2^20 + 5 elements,
+    backbone and other), whose gradients are views into one flat buffer at
+    an odd offset, so that the kernels take their unaligned path."""
+    if case == "tiny":
+        cfg = ModelConfig(encoder_preset="tiny", text_max_length=16, audio_max_length=3200,
+                          video_max_frames=4, video_frame_size=(32, 32), fusion_hidden_size=32,
+                          fusion_num_heads=4, graph_hidden_size=16)
+        with torch.device("meta"):
+            model = MultimodalEmotionModel(cfg, dtype=torch.float32)
+        named = [(n, tuple(p.shape)) for n, p in model.named_parameters() if p.requires_grad]
+        return [n for n, _ in named], [s for _, s in named], False
+    names = ["text_encoder.model.w", "fusion.b", "video_encoder.vit.w", "classifier.w"]
+    return names, [(1,), (3,), (4097,), (2 ** 20 + 5,)], True
+
+
+def _adamw_grads(shapes, flat_views, scale, gen, cuda, none_at=None):
+    n = sum(math.prod(s) for s in shapes)
+    flat = torch.randn(n + 1, generator=gen, device=cuda) * scale
+    grads, at = [], 1 if flat_views else 0
+    for s in shapes:
+        k = math.prod(s)
+        grads.append(flat[at:at + k].view(s) if flat_views else flat[at:at + k].clone().view(s))
+        at += k
+    if none_at is not None:
+        grads[none_at] = None
+    return grads
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", ["tiny", "ragged"])
+@pytest.mark.parametrize("clip,scale", [(1.0, 1.0), (1e3, 1e-3), (math.inf, 1.0)])
+def test_cuda_adamw_kernels_match_the_chain(cuda, case, clip, scale):
+    """Three updates through the two kernels against the chain (``_chain``,
+    on cloned gradients) from the same state: the clip engaged (1.0 under
+    a norm in the tens or more), not engaged (1e3) and off (inf, the
+    few-shot optimizer's); a None gradient in the second update; backbone
+    and other leaves. The norm within 1e-6, each leaf's m and v within 2e-6
+    and its change p_new − p_old within 1e-5 of the chain's (relative, in
+    norm); one launch of each kernel an update; every element through
+    them."""
+    from simple_multimodal_tpu_torch.ops.hopper import adamw
+    from simple_multimodal_tpu_torch.train.optim import AdamWChain
+
+    names, shapes, flat_views = _adamw_leaves(case)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    init = [torch.randn(s, generator=gen, device=cuda) * 0.05 for s in shapes]
+
+    def chain():
+        return AdamWChain(zip(names, [torch.nn.Parameter(x.clone()) for x in init]),
+                          lambda count: 1e-2 / (1 + count), clip, weight_decay=0.05)
+
+    got, want = chain(), chain()
+    assert got.fused is not None and 0 < sum(got.backbone) < len(names)
+    for step in range(3):
+        grads = _adamw_grads(shapes, flat_views, scale, gen, cuda,
+                             none_at=1 if step == 1 else None)
+        before = [p.detach().clone() for p in got.params]
+        sumsq, fused = adamw.foreach_sumsq.launches, adamw.foreach_adamw.launches
+        norm = got.update(grads)
+        want_norm = want._chain([None if g is None else g.clone() for g in grads])
+        assert (adamw.foreach_sumsq.launches, adamw.foreach_adamw.launches) == (sumsq + 1,
+                                                                                 fused + 1)
+        assert got.fused_elements == sum(math.prod(s) for s in shapes)
+        assert abs(float(norm) / float(want_norm) - 1) <= 1e-6, step
+        assert float(want_norm) > 10 * clip if clip == 1.0 else float(want_norm) < clip
+        for i, name in enumerate(names):
+            assert _rel(got.mu[i], want.mu[i]) <= 2e-6, (step, name)
+            assert _rel(got.nu[i], want.nu[i]) <= 2e-6, (step, name)
+            assert _rel(got.params[i].detach() - before[i],
+                        want.params[i].detach() - before[i]) <= 1e-5, (step, name)
+        for p, q in zip(got.params, want.params):  # the next update starts from one state
+            p.data.copy_(q.data)
+        for a, b in zip(got.mu + got.nu, want.mu + want.nu):
+            a.copy_(b)
+
+
+def test_cuda_adamw_kernels_are_bit_equal_between_runs(cuda):
+    """Two runs of the kernels on the same inputs give the same bits: the
+    norm, the parameters and both moments (the sums are folded in a fixed
+    order)."""
+    from simple_multimodal_tpu_torch.train.optim import AdamWChain
+
+    names, shapes, _ = _adamw_leaves("ragged")
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    init = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    grads = _adamw_grads(shapes, False, 1.0, gen, cuda)
+    runs = []
+    for _ in range(2):
+        opt = AdamWChain(zip(names, [torch.nn.Parameter(x.clone()) for x in init]),
+                         lambda count: 1e-3, 1.0, weight_decay=0.01)
+        norms = [opt.update(grads) for _ in range(2)]
+        runs.append((norms, [t.detach().clone() for t in opt.params + opt.mu + opt.nu]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
