@@ -210,8 +210,8 @@ Phases 2 and 3 also run the half preset's widths: attention_block at
 (pre-LN [240,197,384], post-LN [8,512,384]) and deberta_attention at
 [8,512,6,64], bf16 and f32 at the same tolerances; in bf16 the forward's
 GEMM routes (``gemm_route``), the attention core's
-(``attention_wgmma_route``) and a device profile of one call must show the
-wgmma bodies, and the backwards' routes are held as for every case.
+(``smm_attention_wgmma_route``) and a device profile of one call must show
+the wgmma bodies, and the backwards' routes are held as for every case.
 
 Phase 1 also runs the exact self-test of the shared Hopper building blocks
 (``csrc/hopper.cuh``: wgmma with both descriptor forms, TMA, the swizzle)
@@ -488,7 +488,7 @@ def work(name, inputs):
         return proj + core, 3 * proj + 3.5 * core
     if name == "ffn_block":
         rows, S, E = x.shape
-        f = 4 * rows * S * E * inputs[1].shape[1]
+        f = 4 * rows * S * E * inputs[1].shape[0]
         return f, 3 * f
     if name == "deberta_attention":  # q·kᵀ, p·v, and q, k against the 2·span table rows
         n, S, H, D = x.shape
@@ -499,7 +499,7 @@ def work(name, inputs):
         core = 4 * n * H * Sq * inputs[1].shape[1] * D
         return core, 3.5 * core
     if name == "wav_frontend":  # the K-tap conv once; the norm and GELU are O(outputs)
-        K, _, C = inputs[1].shape
+        C, _, K = inputs[1].shape
         f = 2 * K * x.shape[0] * ((x.shape[1] - K) // 5 + 1) * C
         return f, 3 * f
     raise KeyError(name)
@@ -547,11 +547,12 @@ def _kernel_cases(dev, gen):
     E, H, Fd = 768, 12, 3072
     cases = []
 
+    def block_weights(E):  # w_qkv [3E, E], b_qkv, wo [E, E], bo
+        return [rn(3 * E, E, std=E ** -0.5), rn(3 * E, std=0.1), rn(E, E, std=E ** -0.5),
+                rn(E, std=0.1)]
+
     def attn_inputs(rows, S):
-        ws = []
-        for _ in range(4):
-            ws += [rn(E, E, std=E ** -0.5), rn(E, std=0.1)]
-        return [rn(rows, S, E)] + ws, [1.0 + rn(E, std=0.1), rn(E, std=0.1)]
+        return [rn(rows, S, E)] + block_weights(E), [1.0 + rn(E, std=0.1), rn(E, std=0.1)]
 
     x, lnp = attn_inputs(B * 30, 197)
     cases.append(("attention_block", "ViT [240,197,768] LN+residual",
@@ -563,14 +564,12 @@ def _kernel_cases(dev, gen):
                       lambda t, g, b: dict(ln=None, residual=False), x, lnp))
 
     def ffn_inputs(rows, S):
-        return ([rn(rows, S, E), rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1),
-                 rn(Fd, E, std=Fd ** -0.5), rn(E, std=0.1)],
+        return ([rn(rows, S, E), rn(Fd, E, std=E ** -0.5), rn(Fd, std=0.1),
+                 rn(E, Fd, std=Fd ** -0.5), rn(E, std=0.1)],
                 [1.0 + rn(E, std=0.1), rn(E, std=0.1)])
 
     # a width that is no multiple of 64: the WMMA GEMM and (head width 32) core
-    x96 = [rn(2 * B, 197, 96)]
-    for _ in range(4):
-        x96 += [rn(96, 96, std=96 ** -0.5), rn(96, std=0.1)]
+    x96 = [rn(2 * B, 197, 96)] + block_weights(96)
     ln96 = [1.0 + rn(96, std=0.1), rn(96, std=0.1)]
     cases.append(("attention_block", "WMMA path [16,197,96] 3 heads LN+residual",
                   lambda t, g, b: dict(ln=(g, b, 1e-12), residual=True, num_heads=3),
@@ -589,8 +588,8 @@ def _kernel_cases(dev, gen):
 
     cases.append(("ffn_block", "WMMA path [16,197,96] F=160 pre-LN",
                   lambda t, g, b: dict(ln=(g, b, 1e-12), ln_post=False),
-                  [rn(2 * B, 197, 96), rn(96, 160, std=96 ** -0.5), rn(160, std=0.1),
-                   rn(160, 96, std=160 ** -0.5), rn(96, std=0.1)],
+                  [rn(2 * B, 197, 96), rn(160, 96, std=96 ** -0.5), rn(160, std=0.1),
+                   rn(96, 160, std=160 ** -0.5), rn(96, std=0.1)],
                   [1.0 + rn(96, std=0.1), rn(96, std=0.1)]))
 
     S, span = 512, 256
@@ -607,10 +606,7 @@ def _kernel_cases(dev, gen):
     Eh, Hh, Fh = 384, 6, 1536
 
     def half_attn(rows, S):
-        ws = []
-        for _ in range(4):
-            ws += [rn(Eh, Eh, std=Eh ** -0.5), rn(Eh, std=0.1)]
-        return [rn(rows, S, Eh)] + ws, [1.0 + rn(Eh, std=0.1), rn(Eh, std=0.1)]
+        return [rn(rows, S, Eh)] + block_weights(Eh), [1.0 + rn(Eh, std=0.1), rn(Eh, std=0.1)]
 
     x, lnp = half_attn(B * 30, 197)
     cases.append(("attention_block", "half ViT [240,197,384] 6 heads LN+residual",
@@ -624,8 +620,8 @@ def _kernel_cases(dev, gen):
                                        True, 1e-7)):
         cases.append(("ffn_block", label,
                       lambda t, g, b, post=post, eps=eps: dict(ln=(g, b, eps), ln_post=post),
-                      [rn(rows, S, Eh), rn(Eh, Fh, std=Eh ** -0.5), rn(Fh, std=0.1),
-                       rn(Fh, Eh, std=Fh ** -0.5), rn(Eh, std=0.1)],
+                      [rn(rows, S, Eh), rn(Fh, Eh, std=Eh ** -0.5), rn(Fh, std=0.1),
+                       rn(Eh, Fh, std=Fh ** -0.5), rn(Eh, std=0.1)],
                       [1.0 + rn(Eh, std=0.1), rn(Eh, std=0.1)]))
     cases.append(("deberta_attention", "half DeBERTa [8,512,6,64] span 256, padded + all-masked",
                   lambda t, g, b: dict(attention_mask=mask, span=span, max_position=512),
@@ -675,7 +671,7 @@ def _kernel_cases(dev, gen):
     for samples in (160000, LONG_SAMPLES, 16013):
         cases.append(("wav_frontend", f"conv_0+GN+GELU [8,{samples}] C=512",
                       lambda t, g, b: dict(stride=5),
-                      [rn(B, samples, std=0.3), rn(10, 1, 512, std=0.1),
+                      [rn(B, samples, std=0.3), rn(512, 1, 10, std=0.1),
                        1.0 + rn(512, std=0.2), rn(512, std=0.1)], []))
     fns = {
         "attention_block": (
@@ -713,17 +709,16 @@ def _rate(name, args, ms, fn, backward=False) -> str:
 
 def _forward_route(args, dtype) -> str:
     """The body deberta_attention's forward takes, as the library reports it,
-    held against the Python rule and against what the case must take: the
-    wgmma kernel in bf16 at head width 64, attention.cuh's otherwise."""
+    held against what the case must take: the wgmma kernel in bf16 at head
+    width 64, attention.cuh's otherwise."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
-    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
     D = args[0].shape[-1]
     route = _build.library().smm_attention_wgmma_route(int(dtype == torch.bfloat16), D, 1)
     want = int(dtype == torch.bfloat16 and D == 64)
-    if route != want or attention_wgmma_route(dtype, D, True) != want:
+    if route != want:
         raise AssertionError(f"deberta_attention forward at head width {D} in {dtype}: route "
                              f"{route}, expected {want}")
     return "wgmma" if route else "wmma/f32"
@@ -731,14 +726,13 @@ def _forward_route(args, dtype) -> str:
 
 def _half_forward_body(name, label, args, kw, fn):
     """The body a half-width (E = 384, head width 64, F = 1536) forward
-    takes in bf16, by the Python rules and the library (``gemm_route`` for
-    every product of the block, ``attention_wgmma_route`` for the core), and
-    by a device profile of one call: the wgmma GEMM and no WMMA GEMM or
-    WMMA attention core."""
+    takes in bf16, by ``gemm_route`` for every product of the block, the
+    library's ``smm_attention_wgmma_route`` for the core, and by a device
+    profile of one call: the wgmma GEMM and no WMMA GEMM or WMMA attention
+    core."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
-    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
     from simple_multimodal_tpu_torch.ops.hopper.gemm import gemm_route
 
     if name == "deberta_attention":
@@ -747,12 +741,10 @@ def _half_forward_body(name, label, args, kw, fn):
     M, E = x.shape[0] * x.shape[1], x.shape[-1]
     if name == "attention_block":
         products = ((3 * E, E), (E, E))
-        D = E // kw["num_heads"]
-        core = (attention_wgmma_route(torch.bfloat16, D, False),
-                _build.library().smm_attention_wgmma_route(1, D, 0))
+        core = _build.library().smm_attention_wgmma_route(1, E // kw["num_heads"], 0)
     else:
-        Fd = args[1].shape[1]
-        products, core = ((Fd, E), (E, Fd)), (1, 1)
+        Fd = args[1].shape[0]
+        products, core = ((Fd, E), (E, Fd)), 1
     routes = [gemm_route(M, n, k) for n, k in products]
     with torch.no_grad():
         calls = _log_device_times(f"{name} {label} forward", fn, reps=3, top=6)
@@ -764,7 +756,7 @@ def _half_forward_body(name, label, args, kw, fn):
         f"{core}, gemm_wgmma_kernel={n('gemm_wgmma_kernel'):g} "
         f"gemm_bf16_kernel={n('gemm_bf16_kernel'):g} "
         f"attention_wmma_kernel={n('attention_wmma_kernel'):g}")
-    if (not all(routes) or core != (1, 1) or not n("gemm_wgmma_kernel")
+    if (not all(routes) or core != 1 or not n("gemm_wgmma_kernel")
             or n("gemm_bf16_kernel") or n("attention_wmma_kernel")):
         raise AssertionError(f"{name} {label}: the half-width forward left the wgmma bodies "
                              f"(routes {routes}, core {core}, kernels {calls})")
@@ -1062,10 +1054,15 @@ def _grad_errors(got, want, dtype, names):
             good = bool(torch.allclose(a, b, atol=ATOL_F32, rtol=ATOL_F32))
             rel = err / max(float(b.abs().max()), 1e-30)
         else:
-            # the key bias (input 4 of attention_block) has a zero gradient
-            # in exact arithmetic: scale by the query bias's (input 2)
-            ref = want[3] if names[i] == "bk" else b
-            rel = err / max(float(ref.abs().max()), 1e-30)
+            # attention_block's packed q|k|v gradients part by part; the key
+            # bias has a zero gradient in exact arithmetic: scaled by the
+            # query bias's
+            parts = [(a, b, b)]
+            if names[i] in ("w_qkv", "b_qkv"):
+                (qa, ka, va), (qb, kb, vb) = a.chunk(3), b.chunk(3)
+                parts = [(qa, qb, qb), (ka, kb, qb if names[i] == "b_qkv" else kb), (va, vb, vb)]
+            rel = max(float((pa - pb).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                      for pa, pb, ref in parts)
             good = rel <= GRAD_TOL_BF16
         worst = max(worst, rel)
         ok = ok and good
@@ -1074,7 +1071,7 @@ def _grad_errors(got, want, dtype, names):
 
 def _arg_names(name, n):
     if name == "attention_block":
-        base = ["x", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ln_g", "ln_b"]
+        base = ["x", "w_qkv", "b_qkv", "wo", "bo", "ln_g", "ln_b"]
     elif name == "ffn_block":
         base = ["x", "w1", "b1", "w2", "b2", "ln_g", "ln_b"]
     elif name == "flash_attention":
@@ -1238,21 +1235,18 @@ def _check_bodies(name, dtype, calls: dict):
 def _backward_route(name, args, kw_fn, dtype) -> int:
     """Which body the backward of this attention_block or deberta_attention
     case takes, as the library reports it (1: the wgmma kernels, 0:
-    ``attention_bwd.cuh``), held against the Python statement of the same
-    rule and against what the case must take: wgmma in bf16 at head widths
-    64 (and 128 for attention_block), the old bodies in f32 and elsewhere."""
+    ``attention_bwd.cuh``), held against what the case must take: wgmma in
+    bf16 at head widths 64 (and 128 for attention_block), the old bodies in
+    f32 and elsewhere."""
     import torch
 
     from simple_multimodal_tpu_torch.ops.hopper import _build
-    from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
     if name == "ffn_block":
-        from simple_multimodal_tpu_torch.ops.hopper.ffn_block import ffn_bwd_route
-
-        E, Fd = args[0].shape[-1], args[1].shape[1]
+        E, Fd = args[0].shape[-1], args[1].shape[0]
         route = _build.library().smm_ffn_bwd_route(int(dtype == torch.bfloat16), E, Fd)
         want = int(dtype == torch.bfloat16 and E % 64 == 0 and Fd % 128 == 0)
-        if route != want or ffn_bwd_route(dtype, E, Fd) != want:
+        if route != want:
             raise AssertionError(f"ffn_block backward at [{E}, {Fd}] in {dtype}: route {route}, "
                                  f"expected {want}")
         return route
@@ -1262,7 +1256,7 @@ def _backward_route(name, args, kw_fn, dtype) -> int:
         D, rel = args[0].shape[-1], True
     route = _build.library().smm_attention_wgmma_route(int(dtype == torch.bfloat16), D, int(rel))
     want = int(dtype == torch.bfloat16 and (D == 64 or (D == 128 and not rel)))
-    if route != want or attention_wgmma_route(dtype, D, rel) != want:
+    if route != want:
         raise AssertionError(f"{name} backward at head width {D} in {dtype}: route {route}, "
                              f"expected {want}")
     return route
@@ -1313,10 +1307,10 @@ def _check_dropout_positions(dev):
             keep = attention_keep(DROP_SEED, rows, H, S, S, DROP_RATE, device=dev)
             got = torch.zeros_like(keep)
             wv = torch.zeros(E, E, device=dev)
-            wv[:D] = torch.eye(D, device=dev).repeat(1, H)  # x[:, :, :D] -> every head's values
+            wv[:, :D] = torch.eye(D, device=dev).repeat(H, 1)  # x[:, :, :D] -> every head's values
             zeros = torch.zeros(E, device=dev)
-            ws = [rn(E, E, std=E ** -0.5), rn(E, std=0.1), rn(E, E, std=E ** -0.5),
-                  rn(E, std=0.1), wv, zeros, torch.eye(E, device=dev), zeros]
+            ws = [torch.cat([rn(2 * E, E, std=E ** -0.5), wv]),
+                  torch.cat([rn(2 * E, std=0.1), zeros]), torch.eye(E, device=dev), zeros]
             for k0 in range(0, S, D):
                 n = min(D, S - k0)
                 x = rn(rows, S, E)
@@ -1334,8 +1328,8 @@ def _check_dropout_positions(dev):
             # p), identity value and out projections and a cotangent that is
             # one-hot over 64 queries give dx[b, k, h, d] = p~[b, h, q0 + d, k]
             got = torch.zeros_like(keep)
-            none, eye = torch.zeros(E, E, device=dev), torch.eye(E, device=dev)
-            ws = [none, rn(E, std=0.1), none, rn(E, std=0.1), eye, zeros, eye, zeros]
+            none, eye = torch.zeros(2 * E, E, device=dev), torch.eye(E, device=dev)
+            ws = [torch.cat([none, eye]), torch.cat([rn(2 * E, std=0.1), zeros]), eye, zeros]
             x = rn(rows, S, E).to(dtype).requires_grad_()
             for q0 in range(0, S, D):
                 n = min(D, S - q0)
@@ -1369,11 +1363,11 @@ def _check_dropout_positions(dev):
         same(f"deberta_attention backward [{rows},{S},{H},{D}] {name}", got, keep)
         rows, S = B, 499
         x = rn(rows, S, E, std=0.3)  # small pre-activations: no GELU underflows to 0
-        w1, b1, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(E, std=0.1)
+        w1, b1, b2 = rn(Fd, E, std=E ** -0.5), rn(Fd, std=0.1), rn(E, std=0.1)
         got = torch.zeros(rows, S, Fd, dtype=torch.bool, device=dev)
         for c0 in range(0, Fd, E):  # out = the intermediate's columns c0 .. c0 + E
-            w2 = torch.zeros(Fd, E, device=dev)
-            w2[c0:c0 + E] = torch.eye(E, device=dev)
+            w2 = torch.zeros(E, Fd, device=dev)
+            w2[:, c0:c0 + E] = torch.eye(E, device=dev)
             out = ffn_block(x.to(dtype), w1.to(dtype), b1.to(dtype), w2.to(dtype),
                             torch.zeros(E, device=dev, dtype=dtype), residual=False,
                             dropout_rate_mid=DROP_RATE, dropout_seed=DROP_SEED)
@@ -1384,12 +1378,12 @@ def _check_dropout_positions(dev):
         # the backward replays the mid mask: W1 = the identity on columns c0 .. c0 + E
         # and no LayerNorm or residual give dx = dh_pre[:, c0 .. c0 + E]
         got = torch.zeros(rows, S, Fd, dtype=torch.bool, device=dev)
-        w2 = rn(Fd, E, std=Fd ** -0.5).to(dtype)
+        w2 = rn(E, Fd, std=Fd ** -0.5).to(dtype)
         gy = rn(rows, S, E).to(dtype)
         xg = x.to(dtype).requires_grad_()
         for c0 in range(0, Fd, E):
-            w1e = torch.zeros(E, Fd, device=dev)
-            w1e[:, c0:c0 + E] = torch.eye(E, device=dev)
+            w1e = torch.zeros(Fd, E, device=dev)
+            w1e[c0:c0 + E] = torch.eye(E, device=dev)
             out = ffn_block(xg, w1e.to(dtype), b1.to(dtype), w2,
                             torch.zeros(E, device=dev, dtype=dtype), residual=False,
                             dropout_rate_mid=DROP_RATE, dropout_seed=DROP_SEED)
@@ -1399,7 +1393,7 @@ def _check_dropout_positions(dev):
         same(f"ffn_block backward mid [{rows},{S},{Fd}] {name}", got,
              ffn_keep(DROP_SEED, SALT_MID, rows, S, Fd, DROP_RATE, device=dev))
         out = ffn_block(x.to(dtype), w1.to(dtype), b1.to(dtype),
-                        rn(Fd, E, std=Fd ** -0.5).to(dtype), b2.to(dtype), residual=False,
+                        rn(E, Fd, std=Fd ** -0.5).to(dtype), b2.to(dtype), residual=False,
                         dropout_rate_out=DROP_RATE, dropout_seed=DROP_SEED)
         sync()
         same(f"ffn_block out [{rows},{S},{E}] {name}", out != 0,
@@ -1503,7 +1497,7 @@ def _check_wav_backward(kern, plain, inputs, gen, label, results):
         out_p = plain(*ref, stride=5)
         want = [out_p.detach().float()] + [g.float() for g in torch.autograd.grad(out_p, ref, gy)]
         with torch.no_grad():
-            y = F.conv1d(wav.to(dtype)[:, None], kern_w.permute(2, 1, 0), stride=5).float()
+            y = F.conv1d(wav.to(dtype)[:, None], kern_w, stride=5).float()
             var, mean = torch.var_mean(y, dim=-1, unbiased=False)
             closed = [want[0]] + [g.float() for g in wav_frontend_bwd_plain(
                 gy, wav, kern_w, gs, gb, mean, torch.rsqrt(var + 1e-5), 5)]

@@ -3,11 +3,11 @@
 // Replaces simple_multimodal_tpu/ops/pallas/attention_block.py, `_bwd_kernel`
 // via `_block_bwd`. Like the TPU kernel it saves nothing from the forward
 // but the inputs: it recomputes the pre-LN and the q/k/v projections, forms
-// da = gy . Wo^T, re-runs the attention core for the context `a` and the
+// da = gy . Wo, re-runs the attention core for the context `a` and the
 // softmax row statistics, runs the attention backward through the replayed
 // dropout mask (attention_bwd.cuh) into one packed [rows, 3E] dq|dk|dv
-// buffer, forms dxn = dq Wq^T + dk Wk^T + dv Wv^T as ONE GEMM over K = 3E
-// against the concatenated flax-layout weights, and ends in the LayerNorm
+// buffer, forms dxn = dq Wq + dk Wk + dv Wv as ONE GEMM over K = 3E
+// against the packed weight's transpose [E, 3E], and ends in the LayerNorm
 // backward with the residual added (dx, and dgamma/dbeta summed per block
 // and then over blocks in a fixed order). The four weight gradients are
 // plain matmuls outside, as in the JAX `_block_bwd`.
@@ -55,7 +55,7 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
   const void* ws[3] = {wq, wk, wv};
   const void* bs[3] = {bq, bk, bv};
   if (int e = launch_gemm_qkv<T>(in, E, ws, bs, M, E, E, qkv, st)) return e;
-  {  // da = gy . Wo^T: the flax [E_in, E_out] weight is the K-major operand
+  {  // da = gy . Wo: Wo^T [E_in, E_out] is the K-major operand
     Epilogue ep{nullptr, nullptr, 0, da, E, ACT_NONE, 0};
     if (int e = launch_gemm((const T*)gy, E, (const T*)wo, E, M, E, E, ep, st)) return e;
   }
@@ -116,7 +116,7 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
     bw.lddq = bw.lddk = bw.lddv = 3 * E;
     if (int e = launch_attention_bwd<T, false>(bw, B, D, st)) return e;
   }
-  // dxn = dqkv . [Wq | Wk | Wv]^T over K = 3E
+  // dxn = dqkv . W_qkv over K = 3E (W_qkv = [Wq; Wk; Wv], torch layout [3E, E])
   const T* res = residual ? (const T*)gy : nullptr;
   if (!ln_g) {
     Epilogue ep{nullptr, res, E, dx, E, ACT_NONE, 0};
@@ -132,8 +132,8 @@ int run(const void* x, const void* gy, const void* wq, const void* bq, const voi
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16. wq/wk/wv in torch Linear layout [E_out, E_in]
-// (to recompute q/k/v); wcat = [Wq | Wk | Wv] in flax layout [E, 3E] and
-// wo in flax layout [E, E] (the K-major operands of dxn and da). seed:
+// (to recompute q/k/v); wcat = [Wq | Wk | Wv]^T [E, 3E] and wo = Wo^T
+// [E, E], transposed (the K-major operands of dxn and da). seed:
 // device int32 [1] or null (no dropout). Outputs: xn [B*S, E] (with LN),
 // the context a [B*S, E], dqkv [B*S, 3E], dx [B*S, E] and, with LN,
 // dln [2, E] f32 (dgamma, dbeta). Scratch: qkv [B*S, 3E], da [B*S, E],

@@ -75,11 +75,11 @@ int run_chain(const void* x, const void* gy, const void* w1t, const void* b1, co
                                                                   outd, kSaltOut, S);
   }
   SMM_CHECK_LAUNCH();
-  {  // dh_pre = GELU'(h_pre) * mask_mid * (dy0 . W2^T); flax W2 [F, E] is K-major
+  {  // dh_pre = GELU'(h_pre) * mask_mid * (dy0 . W2); W2^T [F, E] is the K-major operand
     Epilogue ep{nullptr, nullptr, 0, dhp, F, act + 2, 0, 0, mid, kSaltMid, S, hpre};
     if (int e = launch_gemm((const T*)dy0, E, (const T*)w2f, E, M, F, E, ep, st)) return e;
   }
-  // dxn = dh_pre . W1^T; flax W1 [E, F] is K-major
+  // dxn = dh_pre . W1; W1^T [E, F] is the K-major operand
   if (ln_mode == 1) {
     Epilogue ep{nullptr, nullptr, 0, dxn, E, ACT_NONE, 1};
     if (int e = launch_gemm((const T*)dhp, F, (const T*)w1f, F, M, E, F, ep, st)) return e;
@@ -130,7 +130,7 @@ int run_wgmma(const bf16* x, const bf16* gy, const bf16* w1t, const bf16* b1, co
                                    ln_mode == 2 ? nullptr : h, dhp, part_b1, st))
     return e;
   if (int e = launch_fold_columns(part_b1, (M + 127) / 128, F, db1, st)) return e;
-  // dxn = dh_pre . W1^T; flax W1 [E, F] is K-major
+  // dxn = dh_pre . W1; W1^T [E, F] is the K-major operand
   if (ln_mode == 1) {
     const Epilogue ep{nullptr, nullptr, 0, dxn, E, ACT_NONE, 1};
     if (int e = launch_gemm(dhp, F, w1f, F, M, E, F, ep, st)) return e;
@@ -147,8 +147,8 @@ int run_wgmma(const bf16* x, const bf16* gy, const bf16* w1t, const bf16* b1, co
 
 // dtype: 0 = f32, 1 = bf16. ln_mode: 0 none, 1 pre-LN, 2 post-LN. w1t
 // [F, E], w2t [E, F] in torch Linear layout (the forward's operands); w1f
-// [E, F], w2f [F, E] in flax layout (the K-major operands of dxn and, on the
-// gemm.cuh chain, of dh; the wgmma chain reads w2t and takes w2f null).
+// [E, F], w2f [F, E] their transposes (the K-major operands of dxn and, on
+// the gemm.cuh chain, of dh; the wgmma chain reads w2t and takes w2f null).
 // Rows M = B*S. seed: device int32 [1] or null; each dropout is (thresh,
 // scale, on). Outputs: xn [M, E] (pre-LN), h [M, F], dy0 [M, E], dhp [M, F],
 // dx [M, E] and dsum f32: dln [2, E] (with LN) and, on the wgmma chain, db1

@@ -10,8 +10,8 @@ namespace smm {
 // F in multiples of 128, the kernel's tile (every base-width site; E at most
 // 1024 is the wrapper's own limit), with 16-byte aligned operands, which the
 // wrapper sees to. f32, the tiny preset's widths and other F keep the chain
-// of gemm.cuh's kernels. The rule `ffn_bwd_route` in ops/hopper/ffn_block.py
-// states in Python.
+// of gemm.cuh's kernels. ops/hopper/ffn_block.py asks it through
+// smm_ffn_bwd_route to size its buffers.
 inline bool ffn_bwd_wgmma_takes(bool is_bf16, int E, int F) {
   return is_bf16 && E > 0 && F > 0 && E % 64 == 0 && F % 128 == 0 && E <= 1024;
 }

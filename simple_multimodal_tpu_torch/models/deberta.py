@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..ops.attention import dropout, fused_weights, kernel_seed, layer_norm, linear
+from ..ops.attention import dropout, kernel_seed, kernel_weights, layer_norm, linear
 from ..ops.hopper.deberta_attention import deberta_attention
 from ..ops.hopper.ffn_block import ffn_block
 from ..parallel.tensor import Shard, gather_param, placement, scatter_to_model, vocab_lookup
@@ -119,7 +119,7 @@ class DebertaLayer(nn.Module):
         attn = dropout(attn, cfg.hidden_dropout, gen, train)
         hidden = layer_norm(attn + hidden, self.attention.output.LayerNorm, dtype)
         ln = self.output.LayerNorm
-        w1, b1, w2, b2 = fused_weights((self.intermediate.dense, self.output.dense), dtype)
+        w1, b1, w2, b2 = kernel_weights(dtype, self.intermediate.dense, self.output.dense)
         rate, seed = kernel_seed(gen, cfg.hidden_dropout, train, dev)
         return ffn_block(hidden, w1, b1, w2, b2,
                          ln=(ln.weight.to(dtype), ln.bias.to(dtype), ln.eps),

@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import (compact_scores, dropout, fused_weights, gelu, kernel_seed,
+from ..ops.attention import (compact_scores, dropout, gelu, kernel_seed, kernel_weights,
                              layer_norm, linear)
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
@@ -90,14 +90,15 @@ class ViTLayer(nn.Module):
         # dropout between the attention output and the residual keeps the
         # residual out of the kernel
         drop_attn = self.training and cfg.hidden_dropout > 0.0
-        h = attention_block(hidden, *fused_weights(self._attn_layers(), dtype),
+        q, k, v, o = self._attn_layers()
+        h = attention_block(hidden, *kernel_weights(dtype, (q, k, v), o),
                             num_heads=cfg.num_heads, ln=ln1, residual=not drop_attn,
                             dropout_rate=rate, dropout_seed=seed)
         if drop_attn:
             h = hidden + dropout(h, cfg.hidden_dropout, gen, self.training)
         ln2 = (self.layernorm_after.weight.to(dtype),
                self.layernorm_after.bias.to(dtype), cfg.layer_norm_eps)
-        w1, b1, w2, b2 = fused_weights((self.intermediate.dense, self.output.dense), dtype)
+        w1, b1, w2, b2 = kernel_weights(dtype, self.intermediate.dense, self.output.dense)
         rate, seed = kernel_seed(gen, cfg.hidden_dropout, self.training, hidden.device)
         return ffn_block(h, w1, b1, w2, b2, ln=ln2, ln_post=False, residual=True,
                          dropout_rate_out=rate, dropout_seed=seed)

@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import dropout, fused_weights, gelu, kernel_seed, layer_norm, linear
+from ..ops.attention import dropout, gelu, kernel_seed, kernel_weights, layer_norm, linear
 from ..parallel.mesh import draw_rows
 from ..ops.hopper.attention_block import attention_block
 from ..ops.hopper.ffn_block import ffn_block
@@ -104,15 +104,15 @@ class FeatureEncoder(nn.Module):
         return x.transpose(1, 2)
 
     def _fused(self, waveform: torch.Tensor, dtype) -> torch.Tensor:
-        """conv_0 → GroupNorm → GELU through ``wav_frontend`` (the JAX weight
-        layout [K, 1, C], NWC frames out), then the other convs as 2-D convs
-        over [B, C, 1, T] in channels-last order: the NWC frames are that
-        tensor without a copy, and cuDNN's convolutions run channels-last
-        (NHWC) on the card, so no layer transposes its input or output."""
+        """conv_0 → GroupNorm → GELU through ``wav_frontend`` (NWC frames
+        out), then the other convs as 2-D convs over [B, C, 1, T] in
+        channels-last order: the NWC frames are that tensor without a copy,
+        and cuDNN's convolutions run channels-last (NHWC) on the card, so no
+        layer transposes its input or output."""
         layer0 = self.conv_layers[0]
         gn = layer0.layer_norm
-        x = wav_frontend(waveform, layer0.conv.weight.to(dtype).permute(2, 1, 0), gn.weight,
-                         gn.bias, layer0.conv.stride[0], gn.eps)
+        x = wav_frontend(waveform, layer0.conv.weight.to(dtype), gn.weight, gn.bias,
+                         layer0.conv.stride[0], gn.eps)
         x = x.transpose(1, 2).unsqueeze(2)
         for layer in self.conv_layers[1:]:
             w = layer.conv.weight.to(dtype).unsqueeze(2).contiguous(
@@ -162,13 +162,13 @@ class Wav2Vec2EncoderLayer(nn.Module):
         cfg, a = self.cfg, self.attention
         train, dev = self.training, hidden.device
         rate, seed = kernel_seed(gen, cfg.attention_dropout, train, dev)
-        attn = attention_block(hidden, *fused_weights(
-            (a.q_proj, a.k_proj, a.v_proj, a.out_proj), dtype), num_heads=cfg.num_heads,
+        attn = attention_block(hidden, *kernel_weights(
+            dtype, (a.q_proj, a.k_proj, a.v_proj), a.out_proj), num_heads=cfg.num_heads,
             dropout_rate=rate, dropout_seed=seed)
         attn = dropout(attn, cfg.hidden_dropout, gen, train)
         hidden = layer_norm(hidden + attn, self.layer_norm, dtype)
         ff = self.feed_forward
-        w1, b1, w2, b2 = fused_weights((ff.intermediate_dense, ff.output_dense), dtype)
+        w1, b1, w2, b2 = kernel_weights(dtype, ff.intermediate_dense, ff.output_dense)
         ln = self.final_layer_norm
         rate, seed = kernel_seed(gen, cfg.hidden_dropout, train, dev)
         return ffn_block(hidden, w1, b1, w2, b2,

@@ -109,13 +109,19 @@ def kernel_seed(gen: Optional[torch.Generator], rate: float, training: bool,
     return float(rate), seed
 
 
-def fused_weights(layers, dtype):
-    """(w, b) per Linear in flax layout ([in, out] as a transposed view, so
-    the kernel wrappers take it without a copy), cast to ``dtype`` (and
-    gathered whole where the weight is sharded)."""
+def kernel_weights(dtype, *layers) -> list:
+    """[w, b] for each entry of ``layers``, as the fused kernels take them:
+    in the Linear's own [out, in] layout, cast to ``dtype`` (a weight
+    sharded over the mesh's model axis gathered whole,
+    ``parallel/tensor.py::weight``). An entry that is a tuple of Linears
+    (q, k, v) gives one packed weight [Σ out, in] and bias, concatenated
+    here once a forward."""
     out = []
-    for layer in layers:
-        out += [weight(layer.weight, dtype).t(), layer.bias.to(dtype)]
+    for entry in layers:
+        group = entry if isinstance(entry, tuple) else (entry,)
+        ws = [weight(layer.weight, dtype) for layer in group]
+        bs = [layer.bias.to(dtype) for layer in group]
+        out += [ws[0], bs[0]] if len(group) == 1 else [torch.cat(ws), torch.cat(bs)]
     return out
 
 

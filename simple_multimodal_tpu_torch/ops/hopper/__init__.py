@@ -6,7 +6,12 @@ Each wrapper (``attention_block.attention_block``, ``ffn_block.ffn_block``,
 plain version for CPU tensors and, for CUDA tensors, a
 ``torch.autograd.Function`` whose forward and backward launch CUDA kernels
 (built from ``csrc/`` at first use; ``grouped_conv_same``'s backward leaves
-the weight gradient to cuDNN). The forward
+the weight gradient to cuDNN). Every wrapper takes its weights in torch
+``nn.Linear`` layout, [out, in], with q|k|v packed as one [3E, E] weight
+(``attention_block``); activations (``deberta_attention``'s q/k/v and
+position tables, ``flash_attention``'s) are [B, S, H, D] or [rows, H·D].
+A backward that reads a weight as a transposed GEMM operand copies it
+itself. The forward
 launches count in the wrapper's ``launches`` attribute, the backward ones
 in the ``launches`` of ``*_bwd``. ``gemm`` holds the GEMM
 with fused epilogues that the two blocks' chains launch, on its own, for

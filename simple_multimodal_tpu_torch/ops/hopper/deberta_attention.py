@@ -12,7 +12,7 @@ the forward (``_kernel`` via ``_fused_call``) and the backward
 (``_bwd_kernel`` via ``_bwd_call``). On a CUDA tensor the wrapper runs
 ``DebertaAttentionFn``: its forward launches ``csrc/deberta_attention.cu``,
 its backward ``csrc/deberta_attention_bwd.cu``. In bf16 at head width 64
-(``attention_wgmma_route``) the forward is the wgmma kernel of
+(``smm_attention_wgmma_route``) the forward is the wgmma kernel of
 ``csrc/deberta_attention_fwd_wgmma.cu``, which in training also keeps each
 row's maximum and sum, and the backward takes those and the output instead of
 re-running the forward; its other kernels are ``csrc/deberta_attention_bwd_dq_wgmma.cu``
@@ -33,8 +33,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .attention_block import _drop_scale, _seed_tensor, attention_wgmma_route
-from .dropout import apply_keep, attention_keep, threshold
+from .dropout import apply_keep, attention_keep, drop_scale, seed_tensor, threshold
 from .gemm import aligned16
 
 NEG_INF = -1e30  # finite fill: an all-masked row attends uniformly
@@ -124,12 +123,12 @@ def deberta_attention_plain(q, k, v, pos_k, pos_q, attention_mask, span: int,
 
 class DebertaAttentionFn(torch.autograd.Function):
     """The CUDA forward and backward of the disentangled attention. Saves
-    the inputs and, where the forward is the wgmma kernel and a backward
-    can follow (``keep``), its output and row statistics, which that
-    backward takes; else the backward re-runs the forward."""
+    the inputs and, where the forward is the wgmma kernel (``route`` 1) and
+    a backward can follow (``keep``), its output and row statistics, which
+    that backward takes; else the backward re-runs the forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, pk, pq, mask, seed, span, max_position, rate, keep):
+    def forward(ctx, q, k, v, pk, pq, mask, seed, span, max_position, rate, route, keep):
         B, S, H, D = q.shape
         lib = _build.library()
         idx_c, idx_p = _device_maps(S, span, max_position, q.device)[:2]
@@ -139,20 +138,19 @@ class DebertaAttentionFn(torch.autograd.Function):
         err = lib.smm_deberta_attention(
             _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
             p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
-            threshold(rate), _drop_scale(rate), p(out), p(stats), _build.stream_ptr(q))
+            threshold(rate), drop_scale(rate), p(out), p(stats), _build.stream_ptr(q))
         _build.check(lib, err, "deberta_attention")
         deberta_attention.launches += 1
         ctx.save_for_backward(q, k, v, pk, pq, mask, seed, out if keep else None, stats)
-        ctx.cfg = (span, max_position, rate)
+        ctx.cfg = (span, max_position, rate, route)
         return out
 
     @staticmethod
     def backward(ctx, gy):
         q, k, v, pk, pq, mask, seed, out, stats = ctx.saved_tensors
-        span, max_position, rate = ctx.cfg
+        span, max_position, rate, wgmma = ctx.cfg
         B, S, H, D = q.shape
         dev, f32 = q.device, torch.float32
-        wgmma = attention_wgmma_route(q.dtype, D, True)
         if wgmma and stats is None:  # the wgmma backward re-runs nothing: it needs the kept ones
             raise RuntimeError("deberta_attention_bwd: the forward kept no row statistics")
         gy = aligned16(gy.to(q.dtype).contiguous())
@@ -163,29 +161,30 @@ class DebertaAttentionFn(torch.autograd.Function):
             stats = torch.empty((2, B * H * S), dtype=f32, device=dev)
         delta = torch.empty((B * H * S,), dtype=f32, device=dev)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        g_rel = torch.empty(rel_scratch_shape(q.dtype, B, S, H, D), dtype=f32, device=dev)
+        g_rel = torch.empty(rel_scratch_shape(wgmma, B, S, H, D), dtype=f32, device=dev)
         dpk = torch.empty((2 * span, H * D), dtype=f32, device=dev)
         dpq = torch.empty((2 * span, H * D), dtype=f32, device=dev)
         p = _build.ptr
         err = lib.smm_deberta_attention_bwd(
             _build.dtype_code(q), p(q), p(k), p(v), H * D, p(pk), p(pq), H * D,
             p(idx_c), p(idx_p), p(mask), B, S, H, D, p(seed),
-            threshold(rate), _drop_scale(rate), p(gy), p(out), p(stats), p(delta), p(dq),
+            threshold(rate), drop_scale(rate), p(gy), p(out), p(stats), p(delta), p(dq),
             p(dk), p(dv), p(g_rel), p(ord_c), p(off_c), p(ord_p), p(off_p), 2 * span,
             p(dpk), p(dpq), _build.stream_ptr(q))
         _build.check(lib, err, "deberta_attention_bwd")
         deberta_attention_bwd.launches += 1
         return (dq, dk, dv, dpk.to(pk.dtype), dpq.to(pq.dtype), None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
-def rel_scratch_shape(dtype, B: int, S: int, H: int, D: int) -> tuple:
+def rel_scratch_shape(route: int, B: int, S: int, H: int, D: int) -> tuple:
     """Shape of the backward's f32 scratch for the per-offset table sums:
     one row per offset and (batch, head) for the kernels of
-    ``csrc/attention_bwd.cuh``; where the wgmma kernels run
-    (``attention_wgmma_route``), one partial per 64-row tile, in ``T + 1``
-    blocks of 64 offsets (``T`` tiles along the sequence)."""
-    if attention_wgmma_route(dtype, D, True):
+    ``csrc/attention_bwd.cuh``; where the wgmma kernels run (``route`` 1,
+    as ``smm_attention_wgmma_route`` reports it: bf16 at head width 64), one
+    partial per 64-row tile, in ``T + 1`` blocks of 64 offsets (``T`` tiles
+    along the sequence)."""
+    if route:
         T = -(-S // 64)
         return (2, B, H, T, T + 1, 64, D)
     return (2, B, H, 2 * S - 1, D)
@@ -246,11 +245,13 @@ def deberta_attention(q, k, v, pos_k, pos_q,
         mask = torch.ones((B, S), dtype=torch.int32, device=q.device)
     else:
         mask = attention_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    seed = _seed_tensor(dropout_seed, q.device) if rate else None
+    seed = seed_tensor(dropout_seed, q.device) if rate else None
+    route = _build.library().smm_attention_wgmma_route(_build.dtype_code(q), D, 1)
     # the forward keeps its output and row statistics where the backward takes them
-    keep = bool(attention_wgmma_route(dt, D, True) and torch.is_grad_enabled()
+    keep = bool(route and torch.is_grad_enabled()
                 and any(t.requires_grad for t in (q, k, v, pk, pq)))
-    return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate, keep)
+    return DebertaAttentionFn.apply(q, k, v, pk, pq, mask, seed, span, max_position, rate,
+                                    route, keep)
 
 
 def deberta_attention_bwd():

@@ -31,6 +31,16 @@ def threshold(rate: float) -> int:
     return int(min(max(rate, 0.0), 1.0) * 4294967296.0) & MASK32
 
 
+def drop_scale(rate: float) -> float:
+    """The factor a kept element is scaled by: 1 / (1 − rate)."""
+    return 1.0 / (1.0 - rate) if rate else 1.0
+
+
+def seed_tensor(seed, device) -> torch.Tensor:
+    """The kernels read the dropout seed from device memory: an int32 [1]."""
+    return torch.as_tensor(seed, device=device).reshape(1).to(torch.int32).contiguous()
+
+
 def _mul(x: torch.Tensor, c: int) -> torch.Tensor:
     """(x · c) mod 2³² for int64 x in [0, 2³²) and a 32-bit constant c."""
     lo = x * (c & 0xFFFF)

@@ -23,8 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention_block import _drop_scale, _flax_t, _seed_tensor
-from .dropout import SALT_MID, SALT_OUT, apply_keep, ffn_keep, threshold
+from .dropout import SALT_MID, SALT_OUT, apply_keep, drop_scale, ffn_keep, seed_tensor, threshold
 from .gemm import aligned16, gelu_grad
 
 STRIP = 128  # rows of the two-product kernel's block tile: one db1 partial per strip
@@ -48,13 +47,13 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
         xin = F.layer_norm(xf, (E,), g.float(), b.float(), eps).to(x.dtype)
     else:
         xin = x
-    h = xin.to(f32) @ w1.to(f32) + b1.to(f32)
+    h = xin.to(f32) @ w1.to(f32).t() + b1.to(f32)
     h = F.gelu(h, approximate=approximate)
     if dropout_rate_mid:
         h = apply_keep(h, ffn_keep(dropout_seed, SALT_MID, B, S, h.shape[-1],
                                    dropout_rate_mid, device=x.device), dropout_rate_mid)
     h = h.to(x.dtype)
-    y = h.to(f32) @ w2.to(f32) + b2.to(f32)
+    y = h.to(f32) @ w2.to(f32).t() + b2.to(f32)
     if dropout_rate_out:
         y = apply_keep(y, ffn_keep(dropout_seed, SALT_OUT, B, S, E, dropout_rate_out,
                                    device=x.device), dropout_rate_out)
@@ -66,20 +65,12 @@ def ffn_block_plain(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
     return y.to(x.dtype)
 
 
-def ffn_bwd_route(dtype: torch.dtype, E: int, Fd: int) -> int:
-    """Which chain ``FFNBlockFn.backward`` runs, as ``ffn_bwd_wgmma_takes``
-    (``csrc/ffn_block_bwd_wgmma.cuh``) decides it and ``smm_ffn_bwd_route``
-    reports it: 1 for the wgmma chain (bf16, E a multiple of 64 and F of 128,
-    the two-product kernel's tile: every base-width site), 0 for the chain of
-    ``csrc/gemm.cuh``'s kernels (f32, the tiny preset's widths, other F)."""
-    return int(dtype == torch.bfloat16 and 0 < E <= 1024 and Fd > 0
-               and E % 64 == 0 and Fd % 128 == 0)
-
-
 def ffn_bwd_part_floats(route: int, M: int, E: int, Fd: int) -> int:
     """Floats of the backward's partials buffer: the LayerNorm backward's
-    [row blocks, 2E] and, on the wgmma chain, db1's [strips, F] and db2's
-    [row blocks, E] after it (``run_wgmma`` in ``csrc/ffn_block_bwd.cu``)."""
+    [row blocks, 2E] and, on the wgmma chain (``route`` 1, as
+    ``smm_ffn_bwd_route`` reports it: bf16, E a multiple of 64 and F of
+    128), db1's [strips, F] and db2's [row blocks, E] after it (``run_wgmma``
+    in ``csrc/ffn_block_bwd.cu``)."""
     blocks = _build.row_partition(M)[1]
     ln = blocks * 2 * E
     return ln + -(-M // STRIP) * Fd + blocks * E if route else ln
@@ -141,7 +132,7 @@ def ffn_block_bwd_plain(x, w1, b1, w2, b2, gy, ln: Optional[tuple] = None,
     Same arguments as ``ffn_block`` plus the cotangent ``gy``."""
     f32, dt = torch.float32, x.dtype
     B, S, E = x.shape
-    Fd, M = w1.shape[1], B * S
+    Fd, M = w1.shape[0], B * S
     tanh = dt == torch.bfloat16
 
     def drop(v, salt, rate):
@@ -162,23 +153,23 @@ def ffn_block_bwd_plain(x, w1, b1, w2, b2, gy, ln: Optional[tuple] = None,
         a = F.layer_norm(xf, (E,), lg, lb, eps).to(dt).float()
     dy1 = g
     if ln is not None and ln_post:
-        h = drop(gelu(a @ w1f + b1f), SALT_MID, dropout_rate_mid).to(dt).float()
-        y = drop(h @ w2f + b2f, SALT_OUT, dropout_rate_out) + (xf if residual else 0.0)
+        h = drop(gelu(a @ w1f.t() + b1f), SALT_MID, dropout_rate_mid).to(dt).float()
+        y = drop(h @ w2f.t() + b2f, SALT_OUT, dropout_rate_out) + (xf if residual else 0.0)
         dy1, dln = _ln_bwd_rows(g, y, lg, eps)
     dy0 = drop(dy1, SALT_OUT, dropout_rate_out)
     db2 = fold_columns(row_block_partials(dy0))
     dy0 = dy0.to(dt).float()
-    hpre = a @ w1f + b1f
+    hpre = a @ w1f.t() + b1f
     h = drop(gelu(hpre), SALT_MID, dropout_rate_mid).to(dt).float()
-    dhp = (drop(dy0 @ w2f.t(), SALT_MID, dropout_rate_mid) * gelu_grad(hpre, tanh)).to(dt).float()
+    dhp = (drop(dy0 @ w2f, SALT_MID, dropout_rate_mid) * gelu_grad(hpre, tanh)).to(dt).float()
     db1 = fold_columns(strip_partials(dhp))
-    dxn = dhp @ w1f.t()
+    dxn = dhp @ w1f
     if ln is not None and not ln_post:
         dx, dln = _ln_bwd_rows(dxn, xf, lg, eps)
         dx = dx + g if residual else dx
     else:
         dx = dxn + dy1 if residual else dxn
-    out = [dx.reshape(B, S, E), a.t() @ dhp, db1, h.t() @ dy0, db2]
+    out = [dx.reshape(B, S, E), dhp.t() @ a, db1, dy0.t() @ h, db2]
     out += [None, None] if dln is None else [dln[0], dln[1]]
     return tuple(None if t is None else t.to(dt) for t in out)
 
@@ -196,7 +187,7 @@ class FFNBlockFn(torch.autograd.Function):
     def forward(ctx, x, w1, b1, w2, b2, ln_g, ln_b, seed, eps, ln_post, residual,
                 rate_mid, rate_out):
         B, S, E = x.shape
-        Fd = w1.shape[1]
+        Fd = w1.shape[0]
         M = B * S
         dt, dev = x.dtype, x.device
         lib = _build.library()
@@ -205,15 +196,14 @@ class FFNBlockFn(torch.autograd.Function):
         y32 = torch.empty((M, E), dtype=torch.float32, device=dev) if mode == 2 else None
         h = torch.empty((M, Fd), dtype=dt, device=dev)
         out = torch.empty_like(x)
-        w1t, w2t = _flax_t(w1), _flax_t(w2)  # referenced until the launch
-        x, b1, b2 = aligned16(x), aligned16(b1.contiguous()), aligned16(b2.contiguous())
+        x = aligned16(x)
         p = _build.ptr
         err = lib.smm_ffn_block(
-            _build.dtype_code(x), p(x), p(w1t), p(b1), p(w2t), p(b2),
+            _build.dtype_code(x), p(x), p(w1), p(b1), p(w2), p(b2),
             p(ln_g), p(ln_b), eps, mode, int(residual), M, E, Fd, S,
             p(seed), threshold(rate_mid),
-            _drop_scale(rate_mid), int(rate_mid > 0), threshold(rate_out),
-            _drop_scale(rate_out), int(rate_out > 0), p(xn), p(h), p(y32), p(out),
+            drop_scale(rate_mid), int(rate_mid > 0), threshold(rate_out),
+            drop_scale(rate_out), int(rate_out > 0), p(xn), p(h), p(y32), p(out),
             _build.stream_ptr(x))
         _build.check(lib, err, "ffn_block")
         ffn_block.launches += 1
@@ -226,13 +216,13 @@ class FFNBlockFn(torch.autograd.Function):
         x, w1, b1, w2, b2, ln_g, ln_b, seed = ctx.saved_tensors
         eps, ln_post, residual, rate_mid, rate_out = ctx.cfg
         B, S, E = x.shape
-        Fd = w1.shape[1]
+        Fd = w1.shape[0]
         M = B * S
         dt, dev, f32 = x.dtype, x.device, torch.float32
         gy = aligned16(gy.to(dt).contiguous())
         lib = _build.library()
         mode = _ln_mode(ln_g, ln_post)
-        route = ffn_bwd_route(dt, E, Fd)
+        route = lib.smm_ffn_bwd_route(_build.dtype_code(x), E, Fd)
 
         def empty(shape, dtype=dt, when=True):
             return torch.empty(shape, dtype=dtype, device=dev) if when else None
@@ -244,19 +234,20 @@ class FFNBlockFn(torch.autograd.Function):
         dxn = empty((M, E), f32, when=mode == 1)
         part = empty((ffn_bwd_part_floats(route, M, E, Fd),), f32, when=bool(route or mode))
         dsum = empty((2 * E + (Fd + E if route else 0),), f32, when=bool(route or mode))
-        # operands referenced until the launch: torch layout (the model's own, no
-        # copy there) for the recompute and, on the wgmma chain, for both
-        # products of the two-product kernel (W2 read MN-major); flax layout
-        # (K-major) for dxn and, on the gemm.cuh chain, dh
-        w1t, w2t, w1f = _flax_t(w1), _flax_t(w2), aligned16(w1.contiguous())
-        w2f = None if route else aligned16(w2.contiguous())
+        # the recompute and, on the wgmma chain, both products of the
+        # two-product kernel (W2 read MN-major) take the weights as they are;
+        # dxn = dh·W1 and, on gemm.cuh's chain, dh = dy0·W2 read them as their
+        # GEMM operand [N, K] (K-major), which is the transpose: one copy each,
+        # referenced until the launch
+        w1_t = aligned16(w1.t().contiguous())
+        w2_t = None if route else aligned16(w2.t().contiguous())
         p = _build.ptr
         err = lib.smm_ffn_block_bwd(
-            _build.dtype_code(x), p(x), p(gy), p(w1t), p(b1), p(w2t),
-            p(b2), p(w1f), p(w2f), p(ln_g), p(ln_b), eps, mode,
+            _build.dtype_code(x), p(x), p(gy), p(w1), p(b1), p(w2),
+            p(b2), p(w1_t), p(w2_t), p(ln_g), p(ln_b), eps, mode,
             int(residual), M, E, Fd, S, p(seed),
-            threshold(rate_mid), _drop_scale(rate_mid), int(rate_mid > 0),
-            threshold(rate_out), _drop_scale(rate_out), int(rate_out > 0),
+            threshold(rate_mid), drop_scale(rate_mid), int(rate_mid > 0),
+            threshold(rate_out), drop_scale(rate_out), int(rate_out > 0),
             p(xn), p(hpre), p(h), p(y32), p(dy0), p(dhp), p(dxn), p(dx), p(part),
             p(dsum), _build.stream_ptr(x))
         _build.check(lib, err, "ffn_block_bwd")
@@ -264,8 +255,8 @@ class FFNBlockFn(torch.autograd.Function):
         # weight grads: (B, S)-contractions outside the kernel, as in the JAX
         # _ffn_bwd; the bias sums are the chain's folds on the wgmma chain
         xin = xn if mode == 1 else x.reshape(M, E)
-        dw1 = (xin.t() @ dhp).to(w1.dtype)
-        dw2 = (h.t() @ dy0).to(w2.dtype)
+        dw1 = (dhp.t() @ xin).to(w1.dtype)
+        dw2 = (dy0.t() @ h).to(w2.dtype)
         if route:
             db1, db2 = dsum[2 * E:2 * E + Fd], dsum[2 * E + Fd:]
         else:
@@ -280,8 +271,8 @@ def ffn_block(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
               ln_post: bool = False, residual: bool = True,
               dropout_rate_mid: float = 0.0, dropout_rate_out: float = 0.0,
               dropout_seed=None):
-    """Fused FFN block over x [B, S, E]; same arguments and layouts as the
-    JAX ``ffn_block`` (w1 [E, F], b1 [F], w2 [F, E], b2 [E]).
+    """Fused FFN block over x [B, S, E]: w1 [F, E], b1 [F], w2 [E, F], b2
+    [E], weights in torch ``nn.Linear`` layout.
     ``ln=(scale, bias, eps)``: pre-LN when ``ln_post`` is False, post-LN of
     the residual sum when True. ``dropout_rate_mid`` drops the post-GELU
     intermediate, ``dropout_rate_out`` the output before the residual, by
@@ -301,11 +292,11 @@ def ffn_block(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
     if x.device.type != "cuda":
         raise RuntimeError(f"ffn_block: no kernel for device {x.device}")
     E = x.shape[-1]
-    Fd = w1.shape[1]
+    Fd = w1.shape[0]
     if E % 8 or Fd % 8 or E > 1024:
         raise ValueError(f"ffn_block: E={E} and F={Fd} must be multiples of 8, E at most 1024")
-    if w1.shape != (E, Fd) or w2.shape != (Fd, E):
-        raise ValueError(f"ffn_block: expected w1 [{E}, F] and w2 [F, {E}], "
+    if w1.shape != (Fd, E) or w2.shape != (E, Fd):
+        raise ValueError(f"ffn_block: expected w1 [F, {E}] and w2 [{E}, F], "
                          f"got {tuple(w1.shape)} and {tuple(w2.shape)}")
     dt = x.dtype
     _build.dtype_code(x)
@@ -314,10 +305,11 @@ def ffn_block(x, w1, b1, w2, b2, ln: Optional[tuple] = None,
     if ln is not None:
         # 16-byte aligned: the LayerNorm backward reads them in 16-byte chunks
         ln_g, ln_b, eps = aligned16(ln[0].to(dt)), aligned16(ln[1].to(dt)), float(ln[2])
-    seed = _seed_tensor(dropout_seed, x.device) if (rate_mid or rate_out) else None
-    return FFNBlockFn.apply(x.contiguous(), w1.to(dt), b1.to(dt), w2.to(dt), b2.to(dt),
-                            ln_g, ln_b, seed, eps, bool(ln_post), bool(residual),
-                            rate_mid, rate_out)
+    seed = seed_tensor(dropout_seed, x.device) if (rate_mid or rate_out) else None
+    # 16-byte aligned: the wgmma GEMM reads the weights through TMA tensor maps
+    w1, b1, w2, b2 = (aligned16(t.to(dt).contiguous()) for t in (w1, b1, w2, b2))
+    return FFNBlockFn.apply(x.contiguous(), w1, b1, w2, b2, ln_g, ln_b, seed, eps,
+                            bool(ln_post), bool(residual), rate_mid, rate_out)
 
 
 def ffn_block_bwd():

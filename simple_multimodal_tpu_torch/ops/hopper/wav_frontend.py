@@ -46,7 +46,7 @@ def wav_frontend_plain(wav, kernel, gn_scale, gn_bias, stride: int, eps: float =
     GroupNorm statistics (two-pass variance) and the GELU in f32; tanh GELU
     for bf16, erf for f32."""
     cd = kernel.dtype
-    y = F.conv1d(wav.to(cd)[:, None, :], kernel.permute(2, 1, 0), stride=stride)
+    y = F.conv1d(wav.to(cd)[:, None, :], kernel, stride=stride)
     yf = y.float()  # [B, C, T1]
     mean = yf.mean(dim=-1, keepdim=True)
     var = ((yf - mean) ** 2).mean(dim=-1, keepdim=True)
@@ -78,8 +78,7 @@ def wav_frontend_bwd_plain(gy, wav, kernel, gn_scale, gn_bias, mean, rstd, strid
     inputs' dtypes."""
     cd = kernel.dtype
     x = wav.to(cd)[:, None, :].float()
-    w = kernel.permute(2, 1, 0)  # [C, 1, K]
-    y = F.conv1d(wav.to(cd)[:, None, :], w, stride=stride).float()  # [B, C, T1]
+    y = F.conv1d(wav.to(cd)[:, None, :], kernel, stride=stride).float()  # [B, C, T1]
     mu, r = mean.float()[..., None], rstd.float()[..., None]
     g, b = gn_scale.float()[:, None], gn_bias.float()[:, None]
     xhat = (y - mu) * r
@@ -88,9 +87,9 @@ def wav_frontend_bwd_plain(gy, wav, kernel, gn_scale, gn_bias, mean, rstd, strid
     m1 = dz.mean(dim=-1, keepdim=True)
     m2 = (dz * xhat).mean(dim=-1, keepdim=True)
     dy = (r * g * (dz - m1 - xhat * m2)).to(cd).float()
-    dw = torch.nn.grad.conv1d_weight(x, w.shape, dy, stride=stride)  # [C, 1, K]
-    dx = torch.nn.grad.conv1d_input(x.shape, w.float(), dy, stride=stride)
-    return (dx[:, 0].to(wav.dtype), dw.permute(2, 1, 0).to(cd), dgamma.to(gn_scale.dtype),
+    dw = torch.nn.grad.conv1d_weight(x, kernel.shape, dy, stride=stride)
+    dx = torch.nn.grad.conv1d_input(x.shape, kernel.float(), dy, stride=stride)
+    return (dx[:, 0].to(wav.dtype), dw.to(cd), dgamma.to(gn_scale.dtype),
             dbeta.to(gn_bias.dtype))
 
 
@@ -122,14 +121,14 @@ def fold_stats_plain(part, T1: int, gn_scale, gn_bias, eps: float = 1e-5):
 def _forward(wav, kernel, gn_scale, gn_bias, stride, eps):
     """Launch pass 1, the fold and pass 2: (out, coef [4, B, C] = mean, rstd,
     scale, shift; the blocks per batch row)."""
-    K, _, C = kernel.shape
+    C, _, K = kernel.shape
     B, T = wav.shape
     T1 = (T - K) // stride + 1
     dev = wav.device
     nb = row_blocks(B, -(-T1 // WAV_TILE), _sm_count(dev.index or 0))
     lib = _build.library()
     x = _wave(wav)
-    w = kernel.reshape(K, C).contiguous()
+    w = _taps(kernel)
     g, b = gn_scale.float().contiguous(), gn_bias.float().contiguous()
     scratch = torch.empty(4 * B * C + B * nb * 2 * C, dtype=torch.float32, device=dev)
     coef, part = scratch[:4 * B * C].view(4, B, C), scratch[4 * B * C:]  # part [B, nb, 2, C]
@@ -157,14 +156,14 @@ class WavFrontendFn(torch.autograd.Function):
     def backward(ctx, gy):
         wav, kernel, gn_scale, gn_bias, coef = ctx.saved_tensors
         stride, nb = ctx.cfg
-        K, _, C = kernel.shape
+        C, _, K = kernel.shape
         B, T = wav.shape
         T1 = (T - K) // stride + 1
         ntiles = -(-T1 // WAV_TILE)
         dev, f32 = wav.device, torch.float32
         lib = _build.library()
         x = _wave(wav)
-        w = kernel.reshape(K, C).contiguous()
+        w = _taps(kernel)
         g, b = gn_scale.float().contiguous(), gn_bias.float().contiguous()
         gy = gy.to(kernel.dtype).contiguous()
         # one f32 scratch: dgb [2, C] (dgamma, dbeta), co [3, B, C], part_a [B, nb, 2, C],
@@ -172,7 +171,7 @@ class WavFrontendFn(torch.autograd.Function):
         sizes = (2 * C, 3 * B * C, B * nb * 2 * C, B * nb * K * C)
         dgb, co, part_a, part_b = torch.empty(sum(sizes), dtype=f32, device=dev).split(sizes)
         dgb = dgb.view(2, C)
-        dw = torch.empty((K, 1, C), dtype=kernel.dtype, device=dev)
+        dw = torch.empty((K, C), dtype=kernel.dtype, device=dev)  # the kernels' tap-major order
         dxt = dwav = None
         if ctx.needs_input_grad[0]:
             dxt = torch.empty((B, ntiles, WAV_TILE * stride + K), dtype=f32, device=dev)
@@ -184,7 +183,8 @@ class WavFrontendFn(torch.autograd.Function):
         _build.check(lib, err, "wav_frontend backward")
         wav_frontend_bwd.launches += 1
         needs = ctx.needs_input_grad
-        return (None if dwav is None else dwav.to(wav.dtype), dw if needs[1] else None,
+        return (None if dwav is None else dwav.to(wav.dtype),
+                dw.t()[:, None] if needs[1] else None,
                 dgb[0].to(gn_scale.dtype) if needs[2] else None,
                 dgb[1].to(gn_bias.dtype) if needs[3] else None, None, None)
 
@@ -195,13 +195,17 @@ def _wave(wav):
     return wav.float().contiguous()
 
 
-def wav_frontend(wav, kernel, gn_scale, gn_bias, stride: int, eps: float = 1e-5):
-    """Fused conv_0 → GroupNorm(C groups) → GELU over a waveform [B, T]; the
-    JAX ``wav_frontend``'s arguments and layouts.
+def _taps(kernel):
+    """The conv weight [C, 1, K] as the kernels read it: tap-major [K, C]."""
+    return kernel[:, 0].t().contiguous()
 
-    ``kernel`` is the conv weight [K, 1, C], ``gn_scale``/``gn_bias`` the
-    GroupNorm affine [C]. Returns NWC frames [B, T1, C] in the kernel's
-    dtype. CPU tensors run the plain version; CUDA tensors launch the
+
+def wav_frontend(wav, kernel, gn_scale, gn_bias, stride: int, eps: float = 1e-5):
+    """Fused conv_0 → GroupNorm(C groups) → GELU over a waveform [B, T].
+
+    ``kernel`` is the conv weight [C, 1, K] (torch ``nn.Conv1d`` layout),
+    ``gn_scale``/``gn_bias`` the GroupNorm affine [C]. Returns NWC frames
+    [B, T1, C] in the kernel's dtype. CPU tensors run the plain version; CUDA tensors launch the
     kernels (K = 10 taps, a stride up to 5 that divides K, C = 8·2ⁿ up to
     512), forward and backward, or raise. With no gradient to record the
     forward launches without the autograd.Function around it.
@@ -211,8 +215,8 @@ def wav_frontend(wav, kernel, gn_scale, gn_bias, stride: int, eps: float = 1e-5)
     if wav.device.type != "cuda":
         raise RuntimeError(f"wav_frontend: no kernel for device {wav.device}")
     if wav.dim() != 2 or kernel.dim() != 3 or kernel.shape[1] != 1:
-        raise ValueError("wav_frontend: wav [B, T] and kernel [K, 1, C]")
-    K, _, C = kernel.shape
+        raise ValueError("wav_frontend: wav [B, T] and kernel [C, 1, K]")
+    C, _, K = kernel.shape
     if K != TAPS or not 1 <= stride <= MAX_STRIDE or K % stride:
         raise ValueError(f"wav_frontend: the kernel takes K = {TAPS} taps and a stride "
                          f"up to {MAX_STRIDE} that divides K, got K = {K}, stride = {stride}")

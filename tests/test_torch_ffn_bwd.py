@@ -2,12 +2,13 @@
 the wgmma chain's plain statement (``ffn_block_bwd_plain``) against the JAX
 package's Pallas ``_ffn_bwd`` in interpret mode (SMM_FFN_BWD=1), in the three
 LayerNorm modes with both dropouts, all gradients at 1e-4 in f32; and, torch
-only, the host side the CUDA chain stands on: which body a call takes (the
-FFN backward's and DeBERTa's forward's), the row partition of the row
+only, the host side the CUDA chain stands on: the row partition of the row
 kernels, where each tile and row block leaves its db1, db2 and LayerNorm
 partials, the fixed fold order, and DeBERTa's wgmma backward refusing to run
-without the forward's kept statistics. The kernels themselves run on the
-card only (chip_smoke.py).
+without the forward's kept statistics. Which body a call takes is the
+library's answer (``smm_ffn_bwd_route``, ``smm_attention_wgmma_route``),
+held in tests/test_torch_gpu.py; the kernels themselves run on the card only
+(chip_smoke.py).
 """
 from types import SimpleNamespace
 
@@ -20,8 +21,8 @@ import torch.nn.functional as F
 from simple_multimodal_tpu.ops.pallas import ffn_block as jfb
 from simple_multimodal_tpu_torch.ops.hopper import _build
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
-from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 from simple_multimodal_tpu_torch.ops.hopper.deberta_attention import DebertaAttentionFn
+from _torch_layout import torch_layout
 
 GTOL = dict(atol=1e-4, rtol=1e-4)
 RATE, SEED = 0.1, 20260516
@@ -38,6 +39,12 @@ def _ffn_args(B, S, E, Fd, seed):
     b = (0.1 * rng.standard_normal((E,))).astype(np.float32)
     ct = rng.standard_normal((B, S, E)).astype(np.float32)
     return [x, w1, b1, w2, b2, g, b], ct
+
+
+def _torch_args(args):
+    """``_ffn_args``'s JAX arguments (or their gradients) as the port's."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    return [t[0], *torch_layout(*args[1:5]), *t[5:]]
 
 
 @pytest.mark.parametrize("ln_mode", ["none", "pre", "post"])
@@ -60,18 +67,20 @@ def test_plain_backward_matches_jax_pallas_ffn_bwd(ln_mode, monkeypatch):
         return (out * ct).sum()
 
     want = jax.grad(jloss, argnums=tuple(range(n)))(*args[:n])
-    ts = [torch.from_numpy(a).requires_grad_() for a in args[:n]]
+    want = _torch_args([np.array(w).reshape(a.shape) for w, a in zip(want, args)])
+    ts = [t.requires_grad_() for t in _torch_args(args[:n])]
     ln = (ts[5], ts[6], eps) if n == 7 else None
     out = fb.ffn_block(*ts[:5], ln=ln, ln_post=post, residual=True, **drop)
     out.backward(torch.from_numpy(ct))
-    chain = fb.ffn_block_bwd_plain(*[torch.from_numpy(a) for a in args[:5]],
-                                   torch.from_numpy(ct), ln=None if n == 5 else (
-                                       torch.from_numpy(args[5]), torch.from_numpy(args[6]), eps),
+    t = _torch_args(args)
+    chain = fb.ffn_block_bwd_plain(*t[:5], torch.from_numpy(ct),
+                                   ln=None if n == 5 else (t[5], t[6], eps),
                                    ln_post=post, residual=True, **drop)
     for i, w in enumerate(want):
-        w = np.asarray(w).reshape(args[i].shape)
-        np.testing.assert_allclose(ts[i].grad.numpy(), w, **GTOL, err_msg=f"autograd, grad {i}")
-        np.testing.assert_allclose(chain[i].numpy(), w, **GTOL, err_msg=f"chain, grad {i}")
+        np.testing.assert_allclose(ts[i].grad.numpy(), w.numpy(), **GTOL,
+                                   err_msg=f"autograd, grad {i}")
+        np.testing.assert_allclose(chain[i].numpy(), w.numpy(), **GTOL,
+                                   err_msg=f"chain, grad {i}")
 
 
 @pytest.mark.parametrize("residual", [False, True])
@@ -82,7 +91,7 @@ def test_plain_chain_without_dropout_matches_autograd(residual):
     B, S, E, Fd = 3, 45, 64, 128
     args, ct = _ffn_args(B, S, E, Fd, seed=12)
     for ln_mode in ("none", "pre", "post"):
-        ts = [torch.from_numpy(a).requires_grad_() for a in args]
+        ts = [t.requires_grad_() for t in _torch_args(args)]
         ln = None if ln_mode == "none" else (ts[5], ts[6], 1e-5)
         out = fb.ffn_block_plain(*ts[:5], ln=ln, ln_post=ln_mode == "post", residual=residual)
         out.backward(torch.from_numpy(ct))
@@ -95,33 +104,13 @@ def test_plain_chain_without_dropout_matches_autograd(residual):
                 torch.testing.assert_close(got, ts[i].grad, **GTOL, msg=f"{ln_mode} grad {i}")
 
 
-def test_ffn_bwd_route_takes_wgmma_at_the_base_widths_only():
-    bf16, f32 = torch.bfloat16, torch.float32
-    for E, Fd in ((768, 3072), (64, 128), (1024, 4096), (128, 256)):
-        assert fb.ffn_bwd_route(bf16, E, Fd) == 1
-        assert fb.ffn_bwd_route(f32, E, Fd) == 0
-    for E, Fd in ((32, 64), (96, 160), (768, 192), (768, 3000), (800, 3072), (2048, 8192)):
-        # the tiny preset, F off the kernel's 128-column tile, odd widths, E past 1024
-        assert fb.ffn_bwd_route(bf16, E, Fd) == 0
-
-
-def test_deberta_forward_route_takes_wgmma_in_bf16_at_head_width_64():
-    """DeBERTa's forward follows the rule of the attention backwards with the
-    position tables (``rel``): the wgmma kernel in bf16 at head width 64."""
-    assert attention_wgmma_route(torch.bfloat16, 64, True) == 1
-    assert attention_wgmma_route(torch.float32, 64, True) == 0
-    for D in (16, 32):
-        assert attention_wgmma_route(torch.bfloat16, D, True) == 0
-        assert attention_wgmma_route(torch.float32, D, True) == 0
-
-
 def test_deberta_wgmma_backward_without_kept_statistics_raises():
     """On the wgmma route the backward takes the forward's output and row
     statistics and re-runs nothing; without them it raises before it builds
     or launches anything, rather than read uninitialised buffers."""
     q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
     ctx = SimpleNamespace(saved_tensors=(q, q, q, None, None, None, None, None, None),
-                          cfg=(4, 16, 0.0))
+                          cfg=(4, 16, 0.0, 1))
     with pytest.raises(RuntimeError, match="kept no row statistics"):
         DebertaAttentionFn.backward(ctx, q)
 

@@ -1,16 +1,19 @@
 """The host side of the wgmma GEMM and attention core of the port, on the
 CPU with torch alone: the accumulator register layout in which the kernels'
 epilogues address their elements, the dropout masks formed in that order,
-the choice of kernel by shape and alignment, and the plain GEMM with its
-epilogue against the blocks' plain versions.
+the choice of kernel by shape and alignment, the weights a block's forward
+hands the kernels, and the plain GEMM with its epilogue against the blocks'
+plain versions.
 """
 import pytest
 import torch
 import torch.nn.functional as F
 
+from simple_multimodal_tpu_torch.models import vit
 from simple_multimodal_tpu_torch.models.deberta import DebertaConfig
-from simple_multimodal_tpu_torch.models.vit import ViTConfig
+from simple_multimodal_tpu_torch.models.vit import ViTConfig, ViTLayer
 from simple_multimodal_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from simple_multimodal_tpu_torch.ops.hopper import _build
 from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
 from simple_multimodal_tpu_torch.ops.hopper import gemm as G
@@ -152,9 +155,67 @@ def test_misaligned_view_is_cloned_and_aligned_one_is_not():
     assert odd.data_ptr() % 16 == 2
     fixed = G.aligned16(odd)
     assert fixed is not odd and fixed.data_ptr() % 16 == 0 and torch.equal(fixed, odd)
-    # the blocks' weight helper: the transposed view of a Linear weight costs no copy
-    w = torch.nn.Linear(64, 32).weight.detach()
-    assert ab._flax_t(w.t()).data_ptr() == w.data_ptr()
+
+
+class _Library:
+    """Stands in for the kernel library on the CPU: records each entry
+    point's arguments and launches nothing."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("block", ["attention_block", "ffn_block"])
+def test_forward_hands_the_models_weight_storage_to_the_kernel(block, monkeypatch):
+    """A ViT layer's f32 weights reach the kernel as their own storage, with
+    no transposed copy on the way: q|k|v as the rows of the one weight
+    packed in the layer's forward, the out-projection and the FFN's Linears
+    as the model's parameters themselves. The layer's calls are recorded on
+    the CPU, then given to the block's autograd.Function under a stand-in
+    library that records the pointers."""
+    seen = {}
+
+    def record(name, fn):
+        def call(*args, **kw):
+            seen[name] = args
+            return fn(*args, **kw)
+        return call
+
+    for name in ("attention_block", "ffn_block"):
+        monkeypatch.setattr(vit, name, record(name, getattr(vit, name)))
+    cfg = ViTConfig.tiny()
+    layer = ViTLayer(cfg).eval()
+    layer(torch.randn(2, 5, cfg.hidden_size), torch.float32)
+    lib = _Library()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    x, *ws = seen[block]
+    E = cfg.hidden_size
+    if block == "attention_block":
+        monkeypatch.setattr(ab.attention_block, "launches", ab.attention_block.launches)
+        ab.AttentionBlockFn.apply(x, *ws, None, None, None, cfg.num_heads, 0.0, False, 0.0)
+        q, k, v, o = layer._attn_layers()
+        w_qkv, b_qkv = ws[:2]
+        assert torch.equal(w_qkv, torch.cat([q.weight, k.weight, v.weight]))
+        assert torch.equal(b_qkv, torch.cat([q.bias, k.bias, v.bias]))
+        want = []
+        for i in range(3):  # wq, bq, wk, bk, wv, bv: rows of the packed tensors
+            want += [w_qkv.data_ptr() + 4 * i * E * E, b_qkv.data_ptr() + 4 * i * E]
+        want += [o.weight.data_ptr(), o.bias.data_ptr()]
+        assert list(lib.calls["smm_attention_block"][2:10]) == want
+    else:
+        monkeypatch.setattr(fb.ffn_block, "launches", fb.ffn_block.launches)
+        fb.FFNBlockFn.apply(x, *ws, None, None, None, 0.0, False, True, 0.0, 0.0)
+        l1, l2 = layer.intermediate.dense, layer.output.dense
+        want = [l1.weight.data_ptr(), l1.bias.data_ptr(), l2.weight.data_ptr(),
+                l2.bias.data_ptr()]
+        assert list(lib.calls["smm_ffn_block"][2:6]) == want
 
 
 @pytest.mark.parametrize("tanh", [False, True])
@@ -173,15 +234,15 @@ def test_plain_gemm_chain_equals_ffn_block_plain(ln_post):
     g = torch.Generator().manual_seed(0)
     B, S, E, Fd, seed, rate = 3, 37, 64, 128, 5, 0.1
     x = torch.randn(B, S, E, generator=g)
-    w1, b1 = torch.randn(E, Fd, generator=g) * E ** -0.5, torch.randn(Fd, generator=g) * 0.1
-    w2, b2 = torch.randn(Fd, E, generator=g) * Fd ** -0.5, torch.randn(E, generator=g) * 0.1
+    w1, b1 = torch.randn(Fd, E, generator=g) * E ** -0.5, torch.randn(Fd, generator=g) * 0.1
+    w2, b2 = torch.randn(E, Fd, generator=g) * Fd ** -0.5, torch.randn(E, generator=g) * 0.1
     ln = (1 + 0.1 * torch.randn(E, generator=g), 0.1 * torch.randn(E, generator=g), 1e-6)
     want = fb.ffn_block_plain(x, w1, b1, w2, b2, ln=ln, ln_post=ln_post, dropout_rate_mid=rate,
                               dropout_rate_out=rate, dropout_seed=seed)
     rows = x.reshape(B * S, E)
     xin = rows if ln_post else F.layer_norm(rows, (E,), ln[0], ln[1], ln[2])
-    h = G.gemm(xin, w1.t(), b1, act="gelu_erf", dropout=(rate, seed, SALT_MID, S))
-    y = G.gemm(h, w2.t(), b2, dropout=(rate, seed, SALT_OUT, S), res=rows)
+    h = G.gemm(xin, w1, b1, act="gelu_erf", dropout=(rate, seed, SALT_MID, S))
+    y = G.gemm(h, w2, b2, dropout=(rate, seed, SALT_OUT, S), res=rows)
     if ln_post:
         y = F.layer_norm(y, (E,), ln[0], ln[1], ln[2])
     torch.testing.assert_close(y.reshape(B, S, E), want, atol=1e-5, rtol=1e-5)

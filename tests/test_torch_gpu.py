@@ -13,6 +13,7 @@ import torch
 from simple_multimodal_tpu_torch.config import ModelConfig
 from simple_multimodal_tpu_torch.models.multimodal_model import MultimodalEmotionModel, create_model
 from simple_multimodal_tpu_torch.ops import hopper
+from simple_multimodal_tpu_torch.ops.hopper import _build
 from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
@@ -28,6 +29,13 @@ pytestmark = pytest.mark.gpu
 def _counts(**launched):
     """Every kernel's launch count: 0 unless named."""
     return {**{k.__name__: 0 for k in hopper.KERNELS}, **launched}
+
+
+def _block_weights(rn, E):
+    """attention_block's weights from ``rn(*shape, std=...)``: [w_qkv
+    [3E, E], b_qkv [3E], wo [E, E], bo [E]]."""
+    return [rn(3 * E, E, std=E ** -0.5), rn(3 * E, std=0.1), rn(E, E, std=E ** -0.5),
+            rn(E, std=0.1)]
 
 
 @pytest.fixture
@@ -58,9 +66,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
 
     B, S, E, H, F = 3, 77, 128, 2, 256
     x = rn(B, S, E)
-    wb = []
-    for _ in range(4):
-        wb += [rn(E, E, std=E ** -0.5), rn(E, std=0.1)]
+    wb = _block_weights(rn, E)
     g_ln, b_ln = rn(E, std=0.1) + 1, rn(E, std=0.1)
     ln, ln32 = (g_ln, b_ln, 1e-6), (g_ln.float(), b_ln.float(), 1e-6)
     for use_ln, residual in ((False, False), (True, True)):
@@ -68,7 +74,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
                                  residual=residual),
               ab.attention_block_plain(x.float(), *f32(wb), num_heads=H,
                                        ln=ln32 if use_ln else None, residual=residual))
-    w1, b1, w2, b2 = rn(E, F, std=E ** -0.5), rn(F, std=0.1), rn(F, E, std=F ** -0.5), rn(E)
+    w1, b1, w2, b2 = rn(F, E, std=E ** -0.5), rn(F, std=0.1), rn(E, F, std=F ** -0.5), rn(E)
     for post in (False, True):
         check(fb.ffn_block(x, w1, b1, w2, b2, ln=ln, ln_post=post),
               fb.ffn_block_plain(*f32([x, w1, b1, w2, b2]), ln=ln32, ln_post=post))
@@ -99,21 +105,19 @@ def _backward_cases(dev, dtype, rate, g):
 
     B, S, E, H, Fd, span, seed = 3, 77, 128, 2, 256, 16, 1234
     x = rn(B, S, E)
-    wb = []
-    for _ in range(4):
-        wb += [rn(E, E, std=E ** -0.5), rn(E, std=0.1)]
+    wb = _block_weights(rn, E)
     lg, lb = rn(E, std=0.1) + 1, rn(E, std=0.1)
     cases = []
     for use_ln, residual in ((False, False), (True, True)):
         def fn(impl, ln_on=use_ln, res=residual):
             def f(x, *w):
-                ln = (w[8], w[9], 1e-6) if ln_on else None
-                return impl(x, *w[:8], num_heads=H, ln=ln, residual=res,
+                ln = (w[4], w[5], 1e-6) if ln_on else None
+                return impl(x, *w[:4], num_heads=H, ln=ln, residual=res,
                             dropout_rate=rate, dropout_seed=seed)
             return f
         cases.append((f"attention_block ln={use_ln}", fn(ab.attention_block),
                       fn(ab.attention_block_plain), [x] + wb + ([lg, lb] if use_ln else [])))
-    w1, b1, w2, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(Fd, E, std=Fd ** -0.5), rn(E)
+    w1, b1, w2, b2 = rn(Fd, E, std=E ** -0.5), rn(Fd, std=0.1), rn(E, Fd, std=Fd ** -0.5), rn(E)
     for mode in ("pre", "post", "none"):
         def fn(impl, mode=mode):
             def f(x, w1, b1, w2, b2, *ln):
@@ -136,15 +140,13 @@ def _backward_cases(dev, dtype, rate, g):
     # the main path's width (E = 768, 12 heads of 64: in bf16 the wgmma backward
     # kernels) at lengths that are no multiples of the 64-row tiles
     WE, WH = 768, 12
-    wide = []
-    for _ in range(4):
-        wide += [rn(WE, WE, std=WE ** -0.5), rn(WE, std=0.1)]
+    wide = _block_weights(rn, WE)
     wlg, wlb = rn(WE, std=0.1) + 1, rn(WE, std=0.1)
     for WS, use_ln in ((197, True), (499, False)):
         def fn(impl, ln_on=use_ln):
             def f(x, *w):
-                ln = (w[8], w[9], 1e-12) if ln_on else None
-                return impl(x, *w[:8], num_heads=WH, ln=ln, residual=ln_on,
+                ln = (w[4], w[5], 1e-12) if ln_on else None
+                return impl(x, *w[:4], num_heads=WH, ln=ln, residual=ln_on,
                             dropout_rate=rate, dropout_seed=seed)
             return f
         cases.append((f"attention_block S={WS} E=768", fn(ab.attention_block),
@@ -175,18 +177,17 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
     torch.autograd of its plain version, in f32 on the same (rounded)
     inputs and the same dropout seed: the output and every input gradient
     within tol * max|want| (bf16: the kernels round q/k/v, the
-    probabilities, the FFN intermediate and the cotangents). The key-bias
-    gradient of attention_block is zero in exact arithmetic (softmax is
-    invariant to a per-row shift) and is left as a sum of rounded terms, so
-    it is held to tol * max|query-bias gradient|, its sibling over the same
-    rows. The body each backward takes is the one ``attention_wgmma_route``
-    names: wgmma in bf16 at head width 64, ``attention_bwd.cuh`` in f32."""
-    from simple_multimodal_tpu_torch.ops.hopper import _build
-
+    probabilities, the FFN intermediate and the cotangents); attention_block's
+    packed q|k|v gradients part by part. The key-bias gradient of
+    attention_block is zero in exact arithmetic (softmax is invariant to a
+    per-row shift) and is left as a sum of rounded terms, so it is held to
+    tol * max|query-bias gradient|, its sibling over the same rows. The body
+    each backward takes is the one the library reports
+    (``smm_attention_wgmma_route``): wgmma in bf16 at head width 64,
+    ``attention_bwd.cuh`` in f32."""
     lib = _build.library()
     for rel in (0, 1):
         want_route = int(dtype == torch.bfloat16)
-        assert ab.attention_wgmma_route(dtype, 64, bool(rel)) == want_route
         assert lib.smm_attention_wgmma_route(_build.dtype_code(torch.empty(0, dtype=dtype)), 64,
                                            rel) == want_route
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -199,9 +200,16 @@ def test_cuda_backward_kernels_match_autograd_of_plain(cuda, dtype, tol, rate):
         assert len(got) == len(want)
         for i, (a, b) in enumerate(zip(got, want)):
             assert torch.isfinite(a).all(), (name, i)
-            err = float((a.float() - b).abs().max())
-            scale = want[3] if name.startswith("attention_block") and i == 5 else b
-            assert err <= tol * float(scale.abs().max()), (name, i, err)
+            parts = [(a, b, b)]
+            if name.startswith("attention_block") and i in (2, 3):  # w_qkv, b_qkv
+                E = b.shape[0] // 3
+                scales = b.split(E)
+                if i == 3:
+                    scales = (scales[0], scales[0], scales[2])  # the key bias: the query's
+                parts = zip(a.split(E), b.split(E), scales)
+            for j, (pa, pb, scale) in enumerate(parts):
+                err = float((pa.float() - pb).abs().max())
+                assert err <= tol * float(scale.abs().max()), (name, i, j, err)
     assert hopper.launch_counts() == _counts(attention_block=4, ffn_block=3,
                                              deberta_attention=2, attention_block_bwd=4,
                                              ffn_block_bwd=3, deberta_attention_bwd=2)
@@ -453,7 +461,7 @@ def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
     gtol = 1e-3 if dtype == torch.float32 else 5e-2
     for B, T, C in ((2, 4003, 512), (3, 645, 512), (2, 16000, 16)):
         wav = torch.randn(B, T, generator=g, device=cuda) * 0.3
-        kern = (torch.randn(10, 1, C, generator=g, device=cuda) * 0.1).to(dtype)
+        kern = (torch.randn(C, 1, 10, generator=g, device=cuda) * 0.1).to(dtype)
         gs = torch.randn(C, generator=g, device=cuda) * 0.2 + 1
         gb = torch.randn(C, generator=g, device=cuda) * 0.1
         got = wf.wav_frontend(wav, kern, gs, gb, 5)
@@ -464,8 +472,7 @@ def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
         ins = [wav, kern, gs, gb]
         runs = [_with_grads(lambda *a: wf.wav_frontend(*a, 5), ins, gy)[1:] for _ in range(2)]
         assert all(torch.equal(a, b) for a, b in zip(*runs))
-        y = torch.nn.functional.conv1d(wav.to(dtype)[:, None], kern.permute(2, 1, 0),
-                                       stride=5).float()
+        y = torch.nn.functional.conv1d(wav.to(dtype)[:, None], kern, stride=5).float()
         var, mean = torch.var_mean(y, dim=-1, unbiased=False)
         closed = wf.wav_frontend_bwd_plain(gy, wav, kern, gs, gb, mean, torch.rsqrt(var + 1e-5), 5)
         auto = _with_grads(lambda *a: wf.wav_frontend_plain(*a, 5), ins, gy)[1:]
@@ -478,7 +485,7 @@ def test_cuda_wav_frontend_matches_plain(cuda, dtype, tol):
     with pytest.raises(ValueError, match="stride"):
         wf.wav_frontend(wav, kern, gs, gb, 3)
     with pytest.raises(ValueError, match="C = 24"):
-        wf.wav_frontend(wav, kern[..., :8].repeat(1, 1, 3), gs[:24], gb[:24], 5)
+        wf.wav_frontend(wav, kern[:8].repeat(3, 1, 1), gs[:24], gb[:24], 5)
 
 
 # (B, L, E, G, K): wav2vec2's positional conv at the base width (10 s and 20 s),
@@ -530,8 +537,6 @@ def test_cuda_pos_conv_matches_plain(cuda, dtype, tol):
 def test_cuda_pos_conv_width_agrees_with_the_kernel(cuda):
     """The wrapper's padded width (``tile_width``, which ``tap_layout`` lays
     the weight out at) is the kernel's, for every group width."""
-    from simple_multimodal_tpu_torch.ops.hopper import _build
-
     lib = _build.library()
     assert [lib.smm_pos_conv_width(c) for c in range(0, 137, 4)] == [
         pc.tile_width(c) for c in range(0, 137, 4)]
@@ -622,7 +627,6 @@ def test_cuda_gemm_matches_plain_at_ragged_shapes(cuda):
     the library reports equals ``gemm_route``. bf16 outputs at 3e-2 (one
     rounding of the f32 sum), f32 outputs at 1e-3; dropped elements are
     exactly zero at ``dropout.ffn_keep``'s positions."""
-    from simple_multimodal_tpu_torch.ops.hopper import _build
     from simple_multimodal_tpu_torch.ops.hopper import gemm as G
     from simple_multimodal_tpu_torch.ops.hopper.dropout import ffn_keep
 
@@ -682,11 +686,9 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
 
     B, S = 3, 197
     x = rn(B, S, E)
-    wb = []
-    for _ in range(4):
-        wb += [rn(E, E, std=E ** -0.5), rn(E, std=0.1)]
+    wb = _block_weights(rn, E)
     ln = (rn(E, std=0.1) + 1, rn(E, std=0.1), 1e-6)
-    w1, b1, w2, b2 = rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(Fd, E, std=Fd ** -0.5), rn(E)
+    w1, b1, w2, b2 = rn(Fd, E, std=E ** -0.5), rn(Fd, std=0.1), rn(E, Fd, std=Fd ** -0.5), rn(E)
 
     def attn(seed):
         return ab.attention_block(x, *wb, num_heads=H, ln=ln, residual=True, dropout_rate=0.1,
@@ -704,7 +706,7 @@ def test_cuda_blocks_with_dropout_are_bit_equal_between_runs(cuda, E, H, Fd):
 
     def attn_grads(seed):
         ins = [t.detach().clone().requires_grad_() for t in [x] + wb + [ln[0], ln[1]]]
-        out = ab.attention_block(ins[0], *ins[1:9], num_heads=H, ln=(ins[9], ins[10], 1e-6),
+        out = ab.attention_block(ins[0], *ins[1:5], num_heads=H, ln=(ins[5], ins[6], 1e-6),
                                  residual=True, dropout_rate=0.1, dropout_seed=seed)
         return torch.autograd.grad(out, ins, gy)
 
@@ -747,7 +749,7 @@ def test_cuda_ffn_backward_matches_its_plain_chain(cuda, ln_mode):
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device=cuda) * std).to(torch.bfloat16)
 
-    args = [rn(B, S, E), rn(E, Fd, std=E ** -0.5), rn(Fd, std=0.1), rn(Fd, E, std=Fd ** -0.5),
+    args = [rn(B, S, E), rn(Fd, E, std=E ** -0.5), rn(Fd, std=0.1), rn(E, Fd, std=Fd ** -0.5),
             rn(E, std=0.1)]
     lnp = [(1.0 + rn(E, std=0.1).float()).to(torch.bfloat16), rn(E, std=0.1)]
     if ln_mode != "none":
@@ -757,7 +759,7 @@ def test_cuda_ffn_backward_matches_its_plain_chain(cuda, ln_mode):
     kw = dict(ln_post=ln_mode == "post", residual=True, dropout_rate_mid=0.1,
               dropout_rate_out=0.1, dropout_seed=7)
     ln = None if ln_mode == "none" else (args[5], args[6], 1e-5)
-    assert fb.ffn_bwd_route(torch.bfloat16, E, Fd) == 1
+    assert _build.library().smm_ffn_bwd_route(1, E, Fd) == 1
     out = fb.ffn_block(*args[:5], ln=ln, **kw)
     got = torch.autograd.grad(out, args, gy)
     want = fb.ffn_block_bwd_plain(*[a.detach() for a in args[:5]], gy, ln=None if ln is None else (
@@ -765,6 +767,63 @@ def test_cuda_ffn_backward_matches_its_plain_chain(cuda, ln_mode):
     for i, (a, b) in enumerate(zip(got, want)):
         ref = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= 5e-2 * ref, f"gradient {i}"
+
+
+def _code(dtype) -> int:
+    return _build.dtype_code(torch.empty(0, dtype=dtype))
+
+
+def test_backward_route_takes_wgmma_at_the_base_widths_only(cuda):
+    """The body of attention_block's backward core, as the library decides
+    it (``smm_attention_wgmma_route``, rel 0): wgmma in bf16 at head widths
+    64 and 128; the WMMA / f32 kernels in f32 and at the other widths."""
+    route = _build.library().smm_attention_wgmma_route
+    bf16, f32 = _code(torch.bfloat16), _code(torch.float32)
+    assert route(bf16, 64, 0) == 1 and route(bf16, 128, 0) == 1
+    assert route(bf16, 64, 1) == 1
+    assert route(bf16, 128, 1) == 0   # no position tables at 128
+    assert route(f32, 64, 0) == 0 and route(f32, 64, 1) == 0
+    for D in (16, 32, 96):
+        assert route(bf16, D, 0) == 0 and route(bf16, D, 1) == 0
+
+
+def test_ffn_bwd_route_takes_wgmma_at_the_base_widths_only(cuda):
+    """The chain of ffn_block's backward, as the library decides it
+    (``smm_ffn_bwd_route``): wgmma in bf16 at E in 64s up to 1024 and F in
+    128s. The partials buffer the wrapper sizes from that answer
+    (``ffn_bwd_part_floats``) holds what that chain leaves: the LayerNorm
+    backward's [row blocks, 2E] and, on the wgmma chain, db1's [strips, F]
+    and db2's [row blocks, E]."""
+    route = _build.library().smm_ffn_bwd_route
+    bf16, f32 = _code(torch.bfloat16), _code(torch.float32)
+    M = 47280
+    blocks = _build.row_partition(M)[1]
+    for E, Fd in ((768, 3072), (64, 128), (1024, 4096), (128, 256)):
+        assert route(bf16, E, Fd) == 1
+        assert route(f32, E, Fd) == 0
+        assert fb.ffn_bwd_part_floats(route(bf16, E, Fd), M, E, Fd) == (
+            blocks * 2 * E + -(-M // 128) * Fd + blocks * E)
+    for E, Fd in ((32, 64), (96, 160), (768, 192), (768, 3000), (800, 3072), (2048, 8192)):
+        # the tiny preset, F off the kernel's 128-column tile, odd widths, E past 1024
+        assert route(bf16, E, Fd) == 0
+        assert fb.ffn_bwd_part_floats(route(bf16, E, Fd), M, E, Fd) == blocks * 2 * E
+
+
+def test_deberta_forward_route_takes_wgmma_in_bf16_at_head_width_64(cuda):
+    """DeBERTa's forward and backward follow the rule with the position
+    tables (rel 1): the wgmma kernels in bf16 at head width 64. The
+    backward's table scratch, sized from that answer (``rel_scratch_shape``),
+    is the per-tile partials there and one row per offset elsewhere."""
+    route = _build.library().smm_attention_wgmma_route
+    bf16, f32 = _code(torch.bfloat16), _code(torch.float32)
+    assert route(bf16, 64, 1) == 1
+    assert route(f32, 64, 1) == 0
+    for D in (16, 32):
+        assert route(bf16, D, 1) == 0
+        assert route(f32, D, 1) == 0
+    S, T = 522, 9
+    assert da.rel_scratch_shape(route(bf16, 64, 1), 8, S, 12, 64) == (2, 8, 12, T, T + 1, 64, 64)
+    assert da.rel_scratch_shape(route(bf16, 32, 1), 8, S, 12, 32) == (2, 8, 12, 2 * S - 1, 32)
 
 
 @pytest.mark.parametrize("S", [130, 512])

@@ -35,6 +35,7 @@ from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
 from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
 from simple_multimodal_tpu_torch.ops.hopper import wav_frontend as wf
+from _torch_layout import torch_conv, torch_layout
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,7 +71,8 @@ def test_attention_block_plain_matches_jax(with_ln, residual):
     want_ref = np.asarray(jab._xla_reference(x, *wb, num_heads=H, ln=jln,
                                              residual=residual))
     tln = (*_t(g, b), eps) if with_ln else None
-    got = ab.attention_block(*_t(x, *wb), num_heads=H, ln=tln, residual=residual).numpy()
+    got = ab.attention_block(*_t(x), *torch_layout(*wb), num_heads=H, ln=tln,
+                             residual=residual).numpy()
     np.testing.assert_allclose(got, want_kernel, **TOL)
     np.testing.assert_allclose(got, want_ref, **TOL)
 
@@ -95,7 +97,7 @@ def test_ffn_block_plain_matches_jax(ln_mode):
     want_ref = np.asarray(jfb._xla_reference(x, w1, b1, w2, b2, ln=jln, ln_post=post,
                                              residual=True))
     tln = None if ln_mode == "none" else (*_t(g, b), 1e-7)
-    got = fb.ffn_block(*_t(x, w1, b1, w2, b2), ln=tln, ln_post=post,
+    got = fb.ffn_block(*_t(x), *torch_layout(w1, b1, w2, b2), ln=tln, ln_post=post,
                        residual=True).numpy()
     np.testing.assert_allclose(got, want_kernel, **TOL)
     np.testing.assert_allclose(got, want_ref, **TOL)
@@ -192,10 +194,11 @@ def test_hopper_modules_import_without_nvcc_or_gpu():
             "attention_block, ffn_block, deberta_attention, flash_attention, wav_frontend\n"
             "x = torch.zeros(1, 3, 16)\n"
             "w, b = torch.eye(16), torch.zeros(16)\n"
-            "attention_block.attention_block(x, w, b, w, b, w, b, w, b, num_heads=1)\n"
+            "attention_block.attention_block(x, torch.cat([w, w, w]), torch.zeros(48), w, b,\n"
+            "                                num_heads=1)\n"
             "q = torch.zeros(1, 3, 1, 16)\n"
             "flash_attention.flash_attention(q, q, q)\n"
-            "wav_frontend.wav_frontend(torch.ones(1, 40), torch.ones(10, 1, 8), b[:8], b[:8], 5)\n"
+            "wav_frontend.wav_frontend(torch.ones(1, 40), torch.ones(8, 1, 10), b[:8], b[:8], 5)\n"
             "assert _build._lib is None\n"
             "assert attention_block.attention_block.launches == 0\n"
             "assert flash_attention.flash_attention.launches == 0\n"
@@ -210,8 +213,9 @@ def test_hopper_modules_import_without_nvcc_or_gpu():
 def test_wrappers_refuse_devices_without_a_kernel():
     x = torch.zeros(1, 3, 16, device="meta")
     w, b = torch.zeros(16, 16, device="meta"), torch.zeros(16, device="meta")
+    w_qkv, b_qkv = torch.zeros(48, 16, device="meta"), torch.zeros(48, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
-        ab.attention_block(x, w, b, w, b, w, b, w, b, num_heads=1)
+        ab.attention_block(x, w_qkv, b_qkv, w, b, num_heads=1)
     with pytest.raises(RuntimeError, match="no kernel"):
         fb.ffn_block(x, w, b, w, b)
     q = torch.zeros(1, 3, 1, 16, device="meta")
@@ -222,7 +226,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no kernel"):
         fa.flash_attention(q, q, q)
     with pytest.raises(RuntimeError, match="no kernel"):
-        wf.wav_frontend(torch.zeros(1, 40, device="meta"), torch.zeros(10, 1, 8, device="meta"),
+        wf.wav_frontend(torch.zeros(1, 40, device="meta"), torch.zeros(8, 1, 10, device="meta"),
                         torch.zeros(8, device="meta"), torch.zeros(8, device="meta"), 5)
 
 
@@ -278,17 +282,18 @@ def test_hash_ffn_scheme_is_bit_equal_to_jax(salt):
         np.testing.assert_array_equal(tile, want[b])
 
 
-def _vjp_check(jax_fn, jax_args, torch_fn, torch_args, ct):
+def _vjp_check(jax_fn, jax_args, torch_fn, ct, to_torch=lambda a: _t(*a)):
     """Output at 1e-5 and every input gradient at 1e-4 (f32), port autograd
-    against jax.vjp on the same cotangent."""
+    against jax.vjp on the same cotangent; ``to_torch`` turns the JAX
+    arguments, and the same way their gradients, into the port's."""
     want, vjp = jax.vjp(jax_fn, *[jnp.asarray(a) for a in jax_args])
-    want_grads = vjp(jnp.asarray(ct))
-    ts = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in torch_args]
+    want_grads = to_torch([np.array(w) for w in vjp(jnp.asarray(ct))])
+    ts = [t.clone().requires_grad_() for t in to_torch(jax_args)]
     got = torch_fn(*ts)
     got.backward(torch.from_numpy(ct))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     for i, (t, w) in enumerate(zip(ts, want_grads)):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), **GTOL, err_msg=f"grad {i}")
+        np.testing.assert_allclose(t.grad.numpy(), w.numpy(), **GTOL, err_msg=f"grad {i}")
 
 
 @pytest.mark.parametrize("with_ln,residual", [(False, False), (True, True)])
@@ -305,12 +310,12 @@ def test_attention_block_plain_with_dropout_matches_jax(with_ln, residual):
                                   seed=seed, rate=RATE)
 
     def tfn(*a):
-        ln = (a[9], a[10], 1e-12) if with_ln else None
-        return ab.attention_block(*a[:9], num_heads=H, ln=ln, residual=residual,
+        ln = (a[5], a[6], 1e-12) if with_ln else None
+        return ab.attention_block(*a[:5], num_heads=H, ln=ln, residual=residual,
                                   dropout_rate=RATE, dropout_seed=SEED)
 
     args = ([x] + wb + [g, b])[:n]
-    _vjp_check(jfn, args, tfn, args, ct)
+    _vjp_check(jfn, args, tfn, ct, lambda a: [*_t(a[0]), *torch_layout(*a[1:9]), *_t(*a[9:])])
 
 
 @pytest.mark.parametrize("ln_mode", ["none", "pre", "post"])
@@ -338,7 +343,7 @@ def test_ffn_block_plain_with_dropout_matches_jax(ln_mode):
         return fb.ffn_block(*a[:5], ln=ln, ln_post=post, residual=True, dropout_rate_mid=RATE,
                             dropout_rate_out=RATE, dropout_seed=SEED)
 
-    _vjp_check(jfn, args, tfn, args, ct)
+    _vjp_check(jfn, args, tfn, ct, lambda a: [*_t(a[0]), *torch_layout(*a[1:5]), *_t(*a[5:])])
 
 
 def test_deberta_attention_plain_with_dropout_matches_jax():
@@ -363,7 +368,7 @@ def test_deberta_attention_plain_with_dropout_matches_jax():
         return da.deberta_attention(q_, k_, v_, pk, pq, tmask, span=span, max_position=max_pos,
                                     dropout_rate=RATE, dropout_seed=SEED)
 
-    _vjp_check(jfn, [q, k, v, pos_k, pos_q], tfn, [q, k, v, pos_k, pos_q], ct)
+    _vjp_check(jfn, [q, k, v, pos_k, pos_q], tfn, ct)
 
 
 def test_fold_order_groups_offsets_by_table_row():
@@ -490,11 +495,17 @@ def _wav_args(T, C=512, B=2, seed=15):
     return rng, wav, kern, g, b
 
 
+def _wav_t(wav, kern, g, b):
+    """``_wav_args``' JAX arguments (or their gradients) as the port's."""
+    tw, tg, tb = _t(wav, g, b)
+    return [tw, torch_conv(kern), tg, tb]
+
+
 @pytest.mark.parametrize("T", [4003, 645])
 def test_wav_frontend_plain_matches_xla_reference(T):
     _, wav, kern, g, b = _wav_args(T, C=64)
     want = np.asarray(jwf._xla_reference(wav, kern, g, b, 5, 1e-5, False, jnp.float32))
-    got = wf.wav_frontend(*_t(wav, kern, g, b), 5)
+    got = wf.wav_frontend(*_wav_t(wav, kern, g, b), 5)
     assert got.shape == want.shape == (2, (T - 10) // 5 + 1, 64)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
@@ -506,7 +517,7 @@ def test_wav_frontend_plain_matches_jax_kernel_in_bf16(T):
     _, wav, kern, g, b = _wav_args(T)
     want = jax.jit(lambda *a: jwf.wav_frontend(*a, stride=5, interpret=True))(
         jnp.asarray(wav), jnp.asarray(kern, jnp.bfloat16), jnp.asarray(g), jnp.asarray(b))
-    tw, tk, tg, tb = _t(wav, kern, g, b)
+    tw, tk, tg, tb = _wav_t(wav, kern, g, b)
     got = wf.wav_frontend(tw, tk.to(torch.bfloat16), tg, tb, 5)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape == (2, (T - 10) // 5 + 1, 512)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
@@ -524,16 +535,16 @@ def test_wav_frontend_plain_gradients_match_jax():
     def loss(*a):
         return jnp.sum(jwf.wav_frontend(*a, stride=5, interpret=True) * w)
 
-    want = jax.grad(loss, argnums=(0, 1, 2, 3))(wav, kern, g, b)
-    ts = [t.requires_grad_() for t in _t(wav, kern, g, b)]
+    want = _wav_t(*[np.array(gj) for gj in jax.grad(loss, argnums=(0, 1, 2, 3))(wav, kern, g, b)])
+    ts = [t.requires_grad_() for t in _wav_t(wav, kern, g, b)]
     (wf.wav_frontend(*ts, 5) * torch.from_numpy(w)).sum().backward()
     for i, (t, gj) in enumerate(zip(ts, want)):
-        np.testing.assert_allclose(t.grad.numpy(), np.asarray(gj), **GTOL, err_msg=f"grad {i}")
+        np.testing.assert_allclose(t.grad.numpy(), gj.numpy(), **GTOL, err_msg=f"grad {i}")
 
 
 def _wav_stats(wav, kern, stride=5):
     """Per-(b, c) mean and rstd of the conv, two-pass, as the plain version."""
-    y = torch.nn.functional.conv1d(wav[:, None], kern.permute(2, 1, 0), stride=stride)
+    y = torch.nn.functional.conv1d(wav[:, None], kern, stride=stride)
     var, mean = torch.var_mean(y.float(), dim=-1, unbiased=False)
     return mean, torch.rsqrt(var + 1e-5)
 
@@ -546,10 +557,10 @@ def test_wav_frontend_bwd_plain_matches_autograd_of_plain(T, C):
     from an f64 autograd, in another summation order)."""
     rng, wav, kern, g, b = _wav_args(T, C=C)
     gy = torch.from_numpy(rng.standard_normal((2, (T - 10) // 5 + 1, C)).astype(np.float32))
-    ts = [t.requires_grad_() for t in _t(wav, kern, g, b)]
+    ts = [t.requires_grad_() for t in _wav_t(wav, kern, g, b)]
     want = torch.autograd.grad(wf.wav_frontend_plain(*ts, 5), ts, gy)
-    mean, rstd = _wav_stats(*_t(wav, kern))
-    got = wf.wav_frontend_bwd_plain(gy, *_t(wav, kern, g, b), mean, rstd, 5)
+    mean, rstd = _wav_stats(*_wav_t(wav, kern, g, b)[:2])
+    got = wf.wav_frontend_bwd_plain(gy, *_wav_t(wav, kern, g, b), mean, rstd, 5)
     for i, (a, w) in enumerate(zip(got, want)):
         assert a.dtype == w.dtype and a.shape == w.shape
         np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-5 * float(w.abs().max()),
@@ -564,11 +575,12 @@ def test_wav_frontend_bwd_plain_matches_jax_vjp(T):
     gy = rng.standard_normal((2, (T - 10) // 5 + 1, 128)).astype(np.float32)
     _, vjp = jax.vjp(lambda *a: jwf.wav_frontend(*a, stride=5, interpret=True),
                      jnp.asarray(wav), jnp.asarray(kern), jnp.asarray(g), jnp.asarray(b))
-    want = vjp(jnp.asarray(gy))
-    mean, rstd = _wav_stats(*_t(wav, kern))
-    got = wf.wav_frontend_bwd_plain(torch.from_numpy(gy), *_t(wav, kern, g, b), mean, rstd, 5)
+    want = _wav_t(*[np.array(w) for w in vjp(jnp.asarray(gy))])
+    mean, rstd = _wav_stats(*_wav_t(wav, kern, g, b)[:2])
+    got = wf.wav_frontend_bwd_plain(torch.from_numpy(gy), *_wav_t(wav, kern, g, b), mean, rstd,
+                                    5)
     for i, (a, w) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GTOL, err_msg=f"grad {i}")
+        np.testing.assert_allclose(a.numpy(), w.numpy(), **GTOL, err_msg=f"grad {i}")
 
 
 @pytest.mark.parametrize("T,nb", [(4003, 1), (4003, 3), (645, 2), (2560, 4)])
@@ -577,8 +589,8 @@ def test_wav_fold_stats_plain_matches_group_norm(T, nb):
     folded as wav_fold_stats_kernel folds them give F.group_norm's
     statistics, and scale and shift applied to y give its output."""
     _, wav, kern, g, b = _wav_args(T, C=16)
-    tw, tk, tg, tb = _t(wav, kern, g, b)
-    y = torch.nn.functional.conv1d(tw[:, None], tk.permute(2, 1, 0), stride=5)  # [B, C, T1]
+    tw, tk, tg, tb = _wav_t(wav, kern, g, b)
+    y = torch.nn.functional.conv1d(tw[:, None], tk, stride=5)  # [B, C, T1]
     part = wf.stats_partials_plain(y.transpose(1, 2), nb)
     assert part.shape == (2, nb, 2, 16)
     coef = wf.fold_stats_plain(part, y.shape[-1], tg, tb)

@@ -184,6 +184,50 @@ def test_wav2vec2_matches_jax(bundle):
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("family", ["vit", "wav2vec2"])
+def test_layer_hands_attention_block_its_q_k_v_as_one_packed_weight(family, monkeypatch):
+    """A layer whose q, k and v are separate Linears calls attention_block
+    with the very tensors one Linear holding the three would give
+    (``kernel_weights``: [3E, E] and [3E] in torch layout, packed once a
+    forward, the out-projection beside them), and the three Linears'
+    gradients are the rows of that packed weight's."""
+    from simple_multimodal_tpu_torch.models import vit as pvit
+    from simple_multimodal_tpu_torch.models import wav2vec2 as pwav
+
+    module = pvit if family == "vit" else pwav
+    seen = []
+    real = module.attention_block
+
+    def recording(x, w_qkv, b_qkv, wo, bo, **kw):
+        w_qkv.retain_grad()
+        seen.append((w_qkv, b_qkv, wo, bo))
+        return real(x, w_qkv, b_qkv, wo, bo, **kw)
+
+    monkeypatch.setattr(module, "attention_block", recording)
+    if family == "vit":
+        layer = pvit.ViTLayer(pvit.ViTConfig.tiny()).eval()
+        q, k, v, o = layer._attn_layers()
+    else:
+        layer = pwav.Wav2Vec2EncoderLayer(pwav.Wav2Vec2Config.tiny()).eval()
+        a = layer.attention
+        q, k, v, o = a.q_proj, a.k_proj, a.v_proj, a.out_proj
+    E = q.in_features
+    x = torch.randn(2, 7, E, generator=torch.Generator().manual_seed(0))
+    layer(x, F32).square().sum().backward()
+    packed = torch.nn.Linear(E, 3 * E)
+    with torch.no_grad():
+        packed.weight.copy_(torch.cat([q.weight, k.weight, v.weight]))
+        packed.bias.copy_(torch.cat([q.bias, k.bias, v.bias]))
+    (got,) = seen
+    want = pattention.kernel_weights(F32, packed, o)
+    assert [tuple(t.shape) for t in got] == [(3 * E, E), (3 * E,), (E, E), (E,)]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2] is o.weight and got[3] is o.bias  # the model's own, no copy in f32
+    for i, lin in enumerate((q, k, v)):
+        assert torch.equal(lin.weight.grad, got[0].grad[i * E:(i + 1) * E])
+
+
 @pytest.mark.parametrize("which", ["text", "audio", "video"])
 def test_encoder_matches_jax(bundle, which):
     b, p = bundle, bundle.params

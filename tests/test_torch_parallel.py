@@ -35,6 +35,7 @@ import pytest
 import torch
 
 import _torch_dist as td
+from _torch_layout import torch_layout
 from simple_multimodal_tpu.data import dataset as jdataset
 from simple_multimodal_tpu.data import sample_data as jsample
 from simple_multimodal_tpu.data.pipeline import DistributedLoader as JaxDistributedLoader
@@ -294,7 +295,7 @@ def test_kernel_hash_masks_of_rank_r_are_jax_shard_r(seed, monkeypatch):
         keep = hd.attention_keep(got_seed, n, H, S, S, rate).numpy()
         np.testing.assert_array_equal(keep, _jax_keep(seed + r * KERNEL_SEED_STRIDE, n, H, S,
                                                       rate))
-        t = [torch.from_numpy(a) for a in [x[r * n:(r + 1) * n]] + wb]
+        t = [torch.from_numpy(x[r * n:(r + 1) * n]), *torch_layout(*wb)]
         got = ab.attention_block(*t, num_heads=H, dropout_rate=got_rate,
                                  dropout_seed=got_seed).numpy()
         np.testing.assert_allclose(got, want[r * n:(r + 1) * n], atol=1e-5, rtol=1e-5)

@@ -1,36 +1,27 @@
 """Host-side pieces the wgmma backward kernels of attention_block and
-deberta_attention stand on (the CUDA kernels run on the card only): which
-body a call takes, the table rows a 64 x 64 tile pair reaches through
+deberta_attention stand on (the CUDA kernels run on the card only): the
+scratch each body takes, the table rows a 64 x 64 tile pair reaches through
 ``rel_index_maps``, the fold CSR, and where the kernels leave the per-offset
-sums in their per-tile partials. Torch and numpy only.
+sums in their per-tile partials. Which body a call takes is the library's
+answer (``smm_attention_wgmma_route``), held in tests/test_torch_gpu.py.
+Torch and numpy only.
 """
 import numpy as np
 import pytest
 import torch
 
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
-from simple_multimodal_tpu_torch.ops.hopper.attention_block import attention_wgmma_route
 
 LENGTHS = (64, 197, 499, 512)
 SPAN, MAX_POSITION = 256, 512  # DeBERTa-v3-base
 
 
-def test_backward_route_takes_wgmma_at_the_base_widths_only():
-    bf16, f32 = torch.bfloat16, torch.float32
-    assert attention_wgmma_route(bf16, 64, False) == 1 and attention_wgmma_route(bf16, 128, False) == 1
-    assert attention_wgmma_route(bf16, 64, True) == 1
-    assert attention_wgmma_route(bf16, 128, True) == 0   # no position tables at 128
-    assert attention_wgmma_route(f32, 64, False) == 0 and attention_wgmma_route(f32, 64, True) == 0
-    for D in (16, 32, 96):
-        assert attention_wgmma_route(bf16, D, False) == 0 and attention_wgmma_route(bf16, D, True) == 0
-
-
 @pytest.mark.parametrize("S", LENGTHS)
 def test_rel_scratch_shape_follows_the_route(S):
     T = -(-S // 64)
-    assert da.rel_scratch_shape(torch.bfloat16, 8, S, 12, 64) == (2, 8, 12, T, T + 1, 64, 64)
-    assert da.rel_scratch_shape(torch.float32, 8, S, 12, 64) == (2, 8, 12, 2 * S - 1, 64)
-    assert da.rel_scratch_shape(torch.bfloat16, 8, S, 4, 16) == (2, 8, 4, 2 * S - 1, 16)
+    assert da.rel_scratch_shape(1, 8, S, 12, 64) == (2, 8, 12, T, T + 1, 64, 64)
+    assert da.rel_scratch_shape(0, 8, S, 12, 64) == (2, 8, 12, 2 * S - 1, 64)
+    assert da.rel_scratch_shape(0, 8, S, 4, 16) == (2, 8, 4, 2 * S - 1, 16)
 
 
 @pytest.mark.parametrize("S", LENGTHS)
