@@ -238,12 +238,25 @@ a run of back-to-back calls, the TFLOP/s that is, and ``F.linear`` in bf16
 timed the same way beside it: a yardstick the port never calls.
 
 After the GEMM phase, ``gemm_linear`` (the DeepSeek text tower's
-projections and experts on ``smm_gemm``, forward and both backward
-products) at the tower's shapes (``GEMM_LINEAR_SHAPES``: 8192 tokens, 771
-rows for an expert): the forward at 3e-2, dx and every stacked weight's dW
+projections, its dense layer and its shared experts on ``smm_gemm``, forward
+and both backward products) at the tower's shapes (``GEMM_LINEAR_SHAPES``:
+8192 tokens, and 771 rows for a ragged M tail): the forward at 3e-2, dx and every stacked weight's dW
 within 5e-2 of the tensor's largest magnitude against autograd of the plain
 f32 version, and the device time of a forward and backward.
 ``python3 chip_smoke.py --gemm-linear`` runs the build and this phase alone.
+
+Then the routed experts of one MoE layer (``moe_experts``,
+``csrc/moe_experts_wgmma.cu``) at the moonlight.train shapes (T 8192, k 6 of
+64 experts, 8 held, E 2048, F 1408), for a skewed routing (an idle expert,
+one with 3186 rows) and a drawn one, against the plain f32 version
+(``moe_experts_plain``, on the same bf16-rounded operands) and the per-expert
+loop they replace (``moe_loop``, on ``gemm_linear``): the forward at 3e-2,
+dh, the routing weights' gradient and every dW within 5e-2 of the tensor's
+largest magnitude, the same device kernels under both routings
+(``moe_experts`` lines: both paths' forward and backward time beside the
+products' bound); then a whole MoE layer's forward and backward, which
+counts one ``moe_experts`` launch.
+``python3 chip_smoke.py --moe-experts`` runs the build and this phase alone.
 
 Then the optimizer update (``phase_adamw``) at the parameter lists of
 ``portbench/configs/mer_base.json`` and ``mer_moonlight.json`` (models built
@@ -3966,11 +3979,16 @@ WGMMA_KERNELS = {
     "deberta_bwd_dkv_wgmma_kernel": (2, lambda lib, n, flags: lib.smm_deberta_bwd_wgmma_smem(1)),
     # <group width P, 64-row tiles a warpgroup>: wav2vec2's positional conv, P = 16 ... 128
     "pos_conv_wgmma_kernel": (6, lambda lib, n, flags: lib.smm_pos_conv_smem(n)),
+    # <mode>: the MoE layer's six grouped products (moe_experts_wgmma.cu)
+    "moe_gemm_kernel": (6, lambda lib, n, flags: lib.smm_moe_gemm_smem()),
 }
 
 
-# the FFN and LayerNorm backwards' row kernels (csrc/gemm.cuh), checked for spills like the above
-ROW_KERNELS = ("ln_bwd_rows_kernel", "drop_cast_sum_kernel", "fold_columns_kernel")
+# the FFN and LayerNorm backwards' row kernels (csrc/gemm.cuh) and the MoE layer's
+# (moe_experts_wgmma.cu), checked for spills like the above
+ROW_KERNELS = ("ln_bwd_rows_kernel", "drop_cast_sum_kernel", "fold_columns_kernel",
+               "moe_cast_kernel", "moe_gather_kernel", "moe_combine_kernel",
+               "moe_token_grad_kernel")
 # wav_frontend's kernels (csrc/wav_frontend.cu): name -> (instantiations, the pass whose dynamic
 # shared memory smm_wav_frontend_smem reports, or None for a fold with static shared memory)
 WAV_KERNELS = {"wav_stats_kernel": (2, 0), "wav_apply_kernel": (2, 1),
@@ -4263,14 +4281,14 @@ def phase_gemm(dev):
 
 
 # The DeepSeek text tower's linear layers at the moonlight.train cell's
-# shapes (8192 tokens; a held expert's ~768 rows, ragged): (rows, the
-# stacked weights' rows, K)
+# shapes (8192 tokens), and a ragged M tail (771 rows, not a multiple of the
+# 128-row tile): (rows, the stacked weights' rows, K)
 GEMM_LINEAR_SHAPES = (
     ("q_proj", 8192, (3072,), 2048), ("kv_a_proj_with_mqa", 8192, (576,), 2048),
     ("kv_b_proj", 8192, (4096,), 512), ("o_proj", 8192, (2048,), 2048),
     ("dense gate+up", 8192, (11264, 11264), 2048), ("dense down", 8192, (2048,), 11264),
     ("shared gate+up", 8192, (2816, 2816), 2048), ("shared down", 8192, (2048,), 2816),
-    ("expert gate+up", 771, (1408, 1408), 2048), ("expert down", 771, (2048,), 1408),
+    ("ragged tail gate+up", 771, (1408, 1408), 2048), ("ragged tail down", 771, (2048,), 1408),
 )
 
 
@@ -4312,8 +4330,8 @@ def gemm_linear_errors(dev, rows, outs, K, gen):
 
 
 def phase_gemm_linear(dev):
-    """``gemm_linear`` (the DeepSeek tower's projections and experts) at the
-    tower's shapes: forward (bf16, atol=rtol=ATOL_BF16), dx and every dW
+    """``gemm_linear`` (the DeepSeek tower's projections, dense layer and
+    shared experts, and a ragged M tail) at the tower's shapes: forward (bf16, atol=rtol=ATOL_BF16), dx and every dW
     (within GRAD_TOL_BF16 of each tensor's largest magnitude) against the
     plain f32 version, and the device time of a forward and backward."""
     import torch
@@ -4331,6 +4349,195 @@ def phase_gemm_linear(dev):
         del once
         torch.cuda.empty_cache()
     log(f"gemm_linear times above: device time a forward and backward, on {smi_line()}")
+
+
+# one MoE layer's routed experts at the moonlight.train cell's shapes: T tokens, k choices
+# of EXPERTS, the first HELD held (as mer_moonlight holds them), widths E and F
+MOE_T, MOE_K, MOE_E, MOE_F, MOE_HELD, MOE_EXPERTS = 8192, 6, 2048, 1408, 8, 64
+
+
+def moe_case(dev, gen, skewed: bool):
+    """bf16 h [T, E], f32 routing weights [T, k], the choice [T, k] of k of
+    the 64 experts, the held experts' f32 gate, up and down weights.
+    ``skewed``: no token takes expert 0 and the first 3186 take expert 1
+    (the most rows a held expert took in a traced moonlight.train step);
+    else every choice at random."""
+    import torch
+
+    T, k, E, Fd, n = MOE_T, MOE_K, MOE_E, MOE_F, MOE_HELD
+    scores = torch.rand(T, MOE_EXPERTS, generator=gen, device=dev)
+    if skewed:
+        scores[:, 0] = -1.0
+        scores[:3186, 1] = 2.0
+        scores[3186:, 1] = -1.0
+    choice = scores.topk(k, dim=-1).indices
+    weights = torch.rand(T, k, generator=gen, device=dev) + 0.05
+    h = torch.randn(T, E, generator=gen, device=dev).to(torch.bfloat16)
+    params = [torch.randn(*shape, generator=gen, device=dev) * shape[1] ** -0.5
+              for shape in [(Fd, E)] * (2 * n) + [(E, Fd)] * n]
+    return h, weights, choice, params
+
+
+def moe_loop(h, weights, choice, gates, ups, downs):
+    """The held experts as models/deepseek.py ran them before
+    ``moe_experts``: one host read of the row counts, then for each held
+    expert its rows' gather, gate|up and down on ``gemm_linear``, the SiLU
+    product in f32 and an f32 ``index_add_``."""
+    import torch
+    import torch.nn.functional as F
+
+    from simple_multimodal_tpu_torch.ops.hopper.gemm import gemm_linear
+
+    k, n = choice.shape[1], len(gates)
+    slot = torch.where(choice < n, choice, n).reshape(-1)
+    order = torch.argsort(slot, stable=True)
+    sizes = torch.bincount(slot, minlength=n + 1)[:n].tolist()
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    weights = weights.reshape(-1)
+    start = 0
+    for j, rows in enumerate(sizes):
+        if rows:
+            idx = order[start:start + rows]
+            tokens = idx // k
+            g, u = gemm_linear(h[tokens], gates[j], ups[j]).chunk(2, dim=-1)
+            y = gemm_linear((F.silu(g.float()) * u.float()).to(h.dtype), downs[j])
+            out.index_add_(0, tokens, y.float() * weights[idx, None])
+        start += rows
+    return out
+
+
+def _moe_errors(got, want):
+    """(the forward's largest abs error, whether it is within ATOL_BF16
+    (atol=rtol), the gradients' largest error as a share of each tensor's
+    largest magnitude) of [output, *gradients] against the same of another
+    path; a gradient that is zero in ``want`` (an idle expert's) is held
+    apart."""
+    import torch
+
+    err = float((got[0] - want[0]).abs().max())
+    ok = bool(torch.allclose(got[0], want[0], atol=ATOL_BF16, rtol=ATOL_BF16))
+    grad = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+               for a, b in zip(got[1:], want[1:]) if b.abs().max() > 0)
+    return err, ok, grad
+
+
+def phase_moe_experts(dev):
+    """The routed experts of one MoE layer at the moonlight.train shapes
+    (``moe_experts``, ``csrc/moe_experts_wgmma.cu``) against the plain f32
+    version (``moe_experts_plain`` on the same bf16-rounded operands) and
+    the per-expert loop they replace (``moe_loop``), for a skewed routing
+    (an idle expert, one with 3186 rows) and a drawn one: the forward within
+    ATOL_BF16, dh, the routing weights' gradient and every dW within
+    GRAD_TOL_BF16 of the tensor's largest magnitude, the idle expert's
+    gradients zero; the same device kernels, as many, under both routings;
+    the time of a forward and backward, the kernels and the loop (CUDA
+    events over back-to-back calls, and the host's wall time a call ended
+    by a synchronise), beside the bound: the products' FLOP (3 products of
+    2 E F a row forward, twice that backward) over 989 TFLOP/s. Then a
+    whole MoE layer (``models/deepseek.py::MoE``, 8 of 64 experts held) at
+    the tower's widths, forward and backward on T tokens, with
+    ``moe_experts.launches`` set to 0 just before: it reads 1."""
+    import torch
+
+    from simple_multimodal_tpu_torch.ops.hopper.moe_experts import (
+        dispatch,
+        moe_experts,
+        moe_experts_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    n = MOE_HELD
+    kernels = {}
+    for skewed in (True, False):
+        h, weights, choice, params = moe_case(dev, gen, skewed)
+        gy = torch.randn(MOE_T, MOE_E, generator=gen, device=dev).to(torch.bfloat16).float()
+        leaves = [h, weights] + params
+
+        def grouped(ts):
+            plan = dispatch(choice, 0, n)
+            return moe_experts(ts[0], ts[1], plan, ts[2:2 + n], ts[2 + n:2 + 2 * n], ts[2 + 2 * n:])
+
+        def loop(ts):
+            return moe_loop(ts[0], ts[1], choice, ts[2:2 + n], ts[2 + n:2 + 2 * n], ts[2 + 2 * n:])
+
+        results = {}
+        for name, fn in (("grouped", grouped), ("loop", loop)):
+            ts = [t.clone().requires_grad_() for t in leaves]
+            out = fn(ts)
+            out.backward(gy)
+            # the loop gives an idle expert no gradient: zeros
+            results[name] = [out.detach()] + [torch.zeros_like(t) if t.grad is None else t.grad
+                                              for t in ts]
+            del out
+
+            def once(fn=fn, ts=ts):
+                for t in ts:
+                    t.grad = None
+                fn(ts).backward(gy)
+
+            results[name + " ms"] = _back_to_back_ms(once, reps=5)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                once()
+            sync()
+            results[name + " host ms"] = (time.perf_counter() - t0) / 5 * 1e3
+            if name == "grouped":
+                kernels[skewed] = _log_device_times(
+                    f"moe_experts fwd+bwd ({'skewed' if skewed else 'drawn'} routing)", once,
+                    reps=3, top=12)
+        # the plain version in f32 on the same bf16-rounded operands, as the GPU test holds it
+        ts = [h.float().requires_grad_(), weights.clone().requires_grad_()] + [
+            p.to(torch.bfloat16).float().requires_grad_() for p in params]
+        out = moe_experts_plain(ts[0], ts[1], dispatch(choice, 0, n).slot, ts[2:2 + n],
+                                ts[2 + n:2 + 2 * n], ts[2 + 2 * n:])
+        out.backward(gy)
+        results["plain"] = [out.detach()] + [t.grad for t in ts]
+        del out, ts
+        got = results["grouped"]
+        idle = [bool(t.any()) for t in (got[3], got[3 + n], got[3 + 2 * n])] if skewed else []
+        rows = int((choice < n).sum())
+        bound_ms = rows * 3 * 2 * MOE_E * MOE_F * 3 / 989e12 * 1e3
+        routing = "skewed" if skewed else "drawn"
+        for against in ("plain", "loop"):
+            err, ok, grad = _moe_errors(got, results[against])
+            log(f"moe_experts {routing} routing ({rows} rows to {n} held experts) against the "
+                f"{against}: err={err:.2e} grad err/max={grad:.2e}")
+            if not ok or not grad <= GRAD_TOL_BF16 or any(idle):
+                raise AssertionError(f"moe_experts: disagrees with the {against} version ("
+                                     f"forward err {err:.3e}, gradients {grad:.3e} of their "
+                                     f"largest magnitude, the idle expert's gradients nonzero: "
+                                     f"{idle})")
+        log(f"moe_experts {routing} routing: fwd+bwd ms={results['grouped ms']:.3f} (host "
+            f"{results['grouped host ms']:.3f}), per-expert loop {results['loop ms']:.3f} (host "
+            f"{results['loop host ms']:.3f}), bound {bound_ms:.4f}")
+        del results, got
+        torch.cuda.empty_cache()
+    if kernels[True] != kernels[False]:
+        raise AssertionError(f"moe_experts launches other kernels under another routing: "
+                             f"{kernels[True]} against {kernels[False]}")
+    log(f"moe_experts: the same {sum(kernels[True].values()):.0f} device kernels a forward and "
+        f"backward under both routings, on {smi_line()}")
+
+    from simple_multimodal_tpu_torch.models.deepseek import DeepseekConfig, MoE
+
+    layer = MoE(DeepseekConfig(expert_share=(0, MOE_EXPERTS // MOE_HELD))).to(dev)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    x = torch.randn(8, MOE_T // 8, MOE_E, generator=gen, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+    moe_experts.launches = 0
+    layer(x, torch.bfloat16).float().square().mean().backward()
+    sync()
+    launches = moe_experts.launches
+    log(f"moe_experts main path: a MoE layer's forward and backward on {MOE_T} tokens counted "
+        f"{launches} launch(es) of moe_experts")
+    if launches != 1 or x.grad is None:
+        raise AssertionError(f"moe_experts: a MoE layer's forward and backward counted {launches} "
+                             f"launches, not 1")
+    del layer, x
+    torch.cuda.empty_cache()
 
 
 # the benchmark configurations whose parameter lists the AdamW phase updates
@@ -4676,6 +4883,9 @@ def main() -> int:
         if "--gemm-linear" in argv:
             phase_gemm_linear(dev)
             return 0
+        if "--moe-experts" in argv:
+            phase_moe_experts(dev)
+            return 0
         if "--adamw" in argv:
             phase_adamw(dev)
             return 0
@@ -4686,6 +4896,7 @@ def main() -> int:
             return 0
         phase_gemm(dev)
         phase_gemm_linear(dev)
+        phase_moe_experts(dev)
         phase_adamw(dev)
         phase_ffn_bwd_kernels(dev)
         kern = phase_kernels(dev)

@@ -48,6 +48,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace smm {
 namespace {
@@ -56,20 +57,9 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSM = 4;
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 132;
-    return sms;
-  }();
-  return n;
-}
-
 // A persistent grid: as many blocks as stay resident, or one a chunk where that is fewer.
 int grid_for(int n_chunks) {
-  const int resident = sm_count() * kBlocksPerSM;
+  const int resident = hopper::sm_count() * kBlocksPerSM;
   return n_chunks < resident ? n_chunks : resident;
 }
 

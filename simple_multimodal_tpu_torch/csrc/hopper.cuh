@@ -321,6 +321,21 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
+// ------------------------------------------------------------ host: device
+
+// The current device's multiprocessor count, read once (132 where it cannot
+// be read): persistent grids size themselves by it.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 132;
+    return sms;
+  }();
+  return n;
+}
+
 // ------------------------------------------------------- host: tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -32,15 +32,18 @@ expert parallelism holds them. The router scores all experts; the output
 adds only the held experts' terms, and what the other blocks' experts would
 add is left out (no exchange runs, and nothing stands in for it). Each MoE
 layer counts the rows routed to each held expert in ``routed_rows``, on
-the device: the forward's one host synchronisation a layer is the held
-experts' row counts, which the per-expert products need. A held expert
-that gets no rows still enters the graph (times zero), so that its weights
-get a zero gradient and not none.
+the device. Nothing in a layer reads the routing back to the host: the
+counts, each held expert's rows in expert-sorted order and their offsets
+stay on the device (``ops/hopper/moe_experts.py::dispatch``), and the held
+experts run as one ``moe_experts`` call whose launches and shapes do not
+depend on the routing. A held expert that gets no rows gets a zero
+gradient.
 
 The tower computes in ``dtype`` (bf16 on the card) over f32 parameters;
 the router's logits, sigmoid, choice and weights in f32, as the published
-code. Projections and expert products run through ``ops/hopper/gemm.py``'s
-``gemm_linear``; the attention core through
+code. Projections, the dense FFN and the shared experts run through
+``ops/hopper/gemm.py``'s ``gemm_linear``, the routed experts through
+``ops/hopper/moe_experts.py``'s ``moe_experts``; the attention core through
 ``F.scaled_dot_product_attention`` with the causal flag, the value padded
 with zeros to the query width (the flash and memory-efficient kernels take
 one head width) and cut back. While a profiler records, each layer's
@@ -55,6 +58,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.hopper.gemm import gemm_linear
+from ..ops.hopper.moe_experts import dispatch, moe_experts
 from ..utils.profiling import annotate
 
 MOONLIGHT = "moonshotai/Moonlight-16B-A3B"
@@ -253,32 +257,17 @@ class MoE(nn.Module):
         cfg = self.cfg
         shape = x.shape
         h = x.reshape(-1, shape[-1])
-        k, n = cfg.num_experts_per_tok, len(self.held)
         with annotate("smm.moe.route"):
             logits = F.linear(h.float(), self.gate.weight)
-            choice, weights = route(logits, self.gate.e_score_correction_bias, k,
-                                    cfg.routed_scaling_factor)
-            local = choice - self.held.start
-            slot = torch.where((local >= 0) & (local < n), local, n).reshape(-1)
-            order = torch.argsort(slot, stable=True)
-            counts = torch.bincount(slot, minlength=n + 1)[:n]
-            self.routed_rows += counts
-            sizes = counts.tolist()  # the layer's one host synchronisation
+            choice, weights = route(logits, self.gate.e_score_correction_bias,
+                                    cfg.num_experts_per_tok, cfg.routed_scaling_factor)
+            plan = dispatch(choice, self.held.start, len(self.held))
+            self.routed_rows += plan.counts
         with annotate("smm.moe.experts"):
-            out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-            weights = weights.reshape(-1)
-            start, idle = 0, []
-            for j, rows in zip(self.held, sizes):
-                if rows:
-                    idx = order[start:start + rows]
-                    tokens = idx // k
-                    y = self.experts[str(j)](h[tokens], dtype)
-                    out.index_add_(0, tokens, y.float() * weights[idx, None])
-                elif torch.is_grad_enabled():
-                    idle += [p.sum() for p in self.experts[str(j)].parameters()]
-                start += rows
-            if idle:  # zero gradients, so every data-parallel rank reduces the same list
-                out = out + 0.0 * torch.stack(idle).sum()
+            experts = [self.experts[str(j)] for j in self.held]
+            out = moe_experts(h, weights, plan, [e.gate_proj.weight for e in experts],
+                              [e.up_proj.weight for e in experts],
+                              [e.down_proj.weight for e in experts])
         with annotate("smm.moe.shared"):
             shared = self.shared_experts(h, dtype)
         return (shared.float() + out).to(dtype).reshape(shape)

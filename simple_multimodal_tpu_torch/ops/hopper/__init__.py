@@ -20,6 +20,11 @@ linear layers; it has no counter. ``adamw`` holds the optimizer's two
 kernels (``foreach_sumsq``, ``foreach_adamw``), which ``train/optim.py``'s
 ``AdamWChain`` launches on the card; their counters are their own
 ``launches`` attributes, one an update each, outside ``launch_counts()``.
+``moe_experts`` holds the routed experts of a DeepSeek MoE layer (the
+weight cast, grouped wgmma products whose row offsets stay on the device,
+fixed-order gathers), ``models/deepseek.py``'s path for them; its counter,
+``moe_experts.launches``, one a layer forward, is outside
+``launch_counts()`` too.
 """
 from . import attention_block, deberta_attention, ffn_block, flash_attention, pos_conv, wav_frontend
 

@@ -96,6 +96,19 @@ SIGNATURES = {
     # grads, params, mu, nu, backbone, numel, chunk_leaf, chunk_begin; n_chunks, chunk; norm;
     # clip, lr, b1, b2, 1 - b1, 1 - b2, the two bias corrections, eps, wd, backbone scale; stream
     "smm_foreach_adamw": [_P] * 8 + [_I] * 2 + [_P] + [_F] * 11 + [_P],
+    # the routed experts (moe_experts_wgmma.cu): pointer table of 3n f32 weights, n, E, F, w1s,
+    # w2s, stream
+    "smm_moe_cast": [_P] + [_I] * 3 + [_P] * 3,
+    # h, weights, dout, entry, counts, poff; n, k, E, rows; xs, ws, dys; stream
+    "smm_moe_gather": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    # mode; a, b, gu, ws, out0, out1, part, poff; n, rows, E, F; stream
+    "smm_moe_gemm": [_I] + [_P] * 8 + [_I] * 4 + [_P],
+    # ys, pos; T, k, E; out; stream
+    "smm_moe_combine": [_P] * 2 + [_I] * 3 + [_P] * 2,
+    # dxs, part, pos; T, k, E, F; dh, dweights; stream
+    "smm_moe_token_grad": [_P] * 3 + [_I] * 4 + [_P] * 3,
+    # -> bytes of dynamic shared memory of moe_gemm_kernel
+    "smm_moe_gemm_smem": [],
     # N; a, bt, v, c, o; stream
     "smm_hopper_selftest_mma": [_I] + [_P] * 6,
     # swizzle bytes; src, out; rows, cols, r0, c0; stream

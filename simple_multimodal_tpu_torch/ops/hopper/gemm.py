@@ -9,8 +9,8 @@ the wgmma/TMA kernel where ``gemm_route`` says so, the WMMA kernel of
 against ``gemm_plain``; the blocks' C chains call the same ``launch_gemm``
 directly. ``gemm_linear`` is a bias-free linear layer on it whose backward's
 two products run on it too (over transposed copies of the operands): the
-DeepSeek text tower's projections and experts (``models/deepseek.py``) go
-through it. ``accumulator_owner`` mirrors the register layout of a wgmma
+DeepSeek text tower's projections, dense FFN and shared experts
+(``models/deepseek.py``) go through it. ``accumulator_owner`` mirrors the register layout of a wgmma
 accumulator, in which the kernel's epilogue and the attention core's
 dropout address their elements.
 """

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile, record_function
 
 import _torch_dist as td
@@ -27,6 +28,7 @@ from portbench.reference import moonlight as ml
 from portbench.tests.tiny_moonlight import TOWER, tiny_moonlight_config
 from simple_multimodal_tpu_torch.models.deepseek import (MOONLIGHT, DeepseekConfig, DeepseekModel,
                                                          MoE, apply_rope, route)
+from simple_multimodal_tpu_torch.ops.hopper.moe_experts import TILE, dispatch, rows_bound
 from simple_multimodal_tpu_torch.models.safetensors_io import (deepseek_state_dict,
                                                                load_pretrained_backbones,
                                                                save_safetensors)
@@ -197,6 +199,123 @@ def test_expert_shares_add_up_to_the_uncut_layer():
     torch.testing.assert_close(total, want, atol=1e-5, rtol=1e-5)
 
 
+# ------------------------------------------------------- the routed experts
+
+def per_expert_loop(moe, h):
+    """The held experts as ``MoE.forward`` ran them before ``moe_experts``
+    (f32): a host read of the row counts, then for each held expert its
+    rows' gather, its MLP on ``gemm_linear`` and an f32 ``index_add_``; an
+    idle expert enters the graph times zero."""
+    cfg = moe.cfg
+    k, n = cfg.num_experts_per_tok, len(moe.held)
+    choice, weights = route(F.linear(h.float(), moe.gate.weight),
+                            moe.gate.e_score_correction_bias, k, cfg.routed_scaling_factor)
+    local = choice - moe.held.start
+    slot = torch.where((local >= 0) & (local < n), local, n).reshape(-1)
+    order = torch.argsort(slot, stable=True)
+    sizes = torch.bincount(slot, minlength=n + 1)[:n].tolist()
+    out = torch.zeros(h.shape, dtype=torch.float32)
+    weights = weights.reshape(-1)
+    start, idle = 0, []
+    for j, rows in zip(moe.held, sizes):
+        if rows:
+            idx = order[start:start + rows]
+            tokens = idx // k
+            y = moe.experts[str(j)](h[tokens], torch.float32)
+            out.index_add_(0, tokens, y.float() * weights[idx, None])
+        else:
+            idle += [p.sum() for p in moe.experts[str(j)].parameters()]
+        start += rows
+    if idle:
+        out = out + 0.0 * torch.stack(idle).sum()
+    return out
+
+
+# correction biases that force a routing: expert 5 taken by no token, expert 3 by every one
+ROUTINGS = {"as drawn": {}, "an idle expert": {5: -100.0}, "an expert every token takes": {3: 100.0},
+            "both": {3: 100.0, 5: -100.0}}
+
+
+@pytest.mark.parametrize("bias", list(ROUTINGS.values()), ids=list(ROUTINGS))
+def test_grouped_experts_match_the_loop_and_the_reference(bias):
+    """A MoE layer on ``moe_experts``' plain version against the parent's
+    per-expert loop (with the same shared experts) and against the
+    reference's layer: the output at 1e-5, the input's and every
+    parameter's gradient at 1e-4, and the counts the dispatch keeps."""
+    tower, P, c = program_tower((0, 1))
+    moe = tower.layers[1].mlp
+    lp = ml.PREFIX + "layers.1.mlp."
+    with torch.no_grad():
+        for j, b in bias.items():
+            moe.gate.e_score_correction_bias[j] = b
+    P = dict(P, **{lp + "gate.e_score_correction_bias": moe.gate.e_score_correction_bias.clone()})
+    x = torch.randn(2, S, 64, generator=torch.Generator().manual_seed(8))
+    w = torch.randn(2, S, 64, generator=torch.Generator().manual_seed(9))
+    names = [n for n, _ in moe.named_parameters()]
+
+    def run(fn, leaves):
+        xs = x.clone().requires_grad_()
+        for t in leaves:
+            t.grad = None
+        out = fn(xs)
+        (out * w).sum().backward()
+        # the reference gives an idle expert no gradient: zeros
+        return [out.detach(), xs.grad] + [torch.zeros_like(t) if t.grad is None else t.grad
+                                          for t in leaves]
+
+    def loop(xs):
+        h = xs.reshape(-1, 64)
+        return (moe.shared_experts(h, torch.float32) + per_expert_loop(moe, h)).reshape(x.shape)
+
+    params = list(moe.parameters())
+    got = run(lambda xs: moe(xs, torch.float32), params)
+    want_loop = run(loop, params)
+    leaves = [P[lp + n].clone().requires_grad_() for n in names]
+    ref_p = dict(P, **{lp + n: t for n, t in zip(names, leaves)})
+    want_ref = run(lambda xs: ml.moe(ref.Run(), ref_p, c, lp, xs), leaves)
+    for want in (want_loop, want_ref):
+        for i, (a, b) in enumerate(zip(got, want)):
+            tol = 1e-5 if i == 0 else 1e-4
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol,
+                                       msg=(["output", "input"] + names)[i])
+    h = x.reshape(-1, 64)
+    with torch.no_grad():
+        choice, _ = route(F.linear(h, moe.gate.weight), moe.gate.e_score_correction_bias, 4, 1.0)
+    plan = dispatch(choice, 0, 16)
+    assert torch.equal(plan.counts.long(), torch.bincount(choice.reshape(-1), minlength=16))
+    if 5 in bias:
+        assert int(plan.counts[5]) == 0 and not any(p.grad.any() for p in
+                                                    moe.experts["5"].parameters())
+    if 3 in bias:
+        assert int(plan.counts[3]) == h.shape[0]
+    assert torch.equal(moe.routed_rows, plan.counts.long())
+
+
+@pytest.mark.parametrize("share,T", [((0, 1), 40), ((1, 4), 300), ((3, 4), 1)])
+def test_dispatch_places_every_held_choice_once_in_expert_order(share, T):
+    """``dispatch``: each held (token, choice) gets one row inside its
+    expert's segment, in (token, choice) order; segments are padded to
+    multiples of 128 and fit the bound; the other choices get −1."""
+    k, experts = 4, 16
+    n = experts // share[1]
+    start = share[0] * n
+    g = torch.Generator().manual_seed(T)
+    choice = torch.stack([torch.randperm(experts, generator=g)[:k] for _ in range(T)])
+    plan = dispatch(choice, start, n)
+    offsets, counts, pos = plan.offsets.tolist(), plan.counts.tolist(), plan.pos.reshape(-1)
+    assert offsets[0] == 0 and all(o % TILE == 0 for o in offsets)
+    assert offsets[-1] <= plan.rows == rows_bound(T, k, n)
+    for e in range(n):
+        assert offsets[e + 1] - offsets[e] == -(-counts[e] // TILE) * TILE
+        mine = [i for i, j in enumerate(choice.reshape(-1).tolist()) if j == start + e]
+        assert len(mine) == counts[e]
+        assert pos[mine].tolist() == list(range(offsets[e], offsets[e] + counts[e]))
+        assert plan.entry[pos[mine].long()].tolist() == mine
+    held = (choice >= start) & (choice < start + n)
+    assert torch.equal(plan.pos < 0, ~held)
+    assert torch.equal(plan.slot, torch.where(held, choice - start, n))
+
+
 # -------------------------------------------------------- the whole model
 
 def test_a_train_step_matches_the_reference():
@@ -290,8 +409,9 @@ def test_the_tower_spans_nest_under_the_text_encoder(tmp_path):
 
 def test_the_counter_adds_no_host_synchronisation(tmp_path, monkeypatch):
     """A train step reads back from the tensors exactly what the DeBERTa
-    model's step reads plus one row count a MoE layer (the dispatch's):
-    the counter adds none, and it holds every routed row."""
+    model's step reads: no MoE layer reads its routing (no ``tolist`` of
+    the row counts), the counter adds nothing, and it holds every routed
+    row."""
     from simple_multimodal_tpu_torch.train.state import TrainState
 
     reads = []
@@ -319,7 +439,7 @@ def test_the_counter_adds_no_host_synchronisation(tmp_path, monkeypatch):
     reads.clear()
     step(TrainState.create(0), batch)
     moe_layers = sum(isinstance(layer.mlp, MoE) for layer in tower.layers)
-    assert sorted(reads) == sorted(base + ["tolist"] * moe_layers)
+    assert sorted(reads) == sorted(base)
     monkeypatch.undo()
     k = tower.cfg.num_experts_per_tok
     assert tower.routed_rows().sum().item() == moe_layers * 4 * 16 * k

@@ -18,6 +18,7 @@ from simple_multimodal_tpu_torch.ops.hopper import attention_block as ab
 from simple_multimodal_tpu_torch.ops.hopper import deberta_attention as da
 from simple_multimodal_tpu_torch.ops.hopper import ffn_block as fb
 from simple_multimodal_tpu_torch.ops.hopper import flash_attention as fa
+from simple_multimodal_tpu_torch.ops.hopper import moe_experts as me
 from simple_multimodal_tpu_torch.ops.hopper import pos_conv as pc
 from simple_multimodal_tpu_torch.ops.hopper import wav_frontend as wf
 from simple_multimodal_tpu_torch.train.losses import total_loss
@@ -1045,6 +1046,104 @@ def test_cuda_gemm_linear_matches_plain_at_the_tower_shapes(cuda, rows, outs, K)
         assert float((got.float() - want).abs().max()) <= 5e-2 * float(want.abs().max())
     with pytest.raises(TypeError, match="bfloat16"):
         gemm_linear(x.detach().float(), *ws)
+
+
+# one MoE layer's routed experts at the Moonlight tower's shapes (moonlight.train)
+MOE_T, MOE_K, MOE_E, MOE_F, MOE_HELD, MOE_EXPERTS = 8192, 6, 2048, 1408, 8, 64
+
+
+def _moe_case(cuda, skewed=True, seed=0):
+    """bf16 h [T, E], routing weights [T, k] and the choice of k of 64
+    experts (8 held: 0-7), and the held experts' f32 gate, up and down
+    weights. ``skewed``: no token takes expert 0 and the first 3186 take
+    expert 1 (the most rows a held expert took in a traced moonlight.train
+    step), the rest at random."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    T, k, E, Fd, n = MOE_T, MOE_K, MOE_E, MOE_F, MOE_HELD
+    scores = torch.rand(T, MOE_EXPERTS, generator=g, device=cuda)
+    if skewed:
+        scores[:, 0] = -1.0
+        scores[:3186, 1] = 2.0
+        scores[3186:, 1] = -1.0
+    choice = scores.topk(k, dim=-1).indices
+    weights = torch.rand(T, k, generator=g, device=cuda) + 0.05
+    h = torch.randn(T, E, generator=g, device=cuda).to(torch.bfloat16)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda) * shape[1] ** -0.5
+
+    params = [rn(Fd, E) for _ in range(2 * n)] + [rn(E, Fd) for _ in range(n)]
+    return h, weights, choice, params
+
+
+def test_cuda_moe_experts_match_plain_at_the_tower_shapes(cuda):
+    """``moe_experts`` on the card (E 2048, F 1408, 8 held of 64, k 6, T
+    8192; one held expert with no rows, one with 3186): the forward at
+    3e-2, dh, the routing weights' gradient and every expert weight's dW
+    within 5e-2 of the tensor's largest magnitude, against autograd of the
+    plain f32 version on the same bf16-rounded operands; the idle expert's
+    gradients are zeros; one counted launch; a float32 h raises."""
+    h, weights, choice, params = _moe_case(cuda)
+    n = MOE_HELD
+    plan = me.dispatch(choice, 0, n)
+    assert int(plan.counts[0]) == 0 and int(plan.counts[1]) == 3186
+    x = h.clone().requires_grad_()
+    w = weights.clone().requires_grad_()
+    ps = [p.clone().requires_grad_() for p in params]
+    before = me.moe_experts.launches
+    out = me.moe_experts(x, w, plan, ps[:n], ps[n:2 * n], ps[2 * n:])
+    assert me.moe_experts.launches == before + 1
+    gy = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                     device=cuda).to(torch.bfloat16).float()
+    out.backward(gy)
+    xf = h.float().requires_grad_()
+    wf = weights.clone().requires_grad_()
+    pf = [p.to(torch.bfloat16).float().requires_grad_() for p in params]
+    want = me.moe_experts_plain(xf, wf, plan.slot, pf[:n], pf[n:2 * n], pf[2 * n:])
+    want.backward(gy)
+    assert out.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    torch.testing.assert_close(out, want.detach(), atol=3e-2, rtol=3e-2)
+    for name, got, ref in [("dh", x.grad, xf.grad), ("dweights", w.grad, wf.grad)] + [
+            (f"dW {i}", p.grad, q.grad) for i, (p, q) in enumerate(zip(ps, pf))]:
+        assert got.shape == ref.shape and got.dtype == (torch.bfloat16 if name == "dh"
+                                                        else torch.float32), name
+        scale = float(ref.abs().max())
+        assert float((got.float() - ref).abs().max()) <= 5e-2 * max(scale, 1e-30), name
+    for p in (ps[0], ps[n], ps[2 * n]):  # expert 0 took no row
+        assert not p.grad.any()
+    with pytest.raises(TypeError, match="bfloat16"):
+        me.moe_experts(h.float(), weights, plan, params[:n], params[n:2 * n], params[2 * n:])
+
+
+def test_cuda_moe_layer_makes_no_host_synchronisation(cuda):
+    """A whole MoE layer at the Moonlight tower's widths (router, dispatch,
+    the held experts, the shared experts), forward and backward, under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing synchronises, and
+    ``moe_experts`` counts one launch a layer forward."""
+    from simple_multimodal_tpu_torch.models.deepseek import DeepseekConfig, MoE
+
+    layer = MoE(DeepseekConfig(expert_share=(0, MOE_EXPERTS // MOE_HELD))).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    x = torch.randn(8, 1024, MOE_E, generator=g, device=cuda).to(torch.bfloat16)
+
+    def step():
+        xs = x.clone().requires_grad_()
+        layer(xs, torch.bfloat16).float().square().mean().backward()
+
+    step()  # the build and the first launches
+    torch.cuda.synchronize()
+    before = me.moe_experts.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert me.moe_experts.launches == before + 1
+    assert all(p.grad is not None for p in layer.parameters())
 
 
 def _adamw_leaves(case):
